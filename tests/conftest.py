@@ -37,6 +37,9 @@ def _slow_ids():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy test (>= 3.5 s); excluded by -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+        "without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,177 @@
+"""The port's scene instantiation against the reference's, byte for byte.
+
+Both packages turn the same scene definition into the same host tables
+(SAH BVH, 32-ary wide rows with f16 child boxes, quad-packed attributes,
+packed materials, camera): every slice field must be ``np.array_equal``
+with the same dtype, and the static fields equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+import ray_tracer_2_tpu.math.transform as ref_transform
+import ray_tracer_2_tpu.scene.camera as ref_camera
+import ray_tracer_2_tpu.scene.definition as ref_definition
+import ray_tracer_2_tpu.scene.material as ref_material
+from ray_tracer_2_tpu.scene.render_scene import \
+    instantiate_scene as ref_instantiate
+import ray_tracer_2_tpu_torch.math.transform as port_transform
+import ray_tracer_2_tpu_torch.scene.camera as port_camera
+import ray_tracer_2_tpu_torch.scene.definition as port_definition
+import ray_tracer_2_tpu_torch.scene.material as port_material
+from ray_tracer_2_tpu_torch.accel.bvh import NATIVE_MIN_TRIS
+from ray_tracer_2_tpu_torch.math.transform import Transform
+from ray_tracer_2_tpu_torch.scene import scenes
+from ray_tracer_2_tpu_torch.scene.render_scene import (
+    FIELDS, STATICS, TorchScene, instantiate_scene,
+)
+from torch_bridge import torch_scene, wide_bvh_render_scene
+
+REF = (ref_transform, ref_camera, ref_definition, ref_material)
+PORT = (port_transform, port_camera, port_definition, port_material)
+
+
+def _dragon_bench_definition(api, positions, normals):
+    """One mesh under bench.dragon_scene's camera, transform, material and
+    ground sphere, written against either package's API."""
+    transform, camera, definition, material = api
+    s = definition.SceneDefinition()
+    s.set_camera(camera.CameraDescriptor(
+        transform=transform.Transform.cam([0.0, 1.0, 4.0], [0.0, 0.7, 0.0]),
+        fov=40.0, focus_dist=4.0))
+    s.add_mesh(transform.Transform(pos=[0.0, 0.6, 0.0],
+                                   rot=transform.quat_rotate_y(-1.5708),
+                                   scale=[3.0, 3.0, 3.0]),
+               definition.MeshFromData(
+                   definition.MeshData.from_vertices(positions, normals)),
+               material.MaterialDefinition.new()
+               .with_color([0.96078, 0.11372, 0.4039, 1.0])
+               .smooth(0.8).specular_([1.0] * 4, 0.015))
+    s.add_sphere([0.0, -1000.0, 0.0], 1000.0,
+                 material.MaterialDefinition.new()
+                 .with_color([0.5, 0.5, 0.5, 1.0]))
+    return s
+
+
+def _latlon(lat, lon):
+    """The soup of __graft_entry__._wide_bvh_scene, quad by quad: unit
+    positions, which are also the normals."""
+    th = np.linspace(0.0, np.pi, lat + 1)
+    ph = np.linspace(0.0, 2 * np.pi, lon + 1)
+    p = np.stack(np.meshgrid(th, ph, indexing="ij"), axis=-1)
+    xyz = np.stack([np.sin(p[..., 0]) * np.cos(p[..., 1]), np.cos(p[..., 0]),
+                    np.sin(p[..., 0]) * np.sin(p[..., 1])], axis=-1)
+    quads = []
+    for i in range(lat):
+        for j in range(lon):
+            a, b, c, d = (xyz[i, j], xyz[i + 1, j], xyz[i + 1, j + 1],
+                          xyz[i, j + 1])
+            quads += [[a, b, c], [a, c, d]]
+    return np.asarray(quads, np.float32).reshape(-1, 3)
+
+
+def _torus(nu, nv, big=0.3, small=0.12):
+    """Torus soup, 2 * nu * nv triangles: non-convex, so the SAH splits
+    see overlapping and nested boxes."""
+    u = np.linspace(0.0, 2 * np.pi, nu + 1)
+    v = np.linspace(0.0, 2 * np.pi, nv + 1)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    n = np.stack([np.cos(vv) * np.cos(uu), np.sin(vv),
+                  np.cos(vv) * np.sin(uu)], axis=-1)
+    ring = np.stack([np.cos(uu), np.zeros_like(uu), np.sin(uu)], axis=-1)
+    pos = big * ring + small * n
+    def tris(g):
+        a, b, c, d = g[:-1, :-1], g[1:, :-1], g[1:, 1:], g[:-1, 1:]
+        return np.stack([np.stack([a, b, c], -2), np.stack([a, c, d], -2)],
+                        -3).reshape(-1, 3)
+    return tris(pos).astype(np.float32), tris(n).astype(np.float32)
+
+
+def _random_soup(n, seed):
+    """n small triangles scattered through a box, with random unit normals:
+    overlapping, unconnected geometry made from a seed."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-0.3, 0.3, size=(n, 1, 3))
+    pos = centre + rng.normal(scale=0.02, size=(n, 3, 3))
+    nrm = rng.normal(size=(n, 3, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return (pos.reshape(-1, 3).astype(np.float32),
+            nrm.reshape(-1, 3).astype(np.float32))
+
+
+def _fields(ts: TorchScene) -> dict:
+    return {f: getattr(ts, f).numpy() for f in FIELDS}
+
+
+def _assert_same(rs, ts: TorchScene):
+    got = _fields(ts)
+    for f in FIELDS:
+        want = np.asarray(getattr(rs, f))
+        assert got[f].dtype == want.dtype, f
+        assert got[f].shape == want.shape, f
+        assert np.array_equal(got[f], want), f
+    assert ts.inst_spans == tuple(rs.inst_spans)
+    assert ts.wide_roots == tuple(rs.wide_roots)
+    assert ts.wide_depth == rs.wide_depth
+    assert ts.shade_classes == tuple(rs.shade_classes)
+
+
+# Meshes below NATIVE_MIN_TRIS build their BVH in numpy, the others in the
+# C++ builders of both packages.
+MESHES = {
+    "torus_3840": lambda: _torus(40, 48),
+    "torus_10240": lambda: _torus(64, 80),
+    "random_2000": lambda: _random_soup(2000, seed=0),
+    "random_6000": lambda: _random_soup(6000, seed=1),
+}
+
+
+@pytest.mark.parametrize("which", ["wide_bvh", "main_path_40",
+                                   "main_path_60", *MESHES])
+def test_instantiate_matches_reference(which):
+    """wide_bvh and main_path_n are the port's own scenes; the other meshes
+    go through the same definition in both packages."""
+    if which == "wide_bvh":
+        rs = wide_bvh_render_scene()
+        ts = instantiate_scene(scenes.wide_bvh_scene())
+    elif which.startswith("main_path"):
+        n = int(which.rsplit("_", 1)[1])
+        unit = _latlon(n, n)
+        rs = ref_instantiate(_dragon_bench_definition(
+            REF, unit * np.float32(scenes.MAIN_PATH_RADIUS), unit)) \
+            .render_scene
+        ts = instantiate_scene(scenes.main_path_scene(lat=n, lon=n))
+        assert rs.inst_spans[0][2] == 2 * n * n
+    else:
+        pos, nrm = MESHES[which]()
+        rs = ref_instantiate(_dragon_bench_definition(REF, pos, nrm)) \
+            .render_scene
+        ts = instantiate_scene(_dragon_bench_definition(PORT, pos, nrm))
+        count = int(which.rsplit("_", 1)[1])
+        assert rs.inst_spans[0][2] == count
+        assert (count >= NATIVE_MIN_TRIS) == (count > 5000)
+    _assert_same(rs, ts)
+
+
+def test_main_path_scene_size():
+    mesh = scenes.main_path_scene().entities[0].primitive.resolved()
+    assert mesh.triangle_count() == 80_000
+
+
+def test_from_numpy_round_trip():
+    rs = wide_bvh_render_scene()
+    ts = torch_scene(rs)
+    _assert_same(rs, ts)
+    assert ts.device == torch.device("cpu")
+    assert ts.to("cpu") is ts
+    again = TorchScene.from_numpy(_fields(ts),
+                                  {k: getattr(ts, k) for k in STATICS})
+    _assert_same(rs, again)
+
+
+def test_outside_the_slice_raises():
+    s = scenes.wide_bvh_scene()
+    s.add_mesh(Transform(pos=[5.0, 0.0, 0.0]), s.entities[0].primitive,
+               s.entities[0].material)   # a second instance group
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        instantiate_scene(s)
