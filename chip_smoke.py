@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, then drives the main path —
-``Renderer.render`` -> ``render_persistent`` -> the kernel — at 1920x1080,
-5 bounces, on the 80,000-triangle headline scene, and checks that every
-frame went through the kernel. Each phase prints one JSON line; the line
-before the last lists the kernels, the last line is the result. Any failed
-check raises, so the exit code is non-zero and no result line is printed.
-It needs one CUDA card and imports nothing of JAX.
+Builds the port's two CUDA kernels from the sources in this checkout (one
+nvcc each, side by side) and holds each against its plain PyTorch version
+on the card. Then it drives both paths through ``Renderer.render`` at
+1920x1080, 5 bounces, and checks that every frame went through the path's
+kernel and no other:
+
+* the main path — ``render_persistent`` -> ``csrc/megakernel.cu`` — on the
+  80,000-triangle headline scene;
+* the small-scene path — ``render_spheres`` -> ``csrc/spheres.cu`` — on
+  ``random_balls`` (485 spheres, glass, specular).
+
+Each phase prints one JSON line; the line before the last lists the
+kernels, the last line is the result. Any failed check raises, so the exit
+code is non-zero and no result line is printed. It needs one CUDA card and
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -79,14 +86,63 @@ def compare(scene, width, height, bounces, kernel, plain):
                 max_abs_err=float(err.max()), kernel_ms=k_ms, plain_ms=p_ms)
 
 
+def check_cases(cases, launch, plain, **tags):
+    """``compare`` on each (scene name, scene, width, height, bounces) case,
+    held to exact segments, NEED_FRAC of pixels within PIXEL_TOL and >= 10%
+    of pixels lit. Returns the results in order."""
+    results = []
+    for name, scene, w, h, b in cases:
+        r = compare(scene, w, h, b, launch, plain)
+        emit(phase="kernel_vs_plain", scene=name, need_frac=NEED_FRAC,
+             **tags, **r)
+        where = f"{name} at bounces={b} ({w}x{h})"
+        check(r["segments_kernel"] == r["segments_plain"],
+              f"exact segments, {where}")
+        check(r["frac_within_tol"] >= NEED_FRAC,
+              f"{r['frac_within_tol']:.4f} of pixels within {PIXEL_TOL} "
+              f"(need {NEED_FRAC}), {where}")
+        # the compared images must hold light: sky at every bounce count
+        check(r["frac_lit"] >= 0.1, f"{r['frac_lit']:.4f} of pixels lit, "
+                                    f"{where}")
+        results.append(r)
+    return results
+
+
+def drive(renderer, scene, params):
+    """FRAMES progressive frames through ``Renderer.render``, frames 2-5
+    timed on the host clock after a synchronise. Returns (seconds of the
+    timed frames, segments of each frame)."""
+    segs = []
+    t_start = None
+    for f in range(FRAMES):
+        if f == 2:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        renderer.render(scene, dataclasses.replace(params, frames=f))
+        segs.append(renderer.last_segments)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    fb = renderer.read_framebuffer()
+    check(bool(torch.isfinite(renderer.framebuffer).all()),
+          "framebuffer finite")
+    check(float(abs(fb).max()) > 0.0, "framebuffer not all zero")
+    segs = [int(s) for s in segs]
+    check(sum(segs) >= W * H * FRAMES, "at least one segment per pixel")
+    return dt, segs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from ray_tracer_2_tpu_torch.config import RenderParams
     from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+    from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         CUDA_MEGAKERNEL, render_plain,
+    )
+    from ray_tracer_2_tpu_torch.kernels.spheres import (
+        CUDA_SPHERES, render_spheres_plain,
     )
     from ray_tracer_2_tpu_torch.scene import scenes
     from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
@@ -102,76 +158,83 @@ def main() -> int:
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    # ---- 2. build ---------------------------------------------------------
+    # ---- 2. build: one nvcc per source, side by side ---------------------
     t0 = time.perf_counter()
-    CUDA_MEGAKERNEL.build()
-    ptxas = [ln.strip() for ln in CUDA_MEGAKERNEL.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=CUDA_MEGAKERNEL.build_seconds, ptxas=ptxas)
+    build_all(CUDA_MEGAKERNEL, CUDA_SPHERES)
+    for k in (CUDA_MEGAKERNEL, CUDA_SPHERES):
+        ptxas = [ln.strip() for ln in k.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit(phase="build", source=k.source.name,
+             nvcc_seconds=k.build_seconds, ptxas=ptxas)
+    emit(phase="build", seconds=time.perf_counter() - t0)
 
-    # ---- 3. kernel against plain version, on the card ---------------------
+    # ---- 3. each kernel against its plain version, on the card -----------
     small = instantiate_scene(scenes.wide_bvh_scene()).to("cuda")
     t0 = time.perf_counter()
     main_scene = instantiate_scene(scenes.main_path_scene()).to("cuda")
     scene_s = time.perf_counter() - t0
-    cases = [(small, SMALL_W, SMALL_H, 0), (small, SMALL_W, SMALL_H, 5),
-             (main_scene, W, H, 0), (main_scene, W, H, BOUNCES)]
-    results = []
-    for scene, w, h, b in cases:
-        r = compare(scene, w, h, b, CUDA_MEGAKERNEL, render_plain)
-        emit(phase="kernel_vs_plain", need_frac=NEED_FRAC, **r)
-        check(r["segments_kernel"] == r["segments_plain"],
-              f"exact segments at bounces={b} ({w}x{h})")
-        check(r["frac_within_tol"] >= NEED_FRAC,
-              f"{r['frac_within_tol']:.4f} of pixels within {PIXEL_TOL} "
-              f"(need {NEED_FRAC}) at bounces={b} ({w}x{h})")
-        # the compared images must hold light: sky at every bounce count
-        check(r["frac_lit"] >= 0.1, f"{r['frac_lit']:.4f} of pixels lit "
-                                    f"at bounces={b} ({w}x{h})")
-        results.append(r)
-    main_cmp = results[-1]
+    main_cmp = check_cases(
+        [("wide_bvh_scene", small, SMALL_W, SMALL_H, 0),
+         ("wide_bvh_scene", small, SMALL_W, SMALL_H, 5),
+         ("main_path_scene", main_scene, W, H, 0),
+         ("main_path_scene", main_scene, W, H, BOUNCES)],
+        CUDA_MEGAKERNEL, render_plain, kernel="megakernel")[-1]
+    rballs = instantiate_scene(scenes.random_balls()).to("cuda")
+    room = instantiate_scene(scenes.room()).to("cuda")
+    sph_cmp = check_cases(
+        [("random_balls", rballs, SMALL_W, SMALL_H, 0),
+         ("random_balls", rballs, SMALL_W, SMALL_H, BOUNCES),
+         ("room", room, SMALL_W, SMALL_H, 0),
+         ("room", room, SMALL_W, SMALL_H, BOUNCES),
+         ("room", room, W, H, BOUNCES),
+         ("random_balls", rballs, W, H, BOUNCES)],
+        CUDA_SPHERES, render_spheres_plain, kernel="spheres")[-1]
 
     # ---- 4. the main path -------------------------------------------------
-    renderer = Renderer(device="cuda")
     params = RenderParams(width=W, height=H, bounces=BOUNCES,
                           rays_per_pixel=1, skybox=True)
-    CUDA_MEGAKERNEL.launches = 0
-    segs = []
-    t_start = None
-    for f in range(FRAMES):
-        if f == 2:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        renderer.render(main_scene, dataclasses.replace(params, frames=f))
-        segs.append(renderer.last_segments)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t_start
+    CUDA_MEGAKERNEL.launches = CUDA_SPHERES.launches = 0
+    dt, segs = drive(Renderer(device="cuda"), main_scene, params)
     launches = CUDA_MEGAKERNEL.launches
-    timed_segs = sum(int(s) for s in segs[2:])
-    all_segs = sum(int(s) for s in segs)
-    fb = renderer.read_framebuffer()
-    check(launches == FRAMES, f"kernel launched {launches} times in "
+    check(launches == FRAMES, f"megakernel launched {launches} times in "
                               f"{FRAMES} main-path frames")
-    check(bool(torch.isfinite(renderer.framebuffer).all()),
-          "framebuffer finite")
-    check(float(abs(fb).max()) > 0.0, "framebuffer not all zero")
-    check(all_segs >= W * H * FRAMES, "at least one segment per pixel")
-    check("jax" not in sys.modules, "jax not imported")
-    frame_ms = dt * 1e3 / (FRAMES - 2)
+    check(CUDA_SPHERES.launches == 0, "no small-scene launch on the main "
+                                      "path")
     emit(phase="main_path", scene="main_path_scene (80,000 tris + ground "
          "sphere)", width=W, height=H, bounces=BOUNCES, rpp=1,
          frames=FRAMES, scene_build_s=scene_s, launches=launches,
-         segments=all_segs, timed_frames="2-5", timed_segments=timed_segs,
-         ms_per_frame=frame_ms, mrays_per_s=timed_segs / dt / 1e6,
-         card=card)
+         segments=sum(segs), timed_frames="2-5",
+         timed_segments=sum(segs[2:]),
+         ms_per_frame=dt * 1e3 / (FRAMES - 2),
+         mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
-    emit(kernels=[dict(
-        name="megakernel", route="cuda",
-        source="ray_tracer_2_tpu_torch/csrc/megakernel.cu",
-        replaces="ray_tracer_2_tpu/kernels/pallas_boundary.py:236",
-        launches=launches, max_abs_err=main_cmp["max_abs_err"],
-        ms=main_cmp["kernel_ms"], plain_ms=main_cmp["plain_ms"])])
+    # ---- 5. the small-scene path ------------------------------------------
+    CUDA_MEGAKERNEL.launches = CUDA_SPHERES.launches = 0
+    dt, segs = drive(Renderer(device="cuda"), rballs, params)
+    sph_launches = CUDA_SPHERES.launches
+    check(sph_launches == FRAMES, f"spheres kernel launched {sph_launches} "
+                                  f"times in {FRAMES} small-scene frames")
+    check(CUDA_MEGAKERNEL.launches == 0, "no megakernel launch on the "
+                                         "small-scene path")
+    check("jax" not in sys.modules, "jax not imported")
+    emit(phase="small_scene_path", scene="random_balls (485 spheres)",
+         width=W, height=H, bounces=BOUNCES, rpp=1, frames=FRAMES,
+         launches=sph_launches, segments=sum(segs), timed_frames="2-5",
+         timed_segments=sum(segs[2:]),
+         ms_per_frame=dt * 1e3 / (FRAMES - 2),
+         mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
+
+    emit(kernels=[
+        dict(name="megakernel", route="cuda",
+             source="ray_tracer_2_tpu_torch/csrc/megakernel.cu",
+             replaces="ray_tracer_2_tpu/kernels/pallas_boundary.py:236",
+             launches=launches, max_abs_err=main_cmp["max_abs_err"],
+             ms=main_cmp["kernel_ms"], plain_ms=main_cmp["plain_ms"]),
+        dict(name="spheres", route="cuda",
+             source="ray_tracer_2_tpu_torch/csrc/spheres.cu",
+             replaces="ray_tracer_2_tpu/kernels/pallas_spheres.py:149",
+             launches=sph_launches, max_abs_err=sph_cmp["max_abs_err"],
+             ms=sph_cmp["kernel_ms"], plain_ms=sph_cmp["plain_ms"])])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

@@ -1,9 +1,16 @@
 """Progressive renderer (port of ``ray_tracer_2_tpu/engine/renderer.py``).
 
-``render_frame`` renders one frame through the persistent render and blends
-it into the accumulation buffer with the reference's progressive weight
-``1/(frames+1)`` (ray_tracer.wgsl:154-161; ``frames <= 0`` overwrites).
-``Renderer`` owns that buffer on one device; the blend updates it in place.
+``render_frame`` renders one frame and blends it into the accumulation
+buffer with the reference's progressive weight ``1/(frames+1)``
+(ray_tracer.wgsl:154-161; ``frames <= 0`` overwrites). ``Renderer`` owns
+that buffer on one device; the blend updates it in place.
+
+Routing (reference ``render_sample`` and ``Renderer._use_pallas_spheres``):
+a small scene (``kernels/spheres.eligible``: spheres plus at most 64
+untextured triangles) renders through ``render_spheres``; every other
+scene through ``render_persistent``. The reference also capped the small
+path at 128 spheres, a choice between two TPU implementations; the port
+has no other path for sphere scenes, so it has no such cap.
 """
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ import numpy as np
 import torch
 
 from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
+from ray_tracer_2_tpu_torch.kernels import spheres
 from ray_tracer_2_tpu_torch.kernels.megakernel import render_persistent
 from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
 
@@ -27,14 +35,31 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a == b
 
 
+def small_scene(scene: TorchScene) -> bool:
+    """Whether ``scene`` takes the small-scene path; decided once per scene
+    (kept in ``scene.derived``)."""
+    route = scene.derived.get("small_scene")
+    if route is None:
+        route = scene.derived["small_scene"] = spheres.eligible(scene)
+    return route
+
+
 def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
                  *, width: int, height: int, bounces: int,
                  rays_per_pixel: int, skybox: bool, antialias: bool = False):
     """Render + accumulate one frame into ``framebuffer`` ((height, width, 4)
     float32, updated in place). Returns (framebuffer, segment count)."""
-    sample, segments = render_persistent(
-        scene, frames, width=width, height=height, bounces=bounces,
-        rays_per_pixel=rays_per_pixel, skybox=skybox, antialias=antialias)
+    kw = dict(width=width, height=height, bounces=bounces,
+              rays_per_pixel=rays_per_pixel, skybox=skybox)
+    if small_scene(scene):
+        if antialias:
+            raise NotImplementedError(
+                "antialias on the small-scene path waits for its slice "
+                "(ROADMAP Queue 1 item 8)")
+        sample, segments = spheres.render_spheres(scene, frames, **kw)
+    else:
+        sample, segments = render_persistent(scene, frames,
+                                             antialias=antialias, **kw)
     # the reference's float32 weight: 1 / (f + 1), and 1 - w, each rounded
     w = np.float32(1.0) / np.float32(frames + 1) if frames >= 1 \
         else np.float32(1.0)

@@ -19,6 +19,12 @@ EPSILON = float(np.float32(1e-5))       # ray_tracer.wgsl:131
 EPS_DET = float(np.float32(1e-8))       # parallel-ray cut of Möller–Trumbore
 EPS_SPHERE = float(np.float32(0.001))   # far-root cut (ray_tracer.wgsl:223-256)
 
+#: dense sphere passes switch to the shared-term formula of
+#: ``ray_sphere_fast`` at this sphere count; below it the exact
+#: reference-order quadratic of ``ray_sphere`` (reference
+#: ``kernels/intersect.py:SPHERE_FAST_MIN``)
+SPHERE_FAST_MIN = 64
+
 
 def _cross(a, b):
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
@@ -40,6 +46,32 @@ def ray_sphere(origin, direction, centre, radius):
     dst_far = (-b + s) / (2.0 * a)
     is_inside = dst_near == 0.0
     hit = (disc >= 0.0) & (dst_far >= EPS_SPHERE)
+    dst = torch.where(is_inside, dst_far, dst_near)
+    return hit, torch.where(hit, dst, torch.full_like(dst, INF)), is_inside
+
+
+def ray_sphere_fast(origin, direction, centre, k):
+    """Dense (B, S) sphere cross with shared terms (reference
+    ``ray_sphere_fast``): ``h = o.d - c.d``, ``|oc|^2 - r^2 = (|o|^2 - 2 o.c)
+    + K`` and one ``1/a`` per ray, roots ``(-h -/+ sq) * (1/a)``. The same
+    decisions as :func:`ray_sphere` up to reassociation (a grazing hit may
+    flip). ``origin``/``direction`` (B, 3), ``centre`` (S, 3), ``k`` (S,)
+    the precomputed ``|c|^2 - r^2``. Returns ``(hit, dst, is_inside)``, each
+    (B, S)."""
+    a = dot(direction, direction)[:, None]
+    od = dot(origin, direction)[:, None]
+    oo = dot(origin, origin)[:, None]
+    cd = dot(centre[None], direction[:, None])
+    co = dot(centre[None], origin[:, None])
+    h = od - cd
+    c = (oo - 2.0 * co) + k[None]
+    disc4 = h * h - a * c
+    sq2 = torch.sqrt(torch.clamp(disc4, min=0.0))
+    inv_a = 1.0 / a
+    dst_near = torch.clamp((-h - sq2) * inv_a, min=0.0)
+    dst_far = (-h + sq2) * inv_a
+    is_inside = dst_near == 0.0
+    hit = (disc4 >= 0.0) & (dst_far >= EPS_SPHERE)
     dst = torch.where(is_inside, dst_far, dst_near)
     return hit, torch.where(hit, dst, torch.full_like(dst, INF)), is_inside
 

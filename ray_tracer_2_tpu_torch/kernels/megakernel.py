@@ -24,12 +24,6 @@ construction and have no counterpart here.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +35,9 @@ from ray_tracer_2_tpu_torch.accel.wide import (
     N_AABB_COLS,
 )
 from ray_tracer_2_tpu_torch import rng
+from ray_tracer_2_tpu_torch.kernels.cuda_build import (
+    PKG, CudaKernel, check_launch, frame_seed,
+)
 from ray_tracer_2_tpu_torch.kernels.intersect import EPS_DET, EPSILON, INF, \
     ray_sphere, sphere_normal
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
@@ -76,7 +73,7 @@ def ineligibility(scene: TorchScene) -> str | None:
         return "textured materials (ROADMAP Queue 1 item 8)"
     if scene.n_instances != 1:
         return (f"scenes with {scene.n_instances} mesh instances "
-                "(ROADMAP Queue 1 items 7-8)")
+                "(ROADMAP Queue 1 item 8)")
     if scene.inst_spans[0][2] <= BRUTE_MAX_TRIS or scene.wide_roots[0] < 0:
         return ("mesh instances of <= 256 triangles, which take the "
                 "brute-force path (ROADMAP Queue 1 item 4)")
@@ -443,72 +440,20 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel (csrc/megakernel.cu), built with nvcc and bound with ctypes
+# CUDA kernel (csrc/megakernel.cu), built by kernels/cuda_build.py
 # --------------------------------------------------------------------------
-_PKG = Path(__file__).resolve().parents[1]
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+class CudaMegakernel(CudaKernel):
+    """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` at first
+    use, checks every tensor it hands over, launches on the current stream
+    and counts its launches in ``launches``."""
 
+    symbol = "rt2_render_persistent"
+    argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p])
 
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise FileNotFoundError("nvcc not found: the CUDA kernel is built on a "
-                            "machine with the CUDA toolkit")
-
-
-class CudaMegakernel:
-    """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` into
-    ``_build/`` at first use (rebuilding when the source or flags change),
-    checks every tensor it hands over, launches on the current stream and
-    counts its launches in ``launches``."""
-
-    def __init__(self, source: Path = _PKG / "csrc" / "megakernel.cu",
-                 build_dir: Path = _PKG / "_build"):
-        self.source = Path(source)
-        self.build_dir = Path(build_dir)
-        self.launches = 0
-        self.build_seconds = 0.0   # nvcc time of this process's build
-        self.build_log = ""        # nvcc/ptxas output (registers, spills)
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def build(self):
-        """Compile (if the library for this source is missing) and load."""
-        with self._lock:
-            if self._fn is None:
-                self._fn = self._load()
-            return self._fn
-
-    def _load(self):
-        src = self.source.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
-        lib = self.build_dir / f"megakernel_{tag}.so"
-        if not lib.exists():
-            self.build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            res = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                  str(self.source)],
-                                 capture_output=True, text=True)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{self.build_log}")
-            os.replace(tmp, lib)
-        fn = ctypes.CDLL(str(lib)).rt2_render_persistent
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                       + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p])
-        return fn
+    def __init__(self, source: Path = PKG / "csrc" / "megakernel.cu"):
+        super().__init__(source)
 
     def __call__(self, scene: TorchScene, frames: int, *, width: int,
                  height: int, bounces: int, rays_per_pixel: int,
@@ -519,11 +464,6 @@ class CudaMegakernel:
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
         _require_eligible(scene)
         rows = height if rows is None else rows
-        if rows <= 0 or width <= 0 or row_start < 0 \
-                or row_start + rows > height:
-            raise ValueError(f"bad image window: rows {rows} from "
-                             f"{row_start} of {height}, width {width}")
-        fn = self.build()
         w2m, m2w = scene.inst_world_to_model[0], scene.inst_model_to_world[0]
         scal = torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
                           scene.view_params.reshape(-1),
@@ -535,23 +475,16 @@ class CudaMegakernel:
                             dim=1).contiguous()
         if spheres.shape[0] == 0:
             spheres = torch.zeros((1, 5), dtype=torch.float32, device=dev)
-        args = dict(wide_rows=(scene.wide_rows, 128),
-                    tri_attr=(scene.tri_attr, 128),
-                    mat_rows=(scene.mat_rows, 32), spheres=(spheres, 5),
-                    scal=(scal, None))
-        for name, (x, cols) in args.items():
-            if x.device != dev or x.dtype != torch.float32 \
-                    or not x.is_contiguous() \
-                    or (cols is not None and (x.dim() != 2
-                                              or x.shape[1] != cols)):
-                raise ValueError(f"{name}: expected contiguous float32 "
-                                 f"(n, {cols}) on {dev}, got {x.dtype} "
-                                 f"{tuple(x.shape)} on {x.device}")
+        check_launch(dev, width=width, height=height, row_start=row_start,
+                     rows=rows, wide_rows=(scene.wide_rows, 128),
+                     tri_attr=(scene.tri_attr, 128),
+                     mat_rows=(scene.mat_rows, 32), spheres=(spheres, 5),
+                     scal=(scal, None))
         if scal.numel() != 41:
             raise ValueError(f"scal: expected 41 floats, got {scal.numel()}")
+        fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         segments = torch.zeros(1, dtype=torch.int64, device=dev)
-        frame_seed = ((abs(int(frames)) & 0xFFFFFFFF) * 719393) & 0xFFFFFFFF
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
@@ -559,7 +492,8 @@ class CudaMegakernel:
                      scal.data_ptr(), scene.n_spheres, scene.wide_roots[0],
                      width, height, row_start, rows, bounces,
                      max(int(rays_per_pixel), 1), int(bool(skybox)),
-                     int(bool(antialias)), frame_seed, out.data_ptr(),
+                     int(bool(antialias)), frame_seed(frames),
+                     out.data_ptr(),
                      segments.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")

@@ -1,7 +1,8 @@
 """Shading helpers shared by the plain renderer (port of the parts of
 ``ray_tracer_2_tpu/kernels/trace.py`` the main path reads).
 
-Physics parity (WGSL line refs): environment light :214-221.
+Physics parity (WGSL line refs): environment light :214-221, Schlick
+reflectance :208-212.
 """
 from __future__ import annotations
 
@@ -42,6 +43,19 @@ def environment_light(direction: torch.Tensor) -> torch.Tensor:
     sun = torch.pow(torch.clamp(cos_sun, min=0.0), SUN_FOCUS) * SUN_INTENSITY
     comp = lerp(_const(GROUND_COLOR, y), sky, ground_to_sky[..., None])
     return comp + (sun * (ground_to_sky >= 1.0))[..., None]
+
+
+def reflectance(cos_theta: torch.Tensor, ior: torch.Tensor) -> torch.Tensor:
+    """Schlick's approximation (ray_tracer.wgsl:208-212; reference
+    ``trace._reflectance``). ``(1 - cos)^5`` is written as the products
+    JAX lowers it to, ``x4 * x`` with ``x4 = (x x)(x x)``: a ``pow`` would
+    round differently."""
+    r0 = (1.0 - ior) / (1.0 + ior)
+    r0 = r0 * r0
+    x = 1.0 - cos_theta
+    x2 = x * x
+    x4 = x2 * x2
+    return r0 + (1.0 - r0) * (x4 * x)
 
 
 def gather_material(mat_rows: torch.Tensor, mat_id: torch.Tensor) -> dict:

@@ -9,9 +9,13 @@ numpy builders (``accel/``: SAH BVH, 32-ary wide rows with f16 child boxes,
 quad-packed triangle attributes), so a port scene and a reference scene of
 the same definition are byte-identical (``tests/test_torch_scene.py``).
 
-Scope of this slice: at most one mesh instance group, dense spheres, no
-texture atlas, no NEE light table, no live edits (``HostScene``). Anything
-else raises ``NotImplementedError`` naming its ROADMAP item.
+Scope of the ported slices: at most one mesh instance group, dense
+spheres, no texture atlas, no NEE light table, no live edits
+(``HostScene``). Anything else raises ``NotImplementedError`` naming its
+ROADMAP item. The per-triangle model-space tables (``tri_v0`` ...
+``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
+are what the small-scene path bakes to world space
+(``kernels/spheres.py:pack_tables``).
 """
 from __future__ import annotations
 
@@ -42,9 +46,12 @@ FIELDS = ("sphere_pos", "sphere_radius", "sphere_mat",
           "inst_world_to_model", "inst_model_to_world",
           "wide_rows", "tri_attr", "mat_rows",
           "cam_to_world", "view_params", "defocus_strength",
-          "diverge_strength")
+          "diverge_strength",
+          "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+          "tri_mat")
 #: the static (host) fields
-STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes")
+STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
+           "inst_mat_deltas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +68,13 @@ class TorchScene:
     view_params: torch.Tensor          # (3,) f32 plane w, plane h, focus
     defocus_strength: torch.Tensor     # () f32
     diverge_strength: torch.Tensor     # () f32
+    tri_v0: torch.Tensor               # (T + LEAF_CHUNK, 3) f32, model space
+    tri_v1: torch.Tensor
+    tri_v2: torch.Tensor
+    tri_n0: torch.Tensor               # per-corner normals, model space
+    tri_n1: torch.Tensor
+    tri_n2: torch.Tensor
+    tri_mat: torch.Tensor              # (T + LEAF_CHUNK,) i32
     #: per-instance (node_offset, tri_offset, tri_count)
     inst_spans: tuple = ()
     #: per-instance root row in ``wide_rows`` (-1 for brute-force groups)
@@ -69,6 +83,14 @@ class TorchScene:
     wide_depth: int = 1
     #: material classes present ("glass", "texture", "normal_map", ...)
     shade_classes: tuple = ()
+    #: per-instance material-id shift (0 for an instance that owns its
+    #: triangles; the reference shares one mesh between instances with it)
+    inst_mat_deltas: tuple = ()
+    #: host-side results derived from this scene once and kept with it
+    #: (e.g. the small-scene path's packed tables); a scene made by ``to``
+    #: starts with an empty one
+    derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def n_spheres(self) -> int:
@@ -103,6 +125,7 @@ class TorchScene:
                                  for s in st["inst_spans"])
         st["wide_roots"] = tuple(int(r) for r in st["wide_roots"])
         st["shade_classes"] = tuple(st["shade_classes"])
+        st["inst_mat_deltas"] = tuple(int(d) for d in st["inst_mat_deltas"])
         return TorchScene(**tensors, **st)
 
 
@@ -193,7 +216,7 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
 
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
-                           "uv0", "uv1", "uv2")}
+                           "uv0", "uv1", "uv2", "mat")}
     w2m, m2w, spans, roots = [], [], [], []
     wide = np.zeros((0, 128), np.float32)
     wide_depth = 1
@@ -208,7 +231,8 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         wide, _, wd = pack_wide_rows(bvh, v0[o], v1[o], v2[o], mats[o], cull,
                                      row_offset=0, tri_offset=0)
         wide_depth = max(wide_depth, wd)
-        for k, arr in zip(tri, (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2)):
+        for k, arr in zip(tri, (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2,
+                                mats)):
             tri[k].append(arr[o])
         m = g["matrix"]
         m2w.append(m)
@@ -216,11 +240,13 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         spans.append((0, 0, len(v0)))
         roots.append(0)
 
-    def cat(parts, width):
-        pad = np.zeros((LEAF_CHUNK, width), np.float32)
+    def cat(parts, shape, dtype=np.float32):
+        pad = np.zeros((LEAF_CHUNK, *shape), dtype)
         return np.concatenate(parts + [pad], axis=0)
 
-    t = {k: cat(v, 2 if k.startswith("uv") else 3) for k, v in tri.items()}
+    t = {k: cat(v, (2,) if k.startswith("uv") else (3,))
+         for k, v in tri.items() if k != "mat"}
+    t["mat"] = cat(tri["mat"], (), np.int32)
     tri_attr = pack_attr_quads(pack_tri_attributes(
         t["n0"], t["n1"], t["n2"], t["uv0"], t["uv1"], t["uv2"],
         t["v0"], t["v1"], t["v2"]))
@@ -243,8 +269,11 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         mat_rows=_pack_material_rows(records),
         cam_to_world=cam.cam_to_world, view_params=cam.view_params,
         defocus_strength=np.float32(cam.defocus_strength),
-        diverge_strength=np.float32(cam.diverge_strength))
+        diverge_strength=np.float32(cam.diverge_strength),
+        **{f"tri_{k}": t[k] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
+                                      "mat")})
     statics = dict(inst_spans=tuple(spans), wide_roots=tuple(roots),
                    wide_depth=wide_depth,
-                   shade_classes=_shade_classes(records))
+                   shade_classes=_shade_classes(records),
+                   inst_mat_deltas=(0,) * len(spans))
     return TorchScene.from_numpy(fields, statics)

@@ -1,6 +1,6 @@
-"""Asset-free scenes of the main path.
+"""Asset-free scenes.
 
-Both are the lat/lon triangle soup of the reference's
+The main path's two scenes are the lat/lon triangle soup of the reference's
 ``__graft_entry__._wide_bvh_scene``: a unit UV sphere cut into
 ``lat * lon`` quads, two triangles each, with per-vertex normals equal to
 the positions. The real Dragon_80K mesh is not in the repository, so the
@@ -8,6 +8,11 @@ headline scene refines the same soup to 80,000 triangles under the dragon
 bench's camera, material and ground sphere (reference ``bench.dragon_scene``).
 It stays a convex sphere: a bounced ray never hits it again, which a
 dragon's folds do, so its times do not stand for the dragon's.
+
+The small-scene path renders the reference's asset-free built-in scenes
+``balls``, ``metal``, ``random_balls`` and ``room``
+(``ray_tracer_2_tpu/scene/scenes.py:58-153,211-224``), copied here
+definition for definition.
 """
 from __future__ import annotations
 
@@ -19,6 +24,124 @@ from ray_tracer_2_tpu_torch.scene.definition import (
     MeshData, MeshFromData, SceneDefinition,
 )
 from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+
+
+def _quad_mesh(verts, normal, indices) -> MeshFromData:
+    verts = np.asarray(verts, np.float32)
+    n = np.tile(np.asarray(normal, np.float32)[None, :], (len(verts), 1))
+    data = MeshData.from_vertices(verts, n,
+                                  indices=np.asarray(indices, np.uint32))
+    return MeshFromData(data)
+
+
+def balls() -> SceneDefinition:
+    """scene.rs:802-863: six spheres, one of them emissive."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([3.089, 1.53, -3.0], [-2.0, -1.0, 2.0]),
+        fov=45.0, near=0.1, far=100.0, focus_dist=0.1))
+    new = MaterialDefinition.new
+    s.add_sphere([-3.64, -0.42, 0.8028], 0.75,
+                 new().specular_([1.0] * 4, 0.7).with_color([1.0, 1.0, 1.0, 1.0]))
+    s.add_sphere([-2.54, -0.72, 0.5], 0.6,
+                 new().with_color([1.0, 0.0, 0.0, 1.0]).specular_([1, 0, 0, 1], 0.5))
+    s.add_sphere([-1.27, -0.72, 1.0], 0.5,
+                 new().with_color([0.0, 1.0, 0.0, 1.0]).specular_([0, 1, 0, 1], 0.2))
+    s.add_sphere([-0.5, -0.9, 1.55], 0.35, new().with_color([0.0, 0.0, 1.0, 1.0]))
+    s.add_sphere([-3.46, -15.88, 2.76], 15.0, new().with_color([0.5, 0.0, 0.8, 1.0]))
+    s.add_sphere([-7.44, -0.72, 20.0], 15.0,
+                 new().with_color([0.1, 0.1, 0.1, 0.0]).emissive([1.0] * 4, 1.0))
+    return s
+
+
+def random_balls(seed: int = 42) -> SceneDefinition:
+    """scene.rs:365-444 (the final scene of Ray Tracing in One Weekend): 4
+    large spheres and ~480 small ones drawn from ``default_rng(seed)`` in
+    the reference's order, so the layout is the reference's."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([13.0, 2.0, 3.0], [0.0, 0.0, 0.0]),
+        fov=20.0, aspect=16.0 / 9.0, near=0.1, far=100.0, focus_dist=10.0))
+    new = MaterialDefinition.new
+    s.add_sphere([0.0, -1000.0, 0.0], 1000.0, new().with_color([0.5, 0.5, 0.5, 1.0]))
+    s.add_sphere([0.0, 1.0, 0.0], 1.0, new().glass(1.5))
+    s.add_sphere([-4.0, 1.0, 0.0], 1.0, new().with_color([0.4, 0.2, 0.1, 1.0]))
+    s.add_sphere([4.0, 1.0, 0.0], 1.0,
+                 new().with_color([0.7, 0.6, 0.5, 1.0])
+                 .specular_([0.7, 0.6, 0.5, 1.0], 1.0).smooth(1.0))
+
+    rng = np.random.default_rng(seed)
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            mat = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2,
+                               b + 0.9 * rng.random()], np.float32)
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if mat < 0.8:
+                albedo = [rng.random(), rng.random(), rng.random(), 1.0]
+                s.add_sphere(center, 0.2, new().with_color(albedo))
+            elif mat < 0.95:
+                albedo = [rng.uniform(0.5, 1.0), rng.uniform(0.5, 1.0),
+                          rng.uniform(0.5, 1.0), 1.0]
+                fuzz = rng.uniform(0.0, 0.5)
+                s.add_sphere(center, 0.2,
+                             new().with_color(albedo).specular_([1.0] * 4, fuzz))
+            else:
+                s.add_sphere(center, 0.2, new().glass(1.3))
+    return s
+
+
+def room() -> SceneDefinition:
+    """scene.rs:445-573: a closed box of 12 triangles with an emissive
+    ceiling quad, a glass sphere and a specular one."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 1.0, 3.0], [0.0, 1.0, 2.0]),
+        fov=45.0, near=0.1, far=100.0, focus_dist=0.1))
+    new = MaterialDefinition.new
+    t = Transform()
+    s.add_mesh(t, _quad_mesh([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]],
+                             [0, 1, 0], [2, 1, 0, 3, 2, 0]),
+               new().with_color([1.0, 0.0, 0.0, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-2, 4, -2], [2, 4, -2], [2, 4, 2], [-2, 4, 2]],
+                             [0, -1, 0], [0, 1, 2, 0, 2, 3]),
+               new().with_color([0.0, 0.3, 0.3, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-2, 0, -2], [-2, 4, -2], [-2, 4, 2], [-2, 0, 2]],
+                             [1, 0, 0], [0, 1, 2, 0, 2, 3]),
+               new().specular_([1.0] * 4, 1.0).smooth(1.0))
+    s.add_mesh(t, _quad_mesh([[2, 0, -2], [2, 0, 2], [2, 4, 2], [2, 4, -2]],
+                             [-1, 0, 0], [0, 1, 2, 0, 2, 3]),
+               new().specular_([1.0] * 4, 0.99).smooth(0.99))
+    s.add_mesh(t, _quad_mesh([[-2, 0, 2], [2, 0, 2], [2, 4, 2], [-2, 4, 2]],
+                             [0, 0, -1], [2, 1, 0, 3, 2, 0]),
+               new().with_color([0.2, 0.2, 0.82, 1.0])
+               .specular_([1.0] * 4, 0.99).smooth(0.99))
+    s.add_mesh(t, _quad_mesh([[-0.4, 3.98, -0.4], [0.4, 3.98, -0.4],
+                              [0.4, 3.98, 0.4], [-0.4, 3.98, 0.4]],
+                             [0, -1, 0], [0, 1, 2, 0, 2, 3]),
+               new().emissive([1.0] * 4, 3.0))
+    s.add_sphere([0.4, 1.0, 0.0], 0.3,
+                 new().with_color([0.4, 0.9, 0.4, 1.0]).glass(1.34))
+    s.add_sphere([-0.4, 1.0, 0.0], 0.4,
+                 new().with_color([0.7, 0.7, 0.7, 1.0]).specular_([1.0] * 4, 0.2))
+    return s
+
+
+def metal() -> SceneDefinition:
+    """scene.rs:758-801: ground, diffuse, glass and metal spheres."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.0, 3.0], [0.0, 0.0, -1.0]),
+        fov=45.0, near=0.1, far=100.0, focus_dist=0.1))
+    new = MaterialDefinition.new
+    s.add_sphere([0.0, -100.5, -1.0], 100.0, new().with_color([0.8, 0.8, 0.0, 1.0]))
+    s.add_sphere([0.0, 0.0, -1.0], 0.5, new().with_color([0.7, 0.3, 0.3, 1.0]))
+    s.add_sphere([-1.0, 0.0, -1.0], 0.5,
+                 new().with_color([0.8, 0.8, 0.8, 1.0]).glass(1.3))
+    s.add_sphere([1.0, 0.0, -1.0], 0.5,
+                 new().with_color([0.8, 0.6, 0.2, 1.0]).specular_([1.0] * 4, 0.15))
+    return s
 
 
 def latlon_soup(lat: int, lon: int, radius: float = 1.0) -> MeshData:

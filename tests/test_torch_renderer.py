@@ -22,6 +22,8 @@ from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
 from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
+from ray_tracer_2_tpu_torch.scene import scenes
+from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 from torch_bridge import H, W, frac_within, torch_scene, wide_bvh_render_scene
 
 PARAMS = RenderParams(width=W, height=H, bounces=0, rays_per_pixel=1,
@@ -53,11 +55,16 @@ def test_progressive_frames_match_reference(scenes_):
 
 
 def test_outside_the_slice_raises(scenes_):
+    """Outside both ported paths: a 72-triangle mesh (too many triangles
+    for the small-scene path, brute-force size for the main path), and the
+    small scene room with antialias."""
     _, ts = scenes_
+    mesh72 = instantiate_scene(scenes.wide_bvh_scene(lat=4, lon=9))
     room = torch_scene(ref_instantiate(ref_scenes.room()).render_scene)
     renderer = Renderer()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.render(room, PARAMS)
+    for scene, over in ((mesh72, {}), (room, dict(antialias=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            renderer.render(scene, dataclasses.replace(PARAMS, **over))
     for over in (dict(debug_mode=DebugMode.NORMALS), dict(nee=True),
                  dict(normal_maps=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

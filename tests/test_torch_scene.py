@@ -13,6 +13,7 @@ import ray_tracer_2_tpu.math.transform as ref_transform
 import ray_tracer_2_tpu.scene.camera as ref_camera
 import ray_tracer_2_tpu.scene.definition as ref_definition
 import ray_tracer_2_tpu.scene.material as ref_material
+from ray_tracer_2_tpu.scene import scenes as ref_scenes
 from ray_tracer_2_tpu.scene.render_scene import \
     instantiate_scene as ref_instantiate
 import ray_tracer_2_tpu_torch.math.transform as port_transform
@@ -114,6 +115,7 @@ def _assert_same(rs, ts: TorchScene):
     assert ts.wide_roots == tuple(rs.wide_roots)
     assert ts.wide_depth == rs.wide_depth
     assert ts.shade_classes == tuple(rs.shade_classes)
+    assert ts.inst_mat_deltas == tuple(rs.inst_mat_deltas)
 
 
 # Meshes below NATIVE_MIN_TRIS build their BVH in numpy, the others in the
@@ -126,12 +128,21 @@ MESHES = {
 }
 
 
+#: the reference's asset-free built-in scenes, which both packages define
+BUILT_IN = ("balls", "metal", "random_balls", "room")
+
+
 @pytest.mark.parametrize("which", ["wide_bvh", "main_path_40",
-                                   "main_path_60", *MESHES])
+                                   "main_path_60", *MESHES, *BUILT_IN])
 def test_instantiate_matches_reference(which):
-    """wide_bvh and main_path_n are the port's own scenes; the other meshes
-    go through the same definition in both packages."""
-    if which == "wide_bvh":
+    """wide_bvh and main_path_n are the port's own scenes; the built-in
+    scenes are each package's own copy of one definition; the other meshes
+    go through the same definition in both packages. Every field compared,
+    the per-triangle tables and ``inst_mat_deltas`` included."""
+    if which in BUILT_IN:
+        rs = ref_instantiate(getattr(ref_scenes, which)()).render_scene
+        ts = instantiate_scene(getattr(scenes, which)())
+    elif which == "wide_bvh":
         rs = wide_bvh_render_scene()
         ts = instantiate_scene(scenes.wide_bvh_scene())
     elif which.startswith("main_path"):

@@ -8,6 +8,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ray_tracer_2_tpu.kernels.megakernel import \
@@ -20,6 +21,19 @@ from ray_tracer_2_tpu_torch.scene.render_scene import (
 #: the image size the render comparisons use
 W, H = 32, 16
 _JITS = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run PyTorch's CPU ops on the calling thread only. With JAX's CPU
+    runtime in the same process, one of PyTorch's worker threads was seen
+    to round differently now and then (a worker's share of the elements,
+    up to 3e-3 relative after cancellation); the main thread never was.
+    Import it into a test module to apply it there."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def torch_scene(rs) -> TorchScene:
