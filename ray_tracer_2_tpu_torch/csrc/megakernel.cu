@@ -4,7 +4,10 @@
 // (make_fused_boundary -> boundary, pallas_call at :775) TOGETHER with the
 // XLA traversal loop it sat beside (ray_tracer_2_tpu/kernels/megakernel.py
 // traversal_step :389, wide_eval :337, unpack_child_aabbs :304,
-// slab_blocked :318, _advance_impl :628). On the TPU the lanes ran in
+// slab_blocked :318, _advance_impl :628) and the XLA boundary's
+// segment_prepass :1088 and resolve_and_shade :739, whose brute-force
+// groups ran ray_tracer_2_tpu/kernels/pallas_brute.py (its loop here is
+// csrc/brute.cuh, shared with csrc/brute.cu). On the TPU the lanes ran in
 // lockstep, so pixels were handed out through claim cumsums, a completion
 // log and an end-of-frame sort; here one thread owns one pixel, walks all
 // of its samples and segments itself and writes its own result, so none
@@ -14,22 +17,30 @@
 // wide row visit is a 512-byte row of `wide_rows` whose address depends on
 // the previous row; the hit triangle's attribute row and material row
 // follow) and divergence across the warp, whose threads trace paths of
-// different lengths. This first form does nothing about either beyond
-// reading rows through the read-only cache; it is written to be right and
+// different lengths. The small per-scene tables (camera, spheres, the
+// instance table and the brute-force triangles, at most 45 KB) are staged
+// in shared memory once per block; beyond that this first form does
+// nothing about either bound but read rows through the read-only cache.
+// It is written to be right and
 // to match the plain PyTorch version (kernels/megakernel.py render_plain)
 // operation for operation: compiled with --fmad=false, every sum is
 // evaluated in the order the plain version writes it, and min/max
 // propagate NaN as torch.minimum/maximum do.
 //
-// Semantics per pixel (reference kernels/megakernel.py render_persistent
-// with the fused boundary, scene class pallas_boundary.eligible):
+// Semantics per pixel (reference kernels/megakernel.py render_persistent,
+// XLA boundary; kernels/megakernel.py ineligibility gives the class):
 //   seed = pixel_id + |frames| * 719393
 //   for each of rpp samples: camera ray, then up to bounces+1 segments of
-//   {dense sphere prepass, wide-BVH traversal of the single instance in
-//   model space, merge, shade}; the sample's radiance is banked.
+//   {dense sphere prepass; each brute-force group in instance order, its
+//   model-space hit merged by world distance; each wide-BVH instance in
+//   order, its traversal pruned at the best world distance so far; shade
+//   (glass or diffuse/specular) with the hit instance's transform}; every
+//   merge is a strict `<`, so an equal distance keeps the earlier hit.
 //   out[pixel] = sum / rpp; every started segment counts once.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "brute.cuh"
 
 namespace {
 
@@ -49,16 +60,30 @@ constexpr int kColFirst = 16;
 constexpr int kColAabb = 16;
 constexpr int kColGeo = 17;
 
-// scal layout: cam[:3,:4] row-major, view_params, defocus, diverge,
-// w2m[:3,:4], m2w[:3,:4] of the single instance
+// scal layout: cam[:3,:4] row-major, view_params, defocus, diverge
 constexpr int kScCam = 0;
 constexpr int kScView = 12;
 constexpr int kScDefocus = 15;
 constexpr int kScDiverge = 16;
-constexpr int kScW2m = 17;
-constexpr int kScM2w = 29;
-constexpr int kScal = 41;
+constexpr int kScal = 17;
 constexpr int kSphStride = 5;  // cx cy cz radius mat
+// instance table rows (kernels/megakernel.py kernel_tables): w2m[:3,:4],
+// m2w[:3,:4], root row, first triangle, triangle count, material-id delta,
+// brute-force flag, first row in the staged brute table
+constexpr int kInstCols = 32;
+constexpr int kInW2m = 0;
+constexpr int kInM2w = 12;
+constexpr int kInRoot = 24;
+constexpr int kInTriOff = 25;
+constexpr int kInCount = 26;
+constexpr int kInDelta = 27;
+constexpr int kInBrute = 28;
+constexpr int kInSlot = 29;
+constexpr int kBruteCols = 16;  // packed brute table (kernels/brute.py)
+// instance and brute tables share the block's dynamic shared memory
+// (kernels/megakernel.py SMEM_BYTES)
+constexpr int kDynSmemBytes = 45 * 1024;
+constexpr float kFlagGlass = 1.0f;  // material flag of glass
 
 struct Params {
   const float* wide_rows;
@@ -66,9 +91,15 @@ struct Params {
   const float* mat_rows;
   const float* spheres;
   const float* scal;
+  const float* inst;
+  const float* brute;
   float* out;
   unsigned long long* segments;
-  int n_spheres, root, width, height, row_start, total;
+  // brute-force prepass, accumulated across launches: [0] closest-hit
+  // calls (one per segment and brute-force group), [1] launches that made
+  // any
+  unsigned long long* prepass;
+  int n_spheres, n_inst, n_brute, width, height, row_start, total;
   int bounces, rpp, skybox, antialias;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
 };
@@ -81,6 +112,10 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float clamp01(float t) {
   return nan_min(nan_max(t, 0.0f), 1.0f);
+}
+// jnp.sign: -1, +-0 or 1; NaN stays NaN
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
 // ---- RNG (ray_tracer_2_tpu/rng.py; ray_tracer.wgsl:164-206) -------------
@@ -99,16 +134,19 @@ __device__ __forceinline__ float rand_normal(uint32_t& seed) {
   float rho = sqrtf(-2.0f * logf(fmaxf(u2, 2.33e-10f)));
   return rho * cosf(theta);
 }
-__device__ __forceinline__ void rand_hemisphere(const float n[3],
-                                                uint32_t& seed, float d[3]) {
+__device__ __forceinline__ void rand_direction(uint32_t& seed, float d[3]) {
   float x = rand_normal(seed);
   float y = rand_normal(seed);
   float z = rand_normal(seed);
   float len = sqrtf((x * x + y * y) + z * z);
-  x = x / len; y = y / len; z = z / len;
-  float s = (n[0] * x + n[1] * y) + n[2] * z;
+  d[0] = x / len; d[1] = y / len; d[2] = z / len;
+}
+__device__ __forceinline__ void rand_hemisphere(const float n[3],
+                                                uint32_t& seed, float d[3]) {
+  rand_direction(seed, d);
+  float s = (n[0] * d[0] + n[1] * d[1]) + n[2] * d[2];
   float f = s >= 0.0f ? 1.0f : -1.0f;
-  d[0] = f * x; d[1] = f * y; d[2] = f * z;
+  d[0] = f * d[0]; d[1] = f * d[1]; d[2] = f * d[2];
 }
 __device__ __forceinline__ void rand_disk(uint32_t& seed, float& a,
                                           float& b) {
@@ -132,6 +170,12 @@ __device__ __forceinline__ void apply3x3(const float* m, const float v[3],
                                          float out[3]) {
   for (int r = 0; r < 3; ++r)
     out[r] = (m[4 * r] * v[0] + m[4 * r + 1] * v[1]) + m[4 * r + 2] * v[2];
+}
+// the same plus the translation column: a point through the affine block
+__device__ __forceinline__ void apply_point(const float* m, const float v[3],
+                                            float out[3]) {
+  apply3x3(m, v, out);
+  for (int r = 0; r < 3; ++r) out[r] = out[r] + m[4 * r + 3];
 }
 
 // f16 bit pattern -> f32 by integer rebias (megakernel.py f16_bits_to_f32)
@@ -294,6 +338,16 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
   }
 }
 
+// Schlick (ray_tracer.wgsl:208-212); (1 - cos)^5 as x4 * x, x4 = (x x)(x x)
+__device__ __forceinline__ float reflectance(float cos_t, float ior) {
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  float x = 1.0f - cos_t;
+  float x2 = x * x;
+  float x4 = x2 * x2;
+  return r0 + (1.0f - r0) * (x4 * x);
+}
+
 __device__ __forceinline__ float smoothstep(float e0, float e1, float x) {
   float t = clamp01((x - e0) / (e1 - e0));
   return t * t * (3.0f - 2.0f * t);
@@ -316,22 +370,80 @@ __device__ __forceinline__ void environment_light(const float d[3],
   }
 }
 
+// A segment's nearest hit so far: kind -1 none, -2 sphere, >= 0 triangle
+// id; flag is 1 for a sphere the ray starts inside, the instance id for a
+// triangle.
+struct SegHit {
+  float dst, u, v, det;
+  float point[3];
+  int kind, mat, flag;
+};
+
+// Fold an instance's model-space hit into the segment by world distance
+// (megakernel.py segment_prepass :1177-1191, _advance_impl :646-666).
+__device__ __forceinline__ void merge_instance(
+    const float* in, int i, const float o[3], const float om[3],
+    const float dm[3], float dst, float u, float v, float det, int tri,
+    int mat, SegHit& s) {
+  float lh[3], wh[3], dv[3];
+  for (int r = 0; r < 3; ++r) lh[r] = om[r] + dm[r] * dst;
+  apply_point(in + kInM2w, lh, wh);
+  for (int r = 0; r < 3; ++r) dv[r] = wh[r] - o[r];
+  float wd = sqrtf(dot3(dv, dv));
+  if (wd < s.dst) {
+    s.dst = wd;
+    s.kind = tri;
+    s.mat = mat + (int)in[kInDelta];
+    s.flag = i;
+    s.u = u;
+    s.v = v;
+    s.det = det;
+    for (int r = 0; r < 3; ++r) s.point[r] = wh[r];
+  }
+}
+
+// The model-space ray of an instance: origin through w2m, direction
+// through its linear part, normalised.
+__device__ __forceinline__ void instance_ray(const float* in,
+                                             const float o[3],
+                                             const float d[3], float om[3],
+                                             float dm[3]) {
+  apply_point(in + kInW2m, o, om);
+  apply3x3(in + kInW2m, d, dm);
+  normalize3(dm);
+}
+
+// Compiled per scene class, from what the host knows of the scene:
+// kGeneral is false for exactly one instance, traversed in its wide BVH
+// (the main path), which then compiles without the brute-force prepass and
+// the instance loop; kGlass is false when no material is glass, which
+// compiles out the glass branch.
+template <bool kGeneral, bool kGlass>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(Params p) {
   __shared__ float s_scal[kScal];
   __shared__ float s_sph[kMaxSpheres * kSphStride];
   __shared__ unsigned long long s_warp[kThreads / 32];
+  __shared__ unsigned long long s_tests[kThreads / 32];
+  extern __shared__ float s_dyn[];
+  float* s_inst = s_dyn;
+  float* s_brute = s_dyn + p.n_inst * kInstCols;
   for (int i = threadIdx.x; i < kScal; i += blockDim.x) s_scal[i] = p.scal[i];
   for (int i = threadIdx.x; i < p.n_spheres * kSphStride; i += blockDim.x)
     s_sph[i] = p.spheres[i];
+  for (int i = threadIdx.x; i < p.n_inst * kInstCols; i += blockDim.x)
+    s_inst[i] = p.inst[i];
+  for (int i = threadIdx.x; i < p.n_brute * rt2_brute::kStaged;
+       i += blockDim.x) {
+    int row = i / rt2_brute::kStaged, col = i % rt2_brute::kStaged;
+    s_brute[i] = p.brute[(size_t)row * kBruteCols + col];
+  }
   __syncthreads();
 
   const float* sc = s_scal;
   const float* cam = sc + kScCam;
-  const float* w2m = sc + kScW2m;
-  const float* m2w = sc + kScM2w;
   int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long segs = 0;
+  unsigned long long segs = 0, tests = 0;
 
   if (pid < p.total) {
     int px = pid % p.width;
@@ -376,11 +488,20 @@ render_kernel(Params p) {
       float inc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int bounce = 0; bounce <= p.bounces; ++bounce) {
         ++segs;
+        SegHit h;
+        h.dst = kInf;
+        h.u = h.v = h.det = 0.0f;
+        h.kind = -1;
+        h.mat = 0;
+        h.flag = 0;
+        for (int r = 0; r < 3; ++r) h.point[r] = 0.0f;
+        float normal[3] = {0.0f, 0.0f, 0.0f};
+
         // ---- dense sphere prepass (intersect.ray_sphere, first index on
         // equal distance like argmin)
-        float seg_dst = kInf;
         int sidx = 0;
         bool s_in = false, s_hit = false;
+        float sph_dst = kInf;
         float a_q = dot3(d, d);
         for (int si = 0; si < p.n_spheres; ++si) {
           const float* sp = s_sph + si * kSphStride;
@@ -394,61 +515,64 @@ render_kernel(Params p) {
           bool is_in = dn == 0.0f;
           bool hit = (disc >= 0.0f) && (df >= 0.001f);
           float ds = hit ? (is_in ? df : dn) : kInf;
-          if (ds < seg_dst) {
-            seg_dst = ds;
+          if (ds < sph_dst) {
+            sph_dst = ds;
             sidx = si;
             s_in = is_in;
             s_hit = hit;
           }
         }
-        int stri = -1, smat = 0;
-        float point[3] = {0.0f, 0.0f, 0.0f}, normal[3] = {0.0f, 0.0f, 0.0f};
         if (s_hit) {
           const float* sp = s_sph + sidx * kSphStride;
-          stri = -2;
-          smat = (int)sp[4];
-          for (int r = 0; r < 3; ++r) point[r] = o[r] + d[r] * seg_dst;
-          float n[3] = {point[0] - sp[0], point[1] - sp[1], point[2] - sp[2]};
+          h.dst = sph_dst;
+          h.kind = -2;
+          h.mat = (int)sp[4];
+          h.flag = s_in ? 1 : 0;
+          for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * sph_dst;
+          float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1],
+                        h.point[2] - sp[2]};
           normalize3(n);
           for (int r = 0; r < 3; ++r) normal[r] = s_in ? -n[r] : n[r];
-        } else {
-          seg_dst = kInf;
         }
 
-        // ---- the instance: model-space ray, pruning limit seeded from the
-        // prepass (megakernel.py start_segments), traversal, merge
-        float om[3], dm[3], wv[3];
-        apply3x3(w2m, o, om);
-        for (int r = 0; r < 3; ++r) om[r] = om[r] + w2m[4 * r + 3];
-        apply3x3(w2m, d, dm);
-        normalize3(dm);
-        apply3x3(m2w, dm, wv);
-        float slack0 = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
-        float limit0 = (seg_dst * 1.000004f + slack0) / sqrtf(dot3(wv, wv));
-        Hit h;
-        traverse(p.wide_rows, p.root, om, dm, limit0, h);
-        float u = 0.0f, v = 0.0f, det = 0.0f;
-        if (h.tri >= 0) {
-          float lh[3], wh[3], dv[3];
-          for (int r = 0; r < 3; ++r) lh[r] = om[r] + dm[r] * h.dst;
-          apply3x3(m2w, lh, wh);
-          for (int r = 0; r < 3; ++r) wh[r] = wh[r] + m2w[4 * r + 3];
-          for (int r = 0; r < 3; ++r) dv[r] = wh[r] - o[r];
-          float wd = sqrtf(dot3(dv, dv));
-          if (wd < seg_dst) {
-            seg_dst = wd;
-            stri = h.tri;
-            smat = h.mat;
-            u = h.u;
-            v = h.v;
-            det = h.det;
-            for (int r = 0; r < 3; ++r) point[r] = wh[r];
-          }
+        // ---- brute-force groups, in instance order (segment_prepass
+        // :1169-1191): the csrc/brute.cuh loop on the staged triangles
+        for (int i = 0; kGeneral && i < p.n_inst; ++i) {
+          const float* in = s_inst + i * kInstCols;
+          if (in[kInBrute] < 0.5f) continue;
+          float om[3], dm[3];
+          instance_ray(in, o, d, om, dm);
+          ++tests;
+          rt2_brute::Hit bh;
+          rt2_brute::closest_hit(
+              s_brute + (int)in[kInSlot] * rt2_brute::kStaged,
+              rt2_brute::kStaged, (int)in[kInCount], om, dm, bh);
+          if (bh.tri >= 0)
+            merge_instance(in, i, o, om, dm, bh.dst, bh.u, bh.v, bh.det,
+                           (int)in[kInTriOff] + bh.tri, bh.mat, h);
         }
 
-        // ---- resolve + shade (megakernel.py resolve_and_shade, the
-        // diffuse/specular branch; ray_tracer.wgsl:398-471)
-        if (stri == -1) {
+        // ---- wide-BVH instances, in order: pruning limit seeded from the
+        // best world distance so far (start_segments :1257-1268,
+        // _advance_impl :685-689), traversal, merge
+        for (int i = 0; i < (kGeneral ? p.n_inst : 1); ++i) {
+          const float* in = s_inst + i * kInstCols;
+          if (kGeneral && in[kInBrute] > 0.5f) continue;
+          float om[3], dm[3], wv[3];
+          instance_ray(in, o, d, om, dm);
+          apply3x3(in + kInM2w, dm, wv);
+          float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
+          float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
+          Hit th;
+          traverse(p.wide_rows, (int)in[kInRoot], om, dm, limit, th);
+          if (th.tri >= 0)
+            merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det,
+                           th.tri, th.mat, h);
+        }
+
+        // ---- resolve + shade (megakernel.py resolve_and_shade :739;
+        // ray_tracer.wgsl:398-471)
+        if (h.kind == -1) {
           if (p.skybox) {
             float env[4];
             environment_light(d, env);
@@ -456,45 +580,99 @@ render_kernel(Params p) {
           }
           break;
         }
-        if (stri >= 0) {
-          const float* at = p.tri_attr + (size_t)(stri >> 2) * kRow +
-                            (stri & 3) * 32;
-          float wb = (1.0f - u) - v;
+        bool backface;
+        if (h.kind >= 0) {  // mesh normal through the hit instance's m2w
+          const float* at = p.tri_attr + (size_t)(h.kind >> 2) * kRow +
+                            (h.kind & 3) * 32;
+          float wb = (1.0f - h.u) - h.v;
           float nm[3];
           for (int r = 0; r < 3; ++r)
-            nm[r] = (__ldg(at + r) * wb + __ldg(at + 3 + r) * u) +
-                    __ldg(at + 6 + r) * v;
+            nm[r] = (__ldg(at + r) * wb + __ldg(at + 3 + r) * h.u) +
+                    __ldg(at + 6 + r) * h.v;
           normalize3(nm);
-          float sg = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+          float sg = sign_of(h.det);
           for (int r = 0; r < 3; ++r) nm[r] = nm[r] * sg;
-          apply3x3(m2w, nm, normal);
+          apply3x3(s_inst + (kGeneral ? h.flag : 0) * kInstCols + kInM2w,
+                   nm, normal);
           normalize3(normal);
+          backface = h.det < 0.0f;
+        } else {
+          backface = h.flag > 0;
         }
-        const float* m = p.mat_rows + (size_t)smat * 32;
-        float r_spec = rand01(seed);
-        bool is_spec = __ldg(m + 19) >= r_spec;
-        float diffuse[3];
-        rand_hemisphere(normal, seed, diffuse);
-        float idn = 2.0f * dot3(d, normal);
-        float tmix = __ldg(m + 18) * (is_spec ? 1.0f : 0.0f);
-        float nd[3];
-        for (int r = 0; r < 3; ++r) {
-          float spec = d[r] - idn * normal[r];
-          nd[r] = diffuse[r] + (spec - diffuse[r]) * tmix;
+        const float* m = p.mat_rows + (size_t)h.mat * 32;
+        float nd[3], no[3];
+        if (kGlass && __ldg(m + 21) == kFlagGlass) {  // glass (:826-852)
+          if (backface) {
+            float ak = __ldg(m + 16);
+            for (int c = 0; c < 3; ++c)
+              trans[c] = trans[c] * expf(((-h.dst) * __ldg(m + 12 + c)) * ak);
+            trans[3] = 1.0f;
+          }
+          float m_ior = __ldg(m + 20);
+          float ior = backface ? m_ior : 1.0f / m_ior;
+          float idn = 2.0f * dot3(d, normal);
+          float cos_i = dot3(normal, d);
+          float k = 1.0f - (ior * ior) * (1.0f - cos_i * cos_i);
+          float kr = sqrtf(nan_max(k, 0.0f));
+          float neg_d[3] = {-d[0], -d[1], -d[2]};
+          float cos_t = nan_min(dot3(neg_d, normal), 1.0f);
+          float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
+          bool cannot = ior * sin_t > 1.0f;
+          bool follow = true;
+          if (!cannot) {
+            float r_refl = rand01(seed);
+            follow = reflectance(cos_t, ior) > r_refl;
+          }
+          float g[3], dfd[3];
+          rand_direction(seed, g);
+          for (int r = 0; r < 3; ++r) dfd[r] = normal[r] + g[r];
+          normalize3(dfd);
+          if (follow) {
+            float t_mix = __ldg(m + 19);
+            for (int r = 0; r < 3; ++r) {
+              float refl = d[r] - idn * normal[r];
+              nd[r] = dfd[r] + (refl - dfd[r]) * t_mix;
+            }
+          } else {
+            float t_mix = __ldg(m + 18);
+            for (int r = 0; r < 3; ++r) {
+              float refr = k < 0.0f
+                  ? 0.0f : ior * d[r] - (ior * cos_i + kr) * normal[r];
+              float a0 = -dfd[r];
+              nd[r] = a0 + (refr - a0) * t_mix;
+            }
+          }
+          normalize3(nd);
+          float gs = sign_of(dot3(normal, nd));
+          for (int r = 0; r < 3; ++r)
+            no[r] = h.point[r] + (1e-4f * normal[r]) * gs;
+        } else {  // ---- diffuse / specular
+          float r_spec = rand01(seed);
+          bool is_spec = __ldg(m + 19) >= r_spec;
+          float diffuse[3];
+          rand_hemisphere(normal, seed, diffuse);
+          float idn = 2.0f * dot3(d, normal);
+          float tmix = __ldg(m + 18) * (is_spec ? 1.0f : 0.0f);
+          for (int r = 0; r < 3; ++r) {
+            float spec = d[r] - idn * normal[r];
+            nd[r] = diffuse[r] + (spec - diffuse[r]) * tmix;
+          }
+          normalize3(nd);
+          float emis = __ldg(m + 17);
+          for (int c = 0; c < 4; ++c) {
+            inc[c] = inc[c] + (__ldg(m + 4 + c) * emis) * trans[c];
+            trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
+          }
+          for (int r = 0; r < 3; ++r) no[r] = h.point[r];
         }
-        normalize3(nd);
-        float emis = __ldg(m + 17);
-        for (int c = 0; c < 4; ++c) {
-          inc[c] = inc[c] + (__ldg(m + 4 + c) * emis) * trans[c];
-          trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
-        }
+        // ---- Russian roulette from the taken branch's seed
         float pr = fmaxf(fmaxf(trans[0], trans[1]), trans[2]);
         float r_rr = rand01(seed);
         bool survive = r_rr < pr;
         float pdiv = pr > 0.0f ? pr : 1.0f;
         for (int c = 0; c < 4; ++c) trans[c] = trans[c] / pdiv;
         for (int r = 0; r < 3; ++r) {
-          o[r] = point[r];
+          o[r] = no[r];
           d[r] = nd[r];
         }
         if (!survive) break;
@@ -506,39 +684,72 @@ render_kernel(Params p) {
     for (int c = 0; c < 4; ++c) out[c] = acc[c] / rpp;
   }
 
-  // ---- exact segment count: warp reduce, block reduce, one atomic
-  for (int off = 16; off > 0; off >>= 1)
+  // ---- exact segment (and prepass) counts: warp reduce, block reduce,
+  // one atomic each
+  for (int off = 16; off > 0; off >>= 1) {
     segs += __shfl_down_sync(0xffffffffu, segs, off);
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = segs;
+    if (kGeneral) tests += __shfl_down_sync(0xffffffffu, tests, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_warp[threadIdx.x >> 5] = segs;
+    s_tests[threadIdx.x >> 5] = tests;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long sum = 0;
     for (int w = 0; w < kThreads / 32; ++w) sum += s_warp[w];
     atomicAdd(p.segments, sum);
+    if (kGeneral) {
+      unsigned long long t = 0;
+      for (int w = 0; w < kThreads / 32; ++w) t += s_tests[w];
+      if (t > 0) {
+        atomicAdd(p.prepass, t);
+        if (blockIdx.x == 0) atomicAdd(p.prepass + 1, 1ull);
+      }
+    }
   }
+}
+
+template <bool kGeneral, bool kGlass>
+void launch(int blocks, size_t smem, cudaStream_t stream, const Params& p) {
+  render_kernel<kGeneral, kGlass><<<blocks, kThreads, smem, stream>>>(p);
 }
 
 }  // namespace
 
-// Launch on `stream`; allocates nothing and does not synchronise. Returns
-// cudaGetLastError() (0 = launched).
+// Launch on `stream`; allocates nothing and does not synchronise. `general`
+// and `glass` pick the compiled form (render_kernel); `general` == 0 needs
+// exactly one instance, a wide-BVH one, and `glass` == 0 no glass
+// material. Returns cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_persistent(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
-    const float* spheres, const float* scal, int n_spheres, int root,
-    int width, int height, int row_start, int rows, int bounces, int rpp,
-    int skybox, int antialias, unsigned int frame_seed, float* out,
-    unsigned long long* segments, void* stream) {
-  if (n_spheres < 0 || n_spheres > kMaxSpheres) return (int)cudaErrorInvalidValue;
+    const float* spheres, const float* scal, const float* inst,
+    const float* brute, int n_spheres, int n_inst, int n_brute, int width,
+    int height, int row_start, int rows, int bounces, int rpp, int skybox,
+    int antialias, int general, int glass, unsigned int frame_seed,
+    float* out, unsigned long long* segments, unsigned long long* prepass,
+    void* stream) {
+  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_inst < 0 || n_brute < 0)
+    return (int)cudaErrorInvalidValue;
+  if (!general && (n_inst != 1 || n_brute != 0))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * ((size_t)n_inst * kInstCols +
+                                 (size_t)n_brute * rt2_brute::kStaged);
+  if (smem > (size_t)kDynSmemBytes) return (int)cudaErrorInvalidValue;
   Params p;
   p.wide_rows = wide_rows;
   p.tri_attr = tri_attr;
   p.mat_rows = mat_rows;
   p.spheres = spheres;
   p.scal = scal;
+  p.inst = inst;
+  p.brute = brute;
   p.out = out;
   p.segments = segments;
+  p.prepass = prepass;
   p.n_spheres = n_spheres;
-  p.root = root;
+  p.n_inst = n_inst;
+  p.n_brute = n_brute;
   p.width = width;
   p.height = height;
   p.row_start = row_start;
@@ -549,7 +760,14 @@ extern "C" int rt2_render_persistent(
   p.antialias = antialias;
   p.frame_seed = frame_seed;
   int blocks = (p.total + kThreads - 1) / kThreads;
-  if (blocks > 0)
-    render_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (blocks > 0) {
+    if (general)
+      glass ? launch<true, true>(blocks, smem, st, p)
+            : launch<true, false>(blocks, smem, st, p);
+    else
+      glass ? launch<false, true>(blocks, smem, st, p)
+            : launch<false, false>(blocks, smem, st, p);
+  }
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,12 @@ that buffer on one device; the blend updates it in place.
 
 Routing (reference ``render_sample`` and ``Renderer._use_pallas_spheres``):
 a small scene (``kernels/spheres.eligible``: spheres plus at most 64
-untextured triangles) renders through ``render_spheres``; every other
-scene through ``render_persistent``. The reference also capped the small
-path at 128 spheres, a choice between two TPU implementations; the port
-has no other path for sphere scenes, so it has no such cap.
+untextured triangles) renders through ``render_spheres``, unless it asks
+for antialias, which that path does not take; every other frame goes
+through ``render_persistent``, which raises for a scene outside the ported
+megakernel (e.g. more than 32 spheres). The reference also capped the
+small path at 128 spheres, a choice between two TPU implementations; the
+port has no other path for large sphere scenes, so it has no such cap.
 """
 from __future__ import annotations
 
@@ -51,11 +53,7 @@ def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
     float32, updated in place). Returns (framebuffer, segment count)."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox)
-    if small_scene(scene):
-        if antialias:
-            raise NotImplementedError(
-                "antialias on the small-scene path waits for its slice "
-                "(ROADMAP Queue 1 item 8)")
+    if small_scene(scene) and not antialias:
         sample, segments = spheres.render_spheres(scene, frames, **kw)
     else:
         sample, segments = render_persistent(scene, frames,

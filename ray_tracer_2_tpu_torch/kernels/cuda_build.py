@@ -2,16 +2,18 @@
 
 Each kernel source has a plain C entry point. At first use it is compiled
 with ``nvcc`` for Hopper (sm_90a) into a shared library under
-``ray_tracer_2_tpu_torch/_build/``, named by a hash of the source and the
-flags, so a changed source is rebuilt, and loaded with ``ctypes``. The
-wrappers (``kernels/megakernel.py``, ``kernels/spheres.py``) subclass
-``CudaKernel`` with their symbol, argument types and launch.
+``ray_tracer_2_tpu_torch/_build/``, named by a hash of the source, the
+headers it includes and the flags, so a changed source or header is
+rebuilt, and loaded with ``ctypes``. The wrappers
+(``kernels/megakernel.py``, ``kernels/spheres.py``, ``kernels/brute.py``)
+subclass ``CudaKernel`` with their symbol, argument types and launch.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,11 +41,25 @@ def _find_nvcc() -> str:
                             "machine with the CUDA toolkit")
 
 
+def source_bytes(path: Path) -> bytes:
+    """The source followed by every header it includes by a quoted path
+    (``#include "x.cuh"``, resolved beside it), recursively: what the build
+    hash covers, so an edit to a shared header rebuilds every kernel that
+    includes it."""
+    src = Path(path).read_bytes()
+    parts = [src]
+    for m in re.finditer(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', src,
+                         re.M):
+        parts.append(source_bytes(Path(path).parent / m.group(1).decode()))
+    return b"".join(parts)
+
+
 class CudaKernel:
     """One ``csrc`` source and its C entry point ``symbol``: builds the
     library at first use (rebuilding when the source or flags change),
     loads it, and keeps the count of launches in ``launches`` (the
-    subclass's ``__call__`` adds one per launch)."""
+    subclass's ``__call__`` adds one per launch; ``reset_counts`` zeroes
+    it)."""
 
     symbol: str = ""
     argtypes: list = []
@@ -66,7 +82,7 @@ class CudaKernel:
             return self._fn
 
     def _load(self):
-        src = self.source.read_bytes()
+        src = source_bytes(self.source)
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
             .hexdigest()[:16]
         lib = self.build_dir / f"{self.source.stem}_{tag}.so"
@@ -87,6 +103,10 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         fn.argtypes = list(self.argtypes)
         return fn
+
+    def reset_counts(self) -> None:
+        """Set the launch count (and any count the kernel keeps) to 0."""
+        self.launches = 0
 
 
 def check_launch(dev, *, width: int, height: int, row_start: int,

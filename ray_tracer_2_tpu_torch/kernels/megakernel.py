@@ -1,6 +1,16 @@
-"""Persistent whole-image render of the main path (port of
-``ray_tracer_2_tpu/kernels/megakernel.py:render_persistent`` with the fused
-boundary of ``kernels/pallas_boundary.py``).
+"""Persistent whole-image render (port of
+``ray_tracer_2_tpu/kernels/megakernel.py:render_persistent``, its XLA
+boundary and the fused boundary of ``kernels/pallas_boundary.py``).
+
+The scenes it takes: any number of mesh instances (shared tables and
+material-id deltas included), each traversed in its wide BVH, or, at
+``BRUTE_MAX_TRIS`` triangles or fewer, tested triangle by triangle in the
+segment prepass (``kernels/brute.py``); at most ``MAX_SPHERES`` dense
+spheres; diffuse, specular, emissive and glass materials. A segment is the
+reference's: the dense sphere prepass, each brute-force group in instance
+order, then each wide-BVH instance with its pruning limit seeded from the
+best world distance so far, every merge on a strict ``<`` of the world
+distance; then shading with the hit instance's transform.
 
 Two implementations of one function, chosen by the device the scene's
 tensors live on, never by a switch:
@@ -11,12 +21,14 @@ tensors live on, never by a switch:
   per-ray resume stack. It serves CPU tensors, and ``chip_smoke.py`` holds
   the kernel against it on the card.
 * ``CUDA_MEGAKERNEL`` — the hand-written CUDA kernel
-  (``csrc/megakernel.cu``), one thread per pixel. It serves CUDA tensors;
-  there is no fallback to the plain version.
+  (``csrc/megakernel.cu``, its brute-force loop in ``csrc/brute.cuh``),
+  one thread per pixel. It serves CUDA tensors; there is no fallback to
+  the plain version.
 
-Both follow the reference op for op (same RNG stream, same sums in the same
-order) so images agree to float rounding; see ``tests/test_torch_megakernel.py``
-for the classes they are held to. The TPU scheduling knobs of the reference
+Both follow the reference's XLA boundary op for op (same RNG stream, same
+sums in the same order) so images agree to float rounding; see
+``tests/test_torch_megakernel.py`` and ``tests/test_torch_room2.py`` for
+the classes they are held to. The TPU scheduling knobs of the reference
 (``lanes``, ``unroll``, ``claim``, ``cohorts``, ``boundaries``, ``log_cap``,
 ``packet``, ``shade_every``, ``fused_boundary``) leave the image unchanged by
 construction and have no counterpart here.
@@ -35,25 +47,39 @@ from ray_tracer_2_tpu_torch.accel.wide import (
     N_AABB_COLS,
 )
 from ray_tracer_2_tpu_torch import rng
+from ray_tracer_2_tpu_torch.kernels.brute import (
+    BRUTE_MAX_TRIS, brute_force_intersect_plain, pack_brute_table,
+)
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
     PKG, CudaKernel, check_launch, frame_seed,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import EPS_DET, EPSILON, INF, \
     ray_sphere, sphere_normal
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
-    gather_material
-from ray_tracer_2_tpu_torch.math.vec import dot, lerp, normalize, reflect
-from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
+    gather_material, reflectance
+from ray_tracer_2_tpu_torch.math.vec import dot, lerp, normalize, reflect, \
+    refract, sign
+from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
+from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
+    TorchScene
 
-#: instance groups at or below this many triangles take the reference's
-#: brute-force path (ray_tracer_2_tpu/kernels/brute.py BRUTE_MAX_TRIS)
-BRUTE_MAX_TRIS = 256
-#: dense prepass capacity of the fused class (pallas_boundary.eligible)
+#: dense prepass capacity (the reference's ``ray_sphere`` prepass; from
+#: ``SPHERE_FAST_MIN`` spheres on it takes the shared-term formula)
 MAX_SPHERES = 32
 #: resume-stack capacity of the CUDA kernel (csrc/megakernel.cu kMaxStack)
 MAX_STACK = 16
 #: pixels per wavefront of the plain version (bounds its memory)
 PLAIN_CHUNK = 1 << 18
+#: floats per instance row of the kernel's instance table (csrc/megakernel.cu
+#: kInstCols): w2m[:3, :4], m2w[:3, :4], root row, first triangle,
+#: triangle count, material-id delta, brute-force flag, brute table row
+INST_COLS = 32
+#: floats of a brute-force triangle the kernel stages (brute.cuh kStaged)
+BRUTE_STAGED = 11
+#: shared memory the kernel stages the instance and brute-force tables in
+#: (csrc/megakernel.cu kDynSmemBytes): under the 48 KB a block gets
+#: without opting in, with its static tables beside it
+SMEM_BYTES = 45 * 1024
 
 _F16_MAGIC = 2.0 ** 112          # rebias of f16 exponents onto f32
 # absolute and relative slack of the traversal's pruning limit (reference
@@ -62,25 +88,54 @@ _SLACK = float(np.float32(8e-6))
 _REL = float(np.float32(1.0 + 4e-6))
 
 
+def bvh_instances(scene: TorchScene) -> list:
+    """Instances traversed in their wide BVH, in order (reference
+    ``_bvh_instances``)."""
+    return [i for i, (_, _, c) in enumerate(scene.inst_spans)
+            if c > BRUTE_MAX_TRIS]
+
+
+def brute_instances(scene: TorchScene) -> list:
+    """Instances tested triangle by triangle in the prepass, in order."""
+    return [i for i, (_, _, c) in enumerate(scene.inst_spans)
+            if c <= BRUTE_MAX_TRIS]
+
+
+def _brute_ranges(scene: TorchScene) -> dict:
+    """(first triangle, count) of each distinct brute-force group -> its
+    first row in the kernel's staged brute table (instances sharing a
+    group share its rows)."""
+    ranges = {}
+    for i in brute_instances(scene):
+        key = scene.inst_spans[i][1:]
+        if key not in ranges:
+            ranges[key] = sum(c for _, c in ranges)
+    return ranges
+
+
+def smem_bytes(scene: TorchScene) -> int:
+    """Shared memory the kernel stages the scene's instance and brute-force
+    tables in."""
+    n_brute = sum(c for _, c in _brute_ranges(scene))
+    return 4 * (scene.n_instances * INST_COLS + n_brute * BRUTE_STAGED)
+
+
 def ineligibility(scene: TorchScene) -> str | None:
-    """Why ``scene`` lies outside this slice's class (the fused-boundary
-    class of the reference, ``pallas_boundary.eligible`` with exactly one
-    wide-BVH instance), naming the ROADMAP item that lifts it; None if it is
-    inside."""
-    if "glass" in scene.shade_classes:
-        return "glass materials (ROADMAP Queue 1 item 8)"
+    """Why ``scene`` lies outside the ported megakernel, naming the ROADMAP
+    item that lifts it; None if it is inside."""
     if "texture" in scene.shade_classes:
         return "textured materials (ROADMAP Queue 1 item 8)"
-    if scene.n_instances != 1:
-        return (f"scenes with {scene.n_instances} mesh instances "
-                "(ROADMAP Queue 1 item 8)")
-    if scene.inst_spans[0][2] <= BRUTE_MAX_TRIS or scene.wide_roots[0] < 0:
-        return ("mesh instances of <= 256 triangles, which take the "
-                "brute-force path (ROADMAP Queue 1 item 4)")
+    if scene.n_spheres >= SPHERE_BVH_MIN:
+        return "the sphere BVH (ROADMAP Queue 1 item 8)"
     if scene.n_spheres > MAX_SPHERES:
-        return "more than 32 spheres (ROADMAP Queue 1 item 8)"
-    if scene.wide_depth + 2 > MAX_STACK:
+        return ("more than 32 spheres, the dense sphere fast path "
+                "(ROADMAP Queue 1 item 8)")
+    if bvh_instances(scene) and scene.wide_depth + 2 > MAX_STACK:
         return f"wide BVHs deeper than {MAX_STACK - 2} levels"
+    if smem_bytes(scene) > SMEM_BYTES:
+        return (f"instance and brute-force tables of {smem_bytes(scene)} "
+                f"bytes, over the kernel's {SMEM_BYTES}-byte shared-memory "
+                "budget (ROADMAP Queue 1 item 4)")
     return None
 
 
@@ -123,9 +178,9 @@ class _Tables:
         self.dev = dev
         self.cam = scene.cam_to_world
         self.view = scene.view_params
-        self.w2m = scene.inst_world_to_model[0]
-        self.m2w = scene.inst_model_to_world[0]
-        self.root = scene.wide_rows[scene.wide_roots[0]]
+        self.bvh = bvh_instances(scene)
+        self.brute = brute_instances(scene)
+        self.glass = "glass" in scene.shade_classes
         self.depth = scene.wide_depth + 2
         self.w1 = f32(float(max(width - 1, 1)))
         self.h1 = f32(float(max(height - 1, 1)))
@@ -234,8 +289,9 @@ def _leaf_test(rows, om, dm, best):
             first + j[:, 0], pick(mc) >> 1)
 
 
-def _traverse(t: _Tables, om, dm, limit):
-    """Closest hit of model-space rays in the instance's wide BVH, pruned at
+def _traverse(t: _Tables, root, om, dm, limit):
+    """Closest hit of model-space rays in the wide BVH whose root row is
+    ``root``, pruned at
     ``limit`` (megakernel.py wide_enter + traversal_step): enter the nearest
     hit child, push the other hits as (base, mask, least entry distance),
     pop the deepest entry still closer than the best hit, lowest child
@@ -274,7 +330,7 @@ def _traverse(t: _Tables, om, dm, limit):
         return lanes[~has]
 
     all_lanes = torch.arange(n, device=dev)
-    descend(all_lanes, t.root.expand(n, -1))
+    descend(all_lanes, root.expand(n, -1))
     act = all_lanes[cur >= 0]
     while act.numel():
         rows = t.scene.wide_rows[cur[act]]
@@ -309,17 +365,32 @@ def _traverse(t: _Tables, om, dm, limit):
     return best, bu, bv, bdet, tri, mat
 
 
+def _affine_rows(m, v, translate: bool):
+    """``_affine`` with one (4, 4) matrix per ray (``m`` (n, 4, 4))."""
+    out = torch.stack([(m[:, r, 0] * v[:, 0] + m[:, r, 1] * v[:, 1])
+                       + m[:, r, 2] * v[:, 2] for r in range(3)], dim=1)
+    return out + m[:, :3, 3] if translate else out
+
+
 def _intersect(t: _Tables, o, d):
-    """Segment hit: dense sphere prepass, instance traversal seeded with the
-    prepass distance, world-distance merge (megakernel.py segment_prepass,
-    start_segments, _advance_impl). Returns (kind: -1 miss / -2 sphere /
-    >= 0 triangle id, point, normal, material id)."""
-    n, scene = o.shape[0], t.scene
-    kind = torch.full((n,), -1, dtype=torch.int64, device=t.dev)
-    seg_dst = torch.full((n,), INF, dtype=torch.float32, device=t.dev)
+    """Segment hit (megakernel.py segment_prepass, start_segments,
+    _advance_impl): the dense sphere prepass, each brute-force group in
+    instance order, then each wide-BVH instance with its pruning limit
+    seeded from the best world distance so far; every merge keeps the
+    earlier hit on an equal world distance. Returns (kind: -1 miss / -2
+    sphere / >= 0 triangle id, world distance, point, normal, backface,
+    material id)."""
+    n, scene, dev = o.shape[0], t.scene, t.dev
+    kind = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    seg_dst = torch.full((n,), INF, dtype=torch.float32, device=dev)
     point = torch.zeros_like(o)
     normal = torch.zeros_like(o)
-    smat = torch.zeros(n, dtype=torch.int64, device=t.dev)
+    smat = torch.zeros(n, dtype=torch.int64, device=dev)
+    # sphere: 1 when the ray starts inside; triangle: the instance id
+    flag = torch.zeros(n, dtype=torch.int64, device=dev)
+    u = torch.zeros_like(seg_dst)
+    v = torch.zeros_like(seg_dst)
+    det = torch.zeros_like(seg_dst)
     if scene.n_spheres:
         s_hit, s_dst, s_in = ray_sphere(o[:, None, :], d[:, None, :],
                                         scene.sphere_pos[None],
@@ -337,35 +408,96 @@ def _intersect(t: _Tables, o, d):
                              normal)
         smat = torch.where(won, scene.sphere_mat[idx[:, 0]].to(torch.int64),
                            smat)
+        flag = torch.where(won, inside.to(torch.int64), flag)
 
-    om = _affine(t.w2m, o, True)
-    dm = normalize(_affine(t.w2m, d, False))
-    wv = _affine(t.m2w, dm, False)
-    slack = _SLACK * (1.0 + torch.sqrt(dot(o, o)))
-    limit = (seg_dst * _REL + slack) / torch.sqrt(dot(wv, wv))
-    best, u, v, det, tri, mat = _traverse(t, om, dm, limit)
+    def instance_ray(i):
+        w2m = scene.inst_world_to_model[i]
+        return _affine(w2m, o, True), normalize(_affine(w2m, d, False))
 
-    wh = _affine(t.m2w, om + dm * best[:, None], True)
-    wd = torch.sqrt(dot(wh - o, wh - o))
-    mesh = (tri >= 0) & (wd < seg_dst)
-    attr = scene.tri_attr[torch.clamp(tri, min=0) >> 2] \
-        .view(n, 4, 32)[torch.arange(n, device=t.dev), tri & 3]
-    wb = (1.0 - u) - v
-    nm = normalize((attr[:, 0:3] * wb[:, None] + attr[:, 3:6] * u[:, None])
-                   + attr[:, 6:9] * v[:, None]) * torch.sign(det)[:, None]
-    nw = normalize(_affine(t.m2w, nm, False))
-    kind = torch.where(mesh, tri, kind)
-    point = torch.where(mesh[:, None], wh, point)
-    normal = torch.where(mesh[:, None], nw, normal)
-    smat = torch.where(mesh, mat, smat)
-    return kind, point, normal, smat
+    def merge(i, om, dm, dst, tri, mat, hu, hv, hdet):
+        nonlocal kind, seg_dst, point, smat, flag, u, v, det
+        wh = _affine(scene.inst_model_to_world[i], om + dm * dst[:, None],
+                     True)
+        wd = torch.sqrt(dot(wh - o, wh - o))
+        better = (tri >= 0) & (wd < seg_dst)
+        seg_dst = torch.where(better, wd, seg_dst)
+        kind = torch.where(better, tri, kind)
+        smat = torch.where(better, mat + scene.inst_mat_deltas[i], smat)
+        flag = torch.where(better, i, flag)
+        u = torch.where(better, hu, u)
+        v = torch.where(better, hv, v)
+        det = torch.where(better, hdet, det)
+        point = torch.where(better[:, None], wh, point)
+
+    for i in t.brute:
+        _, tri_off, count = scene.inst_spans[i]
+        om, dm = instance_ray(i)
+        r = brute_force_intersect_plain(scene, om, dm, tri_off, count)
+        merge(i, om, dm, r["dst"], r["tri"], r["mat"], r["u"], r["v"],
+              r["det"])
+    for i in t.bvh:
+        om, dm = instance_ray(i)
+        wv = _affine(scene.inst_model_to_world[i], dm, False)
+        slack = _SLACK * (1.0 + torch.sqrt(dot(o, o)))
+        limit = (seg_dst * _REL + slack) / torch.sqrt(dot(wv, wv))
+        best, bu, bv, bdet, tri, mat = _traverse(
+            t, scene.wide_rows[scene.wide_roots[i]], om, dm, limit)
+        merge(i, om, dm, best, tri, mat, bu, bv, bdet)
+
+    mesh = kind >= 0
+    if scene.n_instances:
+        attr = scene.tri_attr[torch.clamp(kind, min=0) >> 2] \
+            .view(n, 4, 32)[torch.arange(n, device=dev), kind & 3]
+        wb = (1.0 - u) - v
+        nm = normalize((attr[:, 0:3] * wb[:, None]
+                        + attr[:, 3:6] * u[:, None])
+                       + attr[:, 6:9] * v[:, None]) * sign(det)[:, None]
+        m2w = scene.inst_model_to_world[
+            torch.clamp(flag, 0, scene.n_instances - 1)]
+        normal = torch.where(mesh[:, None],
+                             normalize(_affine_rows(m2w, nm, False)), normal)
+    backface = torch.where(kind == -2, flag > 0, det < 0.0)
+    return kind, seg_dst, point, normal, backface, smat
 
 
-def _shade(t: _Tables, o, d, trans, inc, seed, kind, point, normal, smat,
-           skybox: bool):
-    """resolve_and_shade for the class (megakernel.py:739; the
-    diffuse/specular branch, ray_tracer.wgsl:398-471). Returns the next
-    (o, d, trans, incoming, seed, continues) — misses keep their ray."""
+def _glass(m, d, trans, seed, dst, point, normal, backface):
+    """The glass branch of resolve_and_shade (megakernel.py:826-852;
+    ray_tracer.wgsl:414-436): Beer–Lambert absorption on a backface hit, the
+    ior flip, Schlick reflectance drawn against only when refraction is
+    possible, a random direction, the two lerps and the origin pushed off
+    the surface to the side the new ray leaves by. Returns (direction,
+    origin, transmission, seed)."""
+    absorb = torch.exp(((-dst)[:, None] * m["absorption"][:, :3])
+                       * m["absorption_strength"][:, None])
+    trans_g = torch.where(
+        backface[:, None],
+        torch.cat([trans[:, :3] * absorb, torch.ones_like(trans[:, 3:])],
+                  dim=1), trans)
+    ior = torch.where(backface, m["ior"], 1.0 / m["ior"])
+    refract_dir = refract(d, normal, ior[:, None])
+    cos_t = torch.clamp(dot(-d, normal), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ior * sin_t > 1.0
+    r_refl, seed_refl = rng.rand(seed)
+    seed_g = torch.where(cannot, seed, seed_refl)
+    follow = cannot | (reflectance(cos_t, ior) > r_refl)
+    rand_dir, seed_g = rng.rand_direction(seed_g)
+    diffuse = normalize(normal + rand_dir)
+    reflect_mix = normalize(lerp(diffuse, reflect(d, normal),
+                                 m["specular"][:, None]))
+    refract_mix = normalize(lerp(-diffuse, refract_dir,
+                                 m["smoothness"][:, None]))
+    dir_g = torch.where(follow[:, None], reflect_mix, refract_mix)
+    origin_g = point + (1e-4 * normal) * sign(dot(normal, dir_g))[:, None]
+    return dir_g, origin_g, trans_g, seed_g
+
+
+def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
+           backface, smat, skybox: bool):
+    """resolve_and_shade (megakernel.py:739; ray_tracer.wgsl:398-471): sky
+    on a miss, the glass or the diffuse/specular branch, emission, Russian
+    roulette. Returns the next (o, d, trans, incoming, seed, continues) —
+    misses keep their ray."""
     hit = kind != -1
     if skybox:
         inc = torch.where(hit[:, None], inc, inc + trans * environment_light(d))
@@ -379,12 +511,23 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, point, normal, smat,
         * trans
     trans_n = trans * torch.where(is_spec[:, None], m["specular_color"],
                                   m["color"])
+    point_n = point
+    if t.glass:
+        is_glass = m["flag"] == float(MaterialFlag.GLASS)
+        g = is_glass[:, None]
+        dir_g, origin_g, trans_g, seed_g = _glass(
+            m, d, trans, seed, dst, point, normal, backface)
+        nd = torch.where(g, dir_g, nd)
+        point_n = torch.where(g, origin_g, point)
+        trans_n = torch.where(g, trans_g, trans_n)
+        inc_n = torch.where(g, inc, inc_n)
+        seed_n = torch.where(is_glass, seed_g, seed_n)
     p = trans_n[:, :3].amax(dim=1)
     r_rr, seed_n = rng.rand(seed_n)
     survive = r_rr < p
     trans_n = trans_n / torch.where(p > 0.0, p, t.one)[:, None]
     h = hit[:, None]
-    return (torch.where(h, point, o), torch.where(h, nd, d),
+    return (torch.where(h, point_n, o), torch.where(h, nd, d),
             torch.where(h, trans_n, trans), torch.where(h, inc_n, inc),
             torch.where(hit, seed_n, seed), hit & survive)
 
@@ -406,10 +549,9 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
                 break
             segs += idx.numel()
             oi, di = o[idx], d[idx]
-            kind, point, normal, smat = _intersect(t, oi, di)
+            hit = _intersect(t, oi, di)
             o[idx], d[idx], trans[idx], inc[idx], seed[idx], cont = _shade(
-                t, oi, di, trans[idx], inc[idx], seed[idx], kind, point,
-                normal, smat, skybox)
+                t, oi, di, trans[idx], inc[idx], seed[idx], *hit, skybox)
             idx = idx[cont]
         acc = acc + inc
     return acc, segs
@@ -442,18 +584,82 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
 # --------------------------------------------------------------------------
 # CUDA kernel (csrc/megakernel.cu), built by kernels/cuda_build.py
 # --------------------------------------------------------------------------
+def kernel_tables(scene: TorchScene) -> dict:
+    """The small tables the kernel stages per block, on the scene's device,
+    once per scene (kept in ``scene.derived``): ``scal`` (cam[:3, :4],
+    view_params, defocus, diverge), ``spheres`` (centre, radius, material
+    per row), ``inst`` (one ``INST_COLS`` row per instance, see there) and
+    ``brute`` (the packed rows of each distinct brute-force group,
+    ``kernels/brute.py:pack_brute_table``). Empty tables hold one zero row.
+    ``general`` and ``glass`` pick the kernel's compiled form: ``general``
+    unless the scene is one instance traversed in its wide BVH, ``glass``
+    if any material is glass."""
+    cached = scene.derived.get("megakernel_tables")
+    if cached is not None:
+        return cached
+    dev = scene.device
+    ranges = _brute_ranges(scene)
+    inst = np.zeros((max(scene.n_instances, 1), INST_COLS), np.float32)
+    w2m = scene.inst_world_to_model.cpu().numpy()
+    m2w = scene.inst_model_to_world.cpu().numpy()
+    for i, (_, tri_off, count) in enumerate(scene.inst_spans):
+        brute = count <= BRUTE_MAX_TRIS
+        inst[i, 0:12] = w2m[i, :3, :4].reshape(-1)
+        inst[i, 12:24] = m2w[i, :3, :4].reshape(-1)
+        inst[i, 24:30] = (-1 if brute else scene.wide_roots[i], tri_off,
+                          count, scene.inst_mat_deltas[i], float(brute),
+                          ranges.get((tri_off, count), 0))
+    if np.abs(inst[:, 24:30]).max(initial=0.0) >= 2 ** 24:
+        raise ValueError("instance table: an index beyond float32's exact "
+                         "integers")
+    spheres = torch.cat([scene.sphere_pos, scene.sphere_radius[:, None],
+                         scene.sphere_mat.to(torch.float32)[:, None]], dim=1)
+    tables = dict(
+        scal=torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
+                        scene.view_params.reshape(-1),
+                        scene.defocus_strength.reshape(1),
+                        scene.diverge_strength.reshape(1)]).contiguous(),
+        spheres=spheres.contiguous() if scene.n_spheres
+        else torch.zeros((1, 5), dtype=torch.float32, device=dev),
+        inst=torch.from_numpy(inst).to(dev),
+        brute=torch.cat([pack_brute_table(scene, *key) for key in ranges])
+        if ranges else torch.zeros((1, 16), dtype=torch.float32, device=dev),
+        general=bvh_instances(scene) != [0] or scene.n_instances != 1,
+        glass=bool((scene.mat_rows[:, 21]
+                    == float(MaterialFlag.GLASS)).any()))
+    scene.derived["megakernel_tables"] = tables
+    return tables
+
+
 class CudaMegakernel(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` at first
     use, checks every tensor it hands over, launches on the current stream
-    and counts its launches in ``launches``."""
+    and counts its launches in ``launches``. The kernel itself counts its
+    brute-force prepass on the device (``prepass_counts``)."""
 
     symbol = "rt2_render_persistent"
-    argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p])
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+                + [ctypes.c_uint32] + [ctypes.c_void_p] * 4)
 
     def __init__(self, source: Path = PKG / "csrc" / "megakernel.cu"):
         super().__init__(source)
+        self._prepass = {}  # device -> int64 [closest-hit calls, launches]
+
+    def prepass_counts(self) -> tuple[int, int]:
+        """What the kernel counted of its brute-force prepass since the last
+        ``reset_counts``: (closest-hit calls of the ``csrc/brute.cuh`` loop,
+        one per segment and brute-force group; launches that made any).
+        Synchronises with the device."""
+        calls = launches = 0
+        for c in self._prepass.values():
+            calls += int(c[0])
+            launches += int(c[1])
+        return calls, launches
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        for c in self._prepass.values():
+            c.zero_()
 
     def __call__(self, scene: TorchScene, frames: int, *, width: int,
                  height: int, bounces: int, rays_per_pixel: int,
@@ -464,37 +670,38 @@ class CudaMegakernel(CudaKernel):
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
         _require_eligible(scene)
         rows = height if rows is None else rows
-        w2m, m2w = scene.inst_world_to_model[0], scene.inst_model_to_world[0]
-        scal = torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
-                          scene.view_params.reshape(-1),
-                          scene.defocus_strength.reshape(1),
-                          scene.diverge_strength.reshape(1),
-                          w2m[:3, :4].reshape(-1), m2w[:3, :4].reshape(-1)])
-        spheres = torch.cat([scene.sphere_pos, scene.sphere_radius[:, None],
-                             scene.sphere_mat.to(torch.float32)[:, None]],
-                            dim=1).contiguous()
-        if spheres.shape[0] == 0:
-            spheres = torch.zeros((1, 5), dtype=torch.float32, device=dev)
+        tab = kernel_tables(scene)
+        n_brute = sum(c for _, c in _brute_ranges(scene))
         check_launch(dev, width=width, height=height, row_start=row_start,
                      rows=rows, wide_rows=(scene.wide_rows, 128),
                      tri_attr=(scene.tri_attr, 128),
-                     mat_rows=(scene.mat_rows, 32), spheres=(spheres, 5),
-                     scal=(scal, None))
-        if scal.numel() != 41:
-            raise ValueError(f"scal: expected 41 floats, got {scal.numel()}")
+                     mat_rows=(scene.mat_rows, 32),
+                     spheres=(tab["spheres"], 5), scal=(tab["scal"], None),
+                     inst=(tab["inst"], INST_COLS),
+                     brute=(tab["brute"], 16))
+        if tab["scal"].numel() != 17 or tab["brute"].shape[0] < n_brute:
+            raise ValueError(f"bad tables: {tab['scal'].numel()} camera "
+                             f"floats, {tab['brute'].shape[0]} brute rows "
+                             f"for {n_brute}")
         fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         segments = torch.zeros(1, dtype=torch.int64, device=dev)
+        prepass = self._prepass.get(dev)
+        if prepass is None:
+            prepass = self._prepass[dev] = torch.zeros(
+                2, dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
-                     scene.mat_rows.data_ptr(), spheres.data_ptr(),
-                     scal.data_ptr(), scene.n_spheres, scene.wide_roots[0],
-                     width, height, row_start, rows, bounces,
-                     max(int(rays_per_pixel), 1), int(bool(skybox)),
-                     int(bool(antialias)), frame_seed(frames),
-                     out.data_ptr(),
-                     segments.data_ptr(), stream)
+                     scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
+                     tab["scal"].data_ptr(), tab["inst"].data_ptr(),
+                     tab["brute"].data_ptr(), scene.n_spheres,
+                     scene.n_instances, n_brute, width, height, row_start,
+                     rows, bounces, max(int(rays_per_pixel), 1),
+                     int(bool(skybox)), int(bool(antialias)),
+                     int(tab["general"]), int(tab["glass"]),
+                     frame_seed(frames), out.data_ptr(),
+                     segments.data_ptr(), prepass.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         self.launches += 1

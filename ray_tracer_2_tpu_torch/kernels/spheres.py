@@ -44,7 +44,7 @@ from ray_tracer_2_tpu_torch.kernels.intersect import (
 )
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
     reflectance
-from ray_tracer_2_tpu_torch.math.vec import dot, lerp, reflect
+from ray_tracer_2_tpu_torch.math.vec import dot, lerp, reflect, sign
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
     TorchScene
@@ -220,11 +220,6 @@ def _norm3(v):
     return v * torch.reciprocal(torch.sqrt(dot(v, v, keepdim=True)))
 
 
-def _sign(x):
-    """``jnp.sign``: -1, +-0 or 1, and NaN stays NaN."""
-    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
-
-
 def _rand_direction(seed):
     """Three normal draws in (x, y, z) order, normalised by ``_norm3``."""
     x, seed = rng.rand_normal(seed)
@@ -343,13 +338,13 @@ def _segment(tab: SmallTables, o, d, tr, inc, seed, *, skybox: bool,
     dfd = _norm3(nrm + g)
     gd = torch.where(follow[:, None], _norm3(lerp(dfd, rf, m_spec[:, None])),
                      _norm3(-dfd + (rr + dfd) * m_smooth))
-    go = h + (1e-4 * nrm) * _sign(dot(nrm, gd))[:, None]
+    go = h + (1e-4 * nrm) * sign(dot(nrm, gd))[:, None]
 
     # ---- diffuse / specular (ray_tracer.wgsl:437-459)
     r_spec, seed_n = rng.rand(seed)
     is_spec = m_spec >= r_spec
     u, seed_n = _rand_direction(seed_n)
-    hemi = _sign(dot(nrm, u))
+    hemi = sign(dot(nrm, u))
     hd = u * torch.where(hemi == 0.0, 1.0, hemi)[:, None]
     nd = _norm3(lerp(hd, rf, m_smooth * is_spec[:, None]))
     inc_n = inc + (m_emis * m_emis_k) * tr

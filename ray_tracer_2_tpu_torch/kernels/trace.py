@@ -64,6 +64,8 @@ def gather_material(mat_rows: torch.Tensor, mat_id: torch.Tensor) -> dict:
     row = mat_rows[mat_id.long()]
     return dict(
         color=row[:, 0:4], emission_color=row[:, 4:8],
-        specular_color=row[:, 8:12], emission_strength=row[:, 17],
-        smoothness=row[:, 18], specular=row[:, 19],
+        specular_color=row[:, 8:12], absorption=row[:, 12:16],
+        absorption_strength=row[:, 16], emission_strength=row[:, 17],
+        smoothness=row[:, 18], specular=row[:, 19], ior=row[:, 20],
+        flag=row[:, 21],
     )

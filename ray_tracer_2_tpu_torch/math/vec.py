@@ -26,6 +26,22 @@ def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return i - (2.0 * dot(i, n, keepdim=True)) * n
 
 
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: -1, +-0 or 1, and NaN stays NaN (``torch.sign`` maps
+    NaN to 0)."""
+    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
+
+
+def refract(i: torch.Tensor, n: torch.Tensor, eta) -> torch.Tensor:
+    """WGSL ``refract(i, n, eta)`` (reference ``math/vec.py:refract``): the
+    refracted direction, or the zero vector on total internal reflection.
+    ``eta`` is (..., 1) against (..., 3) ``i``/``n``."""
+    cos_i = dot(n, i, keepdim=True)
+    k = 1.0 - (eta * eta) * (1.0 - cos_i * cos_i)
+    refr = eta * i - (eta * cos_i + torch.sqrt(torch.clamp(k, min=0.0))) * n
+    return torch.where(k < 0.0, torch.zeros_like(refr), refr)
+
+
 def lerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     """WGSL ``mix``: a + (b - a) * t."""
     return a + (b - a) * t

@@ -2,8 +2,8 @@
 ref: src/scene/{scene,entity}.rs).
 
 ``SceneDefinition`` collects entities (spheres / meshes with transforms and
-materials) plus a camera. Meshes come from data only: loading OBJ files
-waits for the assets slice. Instantiation into tensors lives in
+materials) plus a camera. Meshes from data instantiate; a mesh named by
+its file waits for the assets slice. Instantiation into tensors lives in
 ``render_scene.py``.
 """
 from __future__ import annotations
@@ -44,6 +44,16 @@ class MeshData:
 
 
 @dataclasses.dataclass
+class MeshFromFile:
+    """A mesh named by its OBJ file. The definition API takes it as the
+    reference's does; ``instantiate_scene`` refuses it until the assets
+    slice (ROADMAP Queue 1 item 8)."""
+
+    path: str
+    use_mtl: bool = False
+
+
+@dataclasses.dataclass
 class MeshFromData:
     data: MeshData
     indices: Optional[np.ndarray] = None  # optional override index buffer
@@ -66,7 +76,7 @@ class EntityDefinition:
     """entity.rs:7-16."""
 
     transform: Transform
-    primitive: Union[SphereDef, MeshFromData]
+    primitive: Union[SphereDef, MeshFromData, MeshFromFile]
     material: MaterialDefinition
 
 
@@ -88,7 +98,8 @@ class SceneDefinition:
             material=material,
         ))
 
-    def add_mesh(self, transform: Transform, mesh: MeshFromData,
+    def add_mesh(self, transform: Transform,
+                 mesh: Union[MeshFromData, MeshFromFile],
                  material: MaterialDefinition) -> None:
         self.entities.append(EntityDefinition(
             transform=transform, primitive=mesh, material=material))

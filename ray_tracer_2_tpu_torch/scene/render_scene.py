@@ -9,10 +9,12 @@ numpy builders (``accel/``: SAH BVH, 32-ary wide rows with f16 child boxes,
 quad-packed triangle attributes), so a port scene and a reference scene of
 the same definition are byte-identical (``tests/test_torch_scene.py``).
 
-Scope of the ported slices: at most one mesh instance group, dense
-spheres, no texture atlas, no NEE light table, no live edits
-(``HostScene``). Anything else raises ``NotImplementedError`` naming its
-ROADMAP item. The per-triangle model-space tables (``tri_v0`` ...
+Scope of the ported slices: mesh instance groups from data (several, one
+per transform, sharing tables as the reference does), dense spheres, no
+texture atlas, no NEE light table, no live edits (``HostScene``). Meshes
+from files, textured materials and the sphere BVH raise
+``NotImplementedError`` naming their ROADMAP item. The per-triangle
+model-space tables (``tri_v0`` ...
 ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
 are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
@@ -194,6 +196,11 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
     spheres = []
     groups: dict[bytes, dict] = {}
     for e in definition.entities:
+        if e.material.diffuse_texture is not None \
+                or e.material.normal_texture is not None:
+            raise NotImplementedError(
+                "textured materials wait for the texture slice "
+                "(ROADMAP Queue 1 item 8)")
         records.append(e.material.resolve())
         mid = len(records) - 1
         if isinstance(e.primitive, SphereDef):
@@ -206,10 +213,6 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         m = e.transform.to_matrix()
         g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": []})
         g["parts"].append((e.primitive.resolved(), mid))
-    if len(groups) > 1:
-        raise NotImplementedError(
-            "several mesh instance groups wait for the multi-instance slice "
-            "(ROADMAP Queue 1 item 8)")
     if len(spheres) >= SPHERE_BVH_MIN:
         raise NotImplementedError(
             "the sphere BVH waits for its slice (ROADMAP Queue 1 item 8)")
@@ -217,10 +220,44 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
                            "uv0", "uv1", "uv2", "mat")}
-    w2m, m2w, spans, roots = [], [], [], []
-    wide = np.zeros((0, 128), np.float32)
+    w2m, m2w, spans, roots, deltas = [], [], [], [], []
+    wide_groups = []
+    wide_cursor = tri_cursor = node_cursor = 0
     wide_depth = 1
+
+    # Instanced-geometry sharing (reference render_scene.py:594-690): a
+    # group whose parts are the SAME MeshData objects as an earlier group's,
+    # with one material-id shift and the same flags, reuses that group's
+    # tables and carries only the shift.
+    built: dict[tuple, dict] = {}
+
+    def share(key, group):
+        canon = built.get(key)
+        if canon is None:
+            return None
+        b_ids = [mid for _, mid in group["parts"]]
+        shifts = {b - a for a, b in zip(canon["mat_ids"], b_ids)}
+        if len(shifts) != 1 or any(records[a].flag != records[b].flag
+                                   for a, b in zip(canon["mat_ids"], b_ids)):
+            return None
+        return canon, shifts.pop()
+
+    def add_instance(matrix, node_off, tri_off, count, root, delta):
+        m2w.append(matrix)
+        w2m.append(np.linalg.inv(matrix.astype(np.float64))
+                   .astype(np.float32))
+        spans.append((node_off, tri_off, count))
+        roots.append(root)
+        deltas.append(delta)
+
     for g in groups.values():
+        key = tuple(id(mesh) for mesh, _ in g["parts"])
+        shared = share(key, g)
+        if shared is not None:
+            canon, delta = shared
+            add_instance(g["matrix"], canon["node_off"], canon["tri_off"],
+                         canon["count"], canon["root"], int(delta))
+            continue
         soup = _concat_soup(g["parts"])
         if soup is None:
             continue
@@ -228,17 +265,24 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         bvh = build_bvh(v0, v1, v2, max_leaf=LEAF_CHUNK)
         o = bvh.tri_order
         cull = (mat_flags[mats[o]] != MaterialFlag.GLASS).astype(np.float32)
-        wide, _, wd = pack_wide_rows(bvh, v0[o], v1[o], v2[o], mats[o], cull,
-                                     row_offset=0, tri_offset=0)
+        rows, n_rows, wd = pack_wide_rows(
+            bvh, v0[o], v1[o], v2[o], mats[o], cull,
+            row_offset=wide_cursor, tri_offset=tri_cursor)
+        wide_groups.append(rows)
         wide_depth = max(wide_depth, wd)
         for k, arr in zip(tri, (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2,
                                 mats)):
             tri[k].append(arr[o])
-        m = g["matrix"]
-        m2w.append(m)
-        w2m.append(np.linalg.inv(m.astype(np.float64)).astype(np.float32))
-        spans.append((0, 0, len(v0)))
-        roots.append(0)
+        built[key] = dict(
+            mat_ids=[mid for _, mid in g["parts"]], node_off=node_cursor,
+            tri_off=tri_cursor, count=len(v0), root=wide_cursor)
+        add_instance(g["matrix"], node_cursor, tri_cursor, len(v0),
+                     wide_cursor, 0)
+        wide_cursor += n_rows
+        tri_cursor += len(v0)
+        node_cursor += bvh.n_nodes
+    wide = np.concatenate(wide_groups, axis=0) if wide_groups \
+        else np.zeros((0, 128), np.float32)
 
     def cat(parts, shape, dtype=np.float32):
         pad = np.zeros((LEAF_CHUNK, *shape), dtype)
@@ -275,5 +319,5 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
     statics = dict(inst_spans=tuple(spans), wide_roots=tuple(roots),
                    wide_depth=wide_depth,
                    shade_classes=_shade_classes(records),
-                   inst_mat_deltas=(0,) * len(spans))
+                   inst_mat_deltas=tuple(deltas))
     return TorchScene.from_numpy(fields, statics)

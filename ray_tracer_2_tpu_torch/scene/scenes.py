@@ -12,7 +12,9 @@ dragon's folds do, so its times do not stand for the dragon's.
 The small-scene path renders the reference's asset-free built-in scenes
 ``balls``, ``metal``, ``random_balls`` and ``room``
 (``ray_tracer_2_tpu/scene/scenes.py:58-153,211-224``), copied here
-definition for definition.
+definition for definition. ``room2_scene`` is the reference's benchmark
+scene ``room_2`` with the same soup standing in for its two dragons;
+``instances_scene`` fills the frame with shared instances.
 """
 from __future__ import annotations
 
@@ -175,6 +177,105 @@ def wide_bvh_scene(lat: int = 22, lon: int = 34) -> SceneDefinition:
                .smooth(0.4).specular_([1.0] * 4, 0.1))
     s.add_sphere([1.1, 0.35, 0.6], 0.35,
                  MaterialDefinition.new().with_color([0.4, 0.9, 0.4, 1.0]))
+    return s
+
+
+ROOM2_RADIUS = 0.25
+"""Model-space radius of room2's stand-in soup. Under the first dragon's
+transform (scale 4.7 about y = 1.2, z = -0.6) it is a sphere of radius
+about 1.18 that sits inside the inner room, above its floor at y = 0 and
+before its back wall at z = -2; the second, unscaled one floats above the
+ceiling. Chosen, not taken from the dragon."""
+
+
+def room2_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
+    """The reference's benchmark scene ``room_2``
+    (``ray_tracer_2_tpu/scene/scenes.py:156-208``; scene.rs:574-757):
+    camera with depth of field, materials, transforms, eight quads (one
+    identity-transform group of 16 triangles, a 60-strength light among
+    them) and a glass sphere, word for word. The one change: both dragons
+    are one shared ``latlon_soup(lat, lon, ROOM2_RADIUS)`` (80,000
+    triangles at the default size), so the two instances share tables as
+    the reference's two loads of one OBJ do."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 1.28, 13.5], [0.0, 1.28, 12.5]),
+        fov=26.0, near=0.1, far=100.0, focus_dist=8.6,
+        defocus_strength=100.0, diverge_strength=1.5))
+    new = MaterialDefinition.new
+    width, depth, height = 3.0, 2.0, 4.0
+    dragon_mat = (new().with_color([0.96078, 0.11372, 0.4039, 1.0])
+                  .smooth(0.8).specular_([1.0] * 4, 0.015))
+    dragon = MeshFromData(latlon_soup(lat, lon, ROOM2_RADIUS))
+    s.add_mesh(Transform(pos=[0.0, 1.2, -0.6], rot=quat_rotate_y(-1.5708),
+                         scale=[4.7, 4.7, 4.7]), dragon, dragon_mat)
+    s.add_mesh(Transform(pos=[0.0, 7.2, 2.0], rot=quat_rotate_y(-1.5708)),
+               dragon, dragon_mat)
+    t = Transform()
+    s.add_mesh(t, _quad_mesh([[-10, -0.01, -10], [10, -0.01, -10],
+                              [10, -0.01, 10], [-10, -0.01, 10]],
+                             [0, 1, 0], [2, 1, 0, 3, 2, 0]),
+               new().with_color([0.4, 0.4, 0.64313, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-10, 8.5, -10], [10, 8.5, -10],
+                              [10, 8.5, 10], [-10, 8.5, 10]],
+                             [0, -1, 0], [0, 1, 2, 0, 2, 3]),
+               new().with_color([0.898, 0.87, 0.815, 1.0])
+               .smooth(0.877).specular_([1.0] * 4, 0.327))
+    s.add_mesh(t, _quad_mesh([[-width, 0, -depth], [width, 0, -depth],
+                              [width, 0, depth], [-width, 0, depth]],
+                             [0, 1, 0], [2, 1, 0, 3, 2, 0]),
+               new().with_color([0.898, 0.87, 0.815, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-width, height, -depth], [width, height, -depth],
+                              [width, height, depth], [-width, height, depth]],
+                             [0, -1, 0], [0, 1, 2, 0, 2, 3]),
+               new().with_color([1.0, 0.9647, 0.9019, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-width, 0, -depth], [-width, height, -depth],
+                              [-width, height, depth], [-width, 0, depth]],
+                             [1, 0, 0], [0, 1, 2, 0, 2, 3]),
+               new().with_color([0.0705, 0.596, 0.2078, 1.0]))
+    s.add_mesh(t, _quad_mesh([[width, 0, -depth], [width, 0, depth],
+                              [width, height, depth], [width, height, -depth]],
+                             [-1, 0, 0], [0, 1, 2, 0, 2, 3]),
+               new().with_color([0.7725, 0.12156, 0.188235, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-width, 0, -depth], [width, 0, -depth],
+                              [width, height, -depth], [-width, height, -depth]],
+                             [0, 0, 1], [0, 1, 2, 0, 2, 3]),
+               new().with_color([0.1254, 0.41176, 0.8274, 1.0]))
+    s.add_mesh(t, _quad_mesh([[-0.8, height - 0.02, -0.8],
+                              [0.8, height - 0.02, -0.8],
+                              [0.8, height - 0.02, 0.8],
+                              [-0.8, height - 0.02, 0.8]],
+                             [0, -1, 0], [0, 1, 2, 0, 2, 3]),
+               new().emissive([1.0, 0.8588, 0.3529, 1.0], 60.0))
+    s.add_sphere([0.0, 1.0, 4.4], 1.15,
+                 new().specular_([1.0] * 4, 0.517).smooth(1.0).glass(1.6))
+    return s
+
+
+def instances_scene() -> SceneDefinition:
+    """Four instances on a ground sphere: two shared soups under two
+    transforms and two materials each, a 300-triangle one (traversed in its
+    wide BVH) and a 72-triangle one (brute force). Every hit's material
+    needs its instance's delta and its normal its instance's transform. At
+    128x72, 38% of the primary rays end on an instance (16%, 7%, 10% and 4%
+    in instance order), 28% on the ground and 34% in the sky."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.8, 2.6], [0.0, 0.55, 0.0]),
+        fov=40.0, focus_dist=4.0))
+    new = MaterialDefinition.new
+    big = MeshFromData(latlon_soup(10, 15, 0.5))
+    small = MeshFromData(latlon_soup(4, 9, 0.4))
+    for x, rot, mat in ((-1.2, 0.3, new().with_color([0.8, 0.3, 0.2, 1.0])),
+                        (0.2, -0.9, new().with_color([0.2, 0.7, 0.3, 1.0])
+                         .specular_([1.0] * 4, 0.5).smooth(0.8))):
+        s.add_mesh(Transform(pos=[x, 0.5, 0.0], rot=quat_rotate_y(rot),
+                             scale=[1.0, 1.4, 1.0]), big, mat)
+        s.add_mesh(Transform(pos=[x + 1.1, 0.4, 0.6],
+                             rot=quat_rotate_y(-rot), scale=[0.8] * 3),
+                   small, mat.emissive([1.0, 0.9, 0.6, 1.0], 2.0))
+    s.add_sphere([0.0, -100.0, 0.0], 100.0,
+                 new().with_color([0.5, 0.5, 0.5, 1.0]))
     return s
 
 

@@ -4,7 +4,8 @@
 cull) and boxes. Classes: hit masks are equal except on rays within 1e-6
 of an edge of the decision (a grazing sphere, a triangle edge, a box
 corner), where the two float pipelines may round to either side; distances
-of rays both call hits agree within 1e-6 relative.
+of rays both call hits agree within 1e-6 relative. ``math.vec.refract``
+(the glass branch's) is held here too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -137,3 +138,28 @@ def test_ray_sphere_fast(rays):
     _check(h0, h1, t0, t1, near_edge, rel_tol=2e-6)
     both = np.asarray(h0) & h1.numpy()
     assert np.array_equal(np.asarray(in0)[both], in1.numpy()[both])
+
+
+@pytest.mark.parametrize("backface", [False, True])
+def test_refract(rays, backface):
+    """``math.vec.refract`` against the reference's: the zero vector on
+    total internal reflection (the same rays, away from the 1e-6 edge of
+    the decision), directions within 1e-6 elsewhere."""
+    from ray_tracer_2_tpu.math.vec import refract as ref_refract
+    from ray_tracer_2_tpu_torch.math.vec import refract
+    o, d = rays
+    n = o / np.linalg.norm(o, axis=1, keepdims=True)
+    if backface:
+        n = -n
+    eta = np.random.default_rng(1).uniform(0.5, 2.0, B).astype(np.float32)
+    want = np.asarray(ref_refract(jnp.asarray(d), jnp.asarray(n),
+                                  jnp.asarray(eta)))
+    got = refract(torch.from_numpy(d), torch.from_numpy(n),
+                  torch.from_numpy(eta)[:, None]).numpy()
+    cos = np.sum(n * d, axis=1, dtype=np.float64)
+    k = 1.0 - eta.astype(np.float64) ** 2 * (1.0 - cos * cos)
+    decided = np.abs(k) > EDGE
+    tir = np.all(want == 0.0, axis=1)
+    assert tir[decided].any() and (~tir[decided]).any()
+    assert np.array_equal(tir[decided], np.all(got == 0.0, axis=1)[decided])
+    assert np.abs(want - got)[decided].max() <= 1e-6

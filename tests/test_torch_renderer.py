@@ -3,8 +3,13 @@
 Frames 0, 1 and 2 at bounces=0 on the wide-BVH scene accumulate with the
 reference's weight 1/(frames+1); each frame's image must agree with JAX
 ``render_frame(fused_boundary=True)`` in the primary class (segments exact,
->= 99% of pixels within 1e-5). On the CPU the kernel is never launched, and
-scenes or options outside the ported slice raise ``NotImplementedError``.
+>= 99% of pixels within 1e-5). A 72-triangle mesh (brute force, bounces
+0) and ``room`` with antialias (bounces 3) render through
+``render_persistent`` and agree with JAX ``render_persistent`` (XLA
+boundary) in the primary and the chaos class (measured: every pixel within
+1e-5, segments exact, in both). On
+the CPU no kernel is launched, and scenes or options outside the ported
+slices raise ``NotImplementedError``.
 """
 import dataclasses
 
@@ -12,19 +17,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import ray_tracer_2_tpu_torch.engine.renderer as renderer_mod
 from ray_tracer_2_tpu.engine.export import \
     framebuffer_to_srgb as ref_framebuffer_to_srgb
 from ray_tracer_2_tpu.engine.renderer import render_frame as ref_render_frame
-from ray_tracer_2_tpu.scene import scenes as ref_scenes
+from ray_tracer_2_tpu.kernels.megakernel import \
+    render_persistent as ref_render_persistent
 from ray_tracer_2_tpu.scene.render_scene import \
     instantiate_scene as ref_instantiate
 from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
 from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
+from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
 from ray_tracer_2_tpu_torch.scene import scenes
+from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
-from torch_bridge import H, W, frac_within, torch_scene, wide_bvh_render_scene
+from torch_bridge import (
+    H, W, frac_within, ref_definition, torch_scene, wide_bvh_render_scene,
+)
 
 PARAMS = RenderParams(width=W, height=H, bounces=0, rays_per_pixel=1,
                       skybox=True)
@@ -54,21 +66,47 @@ def test_progressive_frames_match_reference(scenes_):
     assert CUDA_MEGAKERNEL.launches == launches
 
 
+def _textured(ts):
+    """``ts`` with its first material textured, as a scene carrying a
+    texture atlas would hold it."""
+    rows = ts.mat_rows.clone()
+    rows[0, 21] = float(MaterialFlag.TEXTURE)
+    rows[0, 22] = 0.0
+    return dataclasses.replace(ts, mat_rows=rows,
+                               shade_classes=ts.shade_classes + ("texture",))
+
+
 def test_outside_the_slice_raises(scenes_):
-    """Outside both ported paths: a 72-triangle mesh (too many triangles
-    for the small-scene path, brute-force size for the main path), and the
-    small scene room with antialias."""
+    """Outside every ported path: random_balls with antialias (485 spheres,
+    more than the megakernel's dense prepass takes), a textured material,
+    and the debug modes, NEE and normal maps."""
     _, ts = scenes_
-    mesh72 = instantiate_scene(scenes.wide_bvh_scene(lat=4, lon=9))
-    room = torch_scene(ref_instantiate(ref_scenes.room()).render_scene)
+    rballs = instantiate_scene(scenes.random_balls())
     renderer = Renderer()
-    for scene, over in ((mesh72, {}), (room, dict(antialias=True))):
+    for scene, over in ((rballs, dict(antialias=True)), (_textured(ts), {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.render(scene, dataclasses.replace(PARAMS, **over))
     for over in (dict(debug_mode=DebugMode.NORMALS), dict(nee=True),
                  dict(normal_maps=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.render(ts, dataclasses.replace(PARAMS, **over))
+
+
+def test_brute_force_mesh_renders():
+    """The 72-triangle mesh (too many triangles for the small-scene path,
+    brute-force size for the megakernel) renders through
+    ``render_persistent``: segments exact and every pixel within 1e-5 of
+    JAX ``render_persistent`` at bounces 0."""
+    rs = ref_instantiate(ref_definition(
+        scenes.wide_bvh_scene(lat=4, lon=9))).render_scene
+    ts = torch_scene(rs)
+    renderer = Renderer()
+    renderer.render(ts, dataclasses.replace(PARAMS, frames=0))
+    ref, segs = ref_render_persistent(
+        rs, jnp.int32(0), width=W, height=H, bounces=0, rays_per_pixel=1,
+        skybox=True, lanes=128, unroll=2, fused_boundary=False)
+    assert int(renderer.last_segments) == int(float(segs)) == W * H
+    assert frac_within(np.asarray(ref), renderer.read_framebuffer()) == 1.0
 
 
 @pytest.mark.parametrize("renderer_device,scene_device",
@@ -88,3 +126,39 @@ def test_export_matches_reference():
     fb = np.random.default_rng(0).uniform(-0.2, 1.5, size=(H, W, 4)) \
         .astype(np.float32)
     assert np.array_equal(framebuffer_to_srgb(fb), ref_framebuffer_to_srgb(fb))
+
+
+def test_room_antialias_goes_through_the_megakernel(monkeypatch):
+    """``room`` is a small scene, but antialias sends it to
+    ``render_persistent`` (reference ``_use_pallas_spheres``); two
+    progressive frames agree with JAX ``render_persistent`` plus the blend
+    (bounces 3, rpp 2: segments within 2%, >= 99% of pixels within 1e-5),
+    and no kernel is launched."""
+    rs = ref_instantiate(ref_definition(scenes.room())).render_scene
+    ts = torch_scene(rs)
+    W, H = 48, 27
+    calls = []
+    real = renderer_mod.render_persistent
+    monkeypatch.setattr(renderer_mod, "render_persistent",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    launches = (CUDA_MEGAKERNEL.launches, CUDA_SPHERES.launches,
+                CUDA_BRUTE.launches)
+    params = RenderParams(width=W, height=H, bounces=3, rays_per_pixel=2,
+                          skybox=True, antialias=True)
+    renderer = Renderer()
+    fb = jnp.zeros((H, W, 4), jnp.float32)
+    for f in range(2):
+        sample, segs = ref_render_persistent(
+            rs, jnp.int32(f), width=W, height=H, bounces=3,
+            rays_per_pixel=2, skybox=True, antialias=True, lanes=128,
+            unroll=2, fused_boundary=False)
+        w = 1.0 / (f + 1.0) if f >= 1 else 1.0
+        fb = fb * (1.0 - w) + sample * w
+        renderer.render(ts, dataclasses.replace(params, frames=f))
+        assert abs(int(renderer.last_segments) - int(float(segs))) \
+            <= 0.02 * int(float(segs))
+        assert frac_within(np.asarray(fb), renderer.read_framebuffer()) \
+            >= 0.99, f
+    assert len(calls) == 2
+    assert (CUDA_MEGAKERNEL.launches, CUDA_SPHERES.launches,
+            CUDA_BRUTE.launches) == launches

@@ -14,6 +14,12 @@ pixels within 1e-3 (the reference's own classes are 1-2% and 95%).
 other scene to ``render_persistent``; over three progressive frames of
 metal it equals a loop of the reference kernel plus the ``1/(frames+1)``
 blend (primary class: >= 99.9% of pixels within 1e-5; measured all).
+A small scene asked for antialias goes to ``render_persistent`` instead, as
+in the reference: ``metal`` at bounces 3 then agrees with JAX
+``render_persistent`` in the chaos class (segments within 2%, >= 99% of
+pixels within 1e-5; measured: segments exact, one pixel of 512 off), and
+``random_balls``, with more spheres than the megakernel's dense prepass
+takes, raises.
 """
 import dataclasses
 
@@ -22,6 +28,8 @@ import numpy as np
 import pytest
 
 import ray_tracer_2_tpu_torch.engine.renderer as renderer_mod
+from ray_tracer_2_tpu.kernels.megakernel import \
+    render_persistent as ref_render_persistent
 from ray_tracer_2_tpu.kernels.pallas_spheres import render_spheres_pallas
 from ray_tracer_2_tpu.scene import scenes as ref_scenes
 from ray_tracer_2_tpu.scene.render_scene import \
@@ -102,6 +110,28 @@ def test_routing(monkeypatch):
 
 
 def test_antialias_on_a_small_scene_raises():
+    """random_balls with antialias goes to the megakernel, which takes at
+    most 32 dense spheres."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        Renderer().render(_pair("metal")[1],
+        Renderer().render(_pair("random_balls")[1],
                           dataclasses.replace(PARAMS, antialias=True))
+
+
+def test_antialias_on_a_small_scene_renders():
+    """metal with antialias (bounces 3, rpp 2) renders through
+    render_persistent and agrees with JAX render_persistent; no kernel is
+    launched on the CPU."""
+    rs, ts = _pair("metal")
+    launches = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches)
+    renderer = Renderer()
+    renderer.render(ts, dataclasses.replace(PARAMS, bounces=3,
+                                            rays_per_pixel=2,
+                                            antialias=True))
+    ref, segs = ref_render_persistent(
+        rs, jnp.int32(0), width=W, height=H, bounces=3, rays_per_pixel=2,
+        skybox=True, antialias=True, lanes=128, unroll=2,
+        fused_boundary=False)
+    assert abs(int(renderer.last_segments) - int(float(segs))) \
+        <= 0.02 * int(float(segs))
+    assert frac_within(np.asarray(ref), renderer.read_framebuffer()) >= 0.99
+    assert (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches) == launches

@@ -3,6 +3,7 @@ of the JAX package over to the PyTorch port through numpy, so both render
 from identical tables."""
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -41,6 +42,51 @@ def torch_scene(rs) -> TorchScene:
     return TorchScene.from_numpy({f: np.asarray(getattr(rs, f))
                                   for f in FIELDS},
                                  {k: getattr(rs, k) for k in STATICS})
+
+
+def ref_definition(port):
+    """The JAX package's ``SceneDefinition`` for a port one: the same
+    camera, entities, transforms and materials. A ``MeshData`` that several
+    port entities share maps to one reference ``MeshData``, so instances
+    that share tables in the port share them in the reference too."""
+    from ray_tracer_2_tpu.math.transform import Transform
+    from ray_tracer_2_tpu.scene import definition as rd
+    from ray_tracer_2_tpu.scene.material import MaterialDefinition, \
+        MaterialFlag
+    from ray_tracer_2_tpu_torch.scene.definition import MeshFromData, \
+        SphereDef
+
+    def transform(t):
+        return Transform(pos=t.pos, rot=t.rot, scale=t.scale)
+
+    def material(m):
+        fields = dataclasses.asdict(m)
+        fields["flag"] = MaterialFlag(int(m.flag))
+        return MaterialDefinition(**fields)
+
+    cam = port.camera
+    s = rd.SceneDefinition()
+    s.set_camera(rd.CameraDescriptor(
+        transform=transform(cam.transform), fov=cam.fov, aspect=cam.aspect,
+        near=cam.near, far=cam.far, focus_dist=cam.focus_dist,
+        defocus_strength=cam.defocus_strength,
+        diverge_strength=cam.diverge_strength))
+    meshes = {}
+    for e in port.entities:
+        p = e.primitive
+        if isinstance(p, SphereDef):
+            s.add_sphere(p.centre, p.radius, material(e.material))
+        elif isinstance(p, MeshFromData):
+            if id(p.data) not in meshes:
+                meshes[id(p.data)] = rd.MeshData(
+                    p.data.positions, p.data.normals, p.data.uvs,
+                    p.data.indices)
+            s.add_mesh(transform(e.transform),
+                       rd.MeshFromData(meshes[id(p.data)], p.indices),
+                       material(e.material))
+        else:
+            raise TypeError(f"no reference counterpart for {p!r}")
+    return s
 
 
 def wide_bvh_render_scene():
