@@ -23,6 +23,14 @@ The megakernel is also held against its plain version on
 ``instances_scene``, where four instances of two shared tables take 38%
 of the primary rays.
 
+Both render kernels are persistent: lanes refill from a pixel cursor and
+count their own work on the device. Each comparison also holds the
+megakernel's interior-row, leaf and child-box visits equal to the plain
+version's, and reports lane occupancy (active lanes over 32 x turns of the
+lane loop) beside what one thread per pixel would have had. The kernels
+line gives each kernel's bound: the larger of its operations, counted in
+this run, over the card's float32 peak and its bytes over the memory rate.
+
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last line is the result. Any failed check raises, so the exit
 code is non-zero and no result line is printed. It needs one CUDA card and
@@ -51,6 +59,22 @@ BRUTE_RAYS = W * H
 # PIXEL_TOL at every bounce count.
 PIXEL_TOL = 1e-5
 NEED_FRAC = 0.999
+# The card's published peaks (H100 SXM at 700 W): float32 outside the
+# tensor cores and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Float operations per unit of counted work, read off csrc/ (adds,
+# multiplies, min/max, compares and selects; a division or square root
+# counts one; integer work and transcendentals are left out, so the bound
+# is a lower one):
+OPS_BOX = 34            # megakernel.cu child_eval, per child box
+OPS_LEAF = 8 * 47       # megakernel.cu traverse, per leaf of 8 triangles
+OPS_SPHERE = 35         # the exact quadratic (both kernels), per sphere
+OPS_SPHERE_FAST = 30    # spheres.cu shared-term formula, per sphere
+OPS_TRI = 49            # spheres.cu triangle test, per triangle
+OPS_BRUTE = 62          # brute.cuh closest_hit, per triangle
+OPS_INSTANCE = 60       # megakernel.cu instance ray, limit, merge
+OPS_SEGMENT = 160       # camera ray share, shading, roulette per segment
 
 
 def check(ok: bool, what: str) -> None:
@@ -83,22 +107,46 @@ def kernel_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def one_thread_per_pixel_occupancy(pixel_segments) -> float:
+    """Lane occupancy the earlier one-thread-per-pixel form had on these
+    pixels: a warp of 32 consecutive pixels turned as many times as its
+    longest path (all samples), one segment a turn."""
+    segs = pixel_segments.reshape(-1)
+    pad = (-segs.numel()) % 32
+    warps = torch.cat([segs, segs.new_zeros(pad)]).view(-1, 32)
+    return float(segs.sum()) / (32.0 * float(warps.amax(dim=1).sum()))
+
+
 def compare(scene, width, height, bounces, kernel, plain):
     """Kernel vs plain version on the same scene and frame; the kernel is
     timed over repeated launches after the compared one, the plain version
-    on the compared call."""
+    on the compared call. The kernel's device counts are those of the
+    compared launch."""
     kw = dict(width=width, height=height, bounces=bounces, rays_per_pixel=1,
               skybox=True)
+    kernel.reset_counts()
     ki, ks = kernel(scene, 1, **kw)
+    kc = kernel.read_counts()
     k_ms = kernel_ms(lambda: kernel(scene, 1, **kw))
-    (pi, ps), p_ms = timed(lambda: plain(scene, 1, **kw))
+    pc = {}
+    (pi, ps), p_ms = timed(lambda: plain(scene, 1, counts=pc, **kw))
     check(bool(torch.isfinite(ki).all()), "kernel image finite")
     err = (ki - pi).abs().amax(dim=-1)
-    return dict(width=width, height=height, bounces=bounces,
-                segments_kernel=int(ks), segments_plain=int(ps),
-                frac_within_tol=float((err < PIXEL_TOL).float().mean()),
-                frac_lit=float((pi[..., :3] > 0).any(dim=-1).float().mean()),
-                max_abs_err=float(err.max()), kernel_ms=k_ms, plain_ms=p_ms)
+    r = dict(width=width, height=height, bounces=bounces,
+             segments_kernel=int(ks), segments_plain=int(ps),
+             frac_within_tol=float((err < PIXEL_TOL).float().mean()),
+             frac_lit=float((pi[..., :3] > 0).any(dim=-1).float().mean()),
+             max_abs_err=float(err.max()), kernel_ms=k_ms, plain_ms=p_ms,
+             turns=kc["turns"], active_lanes=kc["active_lanes"],
+             lane_occupancy=kc["active_lanes"] / (32.0 * max(kc["turns"], 1)),
+             lane_occupancy_one_thread_per_pixel=
+             one_thread_per_pixel_occupancy(pc["pixel_segments"]))
+    for k in ("rows", "leaves", "boxes", "brute_calls"):
+        if k in kc:
+            r[f"{k}_kernel"] = kc[k]
+            if k in pc:
+                r[f"{k}_plain"] = pc[k]
+    return r
 
 
 def check_cases(cases, launch, plain, **tags):
@@ -113,6 +161,11 @@ def check_cases(cases, launch, plain, **tags):
         where = f"{name} at bounces={b} ({w}x{h})"
         check(r["segments_kernel"] == r["segments_plain"],
               f"exact segments, {where}")
+        for k in ("rows", "leaves", "boxes"):
+            if f"{k}_plain" in r:
+                check(r[f"{k}_kernel"] == r[f"{k}_plain"],
+                      f"{k} visits {r[f'{k}_kernel']} (kernel) == "
+                      f"{r[f'{k}_plain']} (plain), {where}")
         check(r["frac_within_tol"] >= NEED_FRAC,
               f"{r['frac_within_tol']:.4f} of pixels within {PIXEL_TOL} "
               f"(need {NEED_FRAC}), {where}")
@@ -121,6 +174,50 @@ def check_cases(cases, launch, plain, **tags):
                                     f"{where}")
         results.append(r)
     return results
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ``ops`` over the
+    float32 peak and ``nbytes`` over the memory rate."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def megakernel_bound(scene, r) -> dict:
+    """Bound of the megakernel on a compared cell: its counted child boxes,
+    leaves and segments (each segment tests every sphere and brute-force
+    triangle and transforms the ray into every instance), against its
+    tables read once and the image written once."""
+    from ray_tracer_2_tpu_torch.kernels.megakernel import brute_instances
+    brute_tris = sum(scene.inst_spans[i][2] for i in brute_instances(scene))
+    per_seg = (scene.n_spheres * OPS_SPHERE + brute_tris * OPS_BRUTE
+               + scene.n_instances * OPS_INSTANCE + OPS_SEGMENT)
+    ops = (r["boxes_kernel"] * OPS_BOX + r["leaves_kernel"] * OPS_LEAF
+           + r["segments_kernel"] * per_seg)
+    return bound(ops, nbytes(scene.wide_rows, scene.tri_attr, scene.mat_rows)
+                 + r["width"] * r["height"] * 16)
+
+
+def spheres_bound(scene, r) -> dict:
+    """Bound of the small-scene kernel on a compared cell: every segment
+    tests every sphere and triangle; its tables read once, the image
+    written once."""
+    from ray_tracer_2_tpu_torch.kernels.intersect import SPHERE_FAST_MIN
+    from ray_tracer_2_tpu_torch.kernels.spheres import pack_tables
+    tab = pack_tables(scene)
+    s, t = tab.n_spheres, tab.n_tris
+    per_seg = (s * (OPS_SPHERE_FAST if s >= SPHERE_FAST_MIN else OPS_SPHERE)
+               + t * OPS_TRI + OPS_SEGMENT)
+    return bound(r["segments_kernel"] * per_seg,
+                 nbytes(tab.spheres, tab.tris, tab.fields)
+                 + r["width"] * r["height"] * 16)
 
 
 def brute_group():
@@ -176,7 +273,9 @@ def compare_brute(seed: int = 0):
              mat_exact=bool((out[:, 4].long() == ref["mat"]).all()),
              frac_within_tol=float((err < PIXEL_TOL).float().mean()),
              max_abs_err=float(err[hit].max()) if bool(hit.any()) else 0.0,
-             kernel_ms=k_ms, plain_ms=p_ms)
+             kernel_ms=k_ms, plain_ms=p_ms,
+             **bound(BRUTE_RAYS * count * OPS_BRUTE,
+                     nbytes(rays, table, out)))
     emit(phase="kernel_vs_plain", kernel="brute", need_frac=NEED_FRAC, **r)
     check(r["tri_exact"] and r["mat_exact"], "brute kernel: tri and mat "
                                              "exact")
@@ -245,7 +344,8 @@ def main() -> int:
     build_all(*kernels)
     for k in kernels:
         ptxas = [ln.strip() for ln in k.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(w in ln for w in ("entry function", "registers",
+                                          "spill"))]
         emit(phase="build", source=k.source.name,
              nvcc_seconds=k.build_seconds, ptxas=ptxas)
     emit(phase="build", seconds=time.perf_counter() - t0)
@@ -271,7 +371,7 @@ def main() -> int:
     room2_s = time.perf_counter() - t0
     small_name = f"room2_scene ({ROOM2_SMALL_SOUP}x{ROOM2_SMALL_SOUP} soup)"
     insts = instantiate_scene(scenes.instances_scene()).to("cuda")
-    check_cases(
+    room2_cmp = check_cases(
         [(small_name, room2_small, SMALL_W, SMALL_H, 0),
          (small_name, room2_small, SMALL_W, SMALL_H, BOUNCES),
          ("room2_scene", room2, W, H, 0),
@@ -279,7 +379,7 @@ def main() -> int:
          ("instances_scene", insts, SMALL_W, SMALL_H, 0),
          ("instances_scene", insts, SMALL_W, SMALL_H, BOUNCES),
          ("instances_scene", insts, W, H, BOUNCES)],
-        CUDA_MEGAKERNEL, render_plain, kernel="megakernel")
+        CUDA_MEGAKERNEL, render_plain, kernel="megakernel")[3]
     rballs = instantiate_scene(scenes.random_balls()).to("cuda")
     room = instantiate_scene(scenes.room()).to("cuda")
     sph_cmp = check_cases(
@@ -360,30 +460,53 @@ def main() -> int:
          ms_per_frame=dt * 1e3 / (FRAMES - 2),
          mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
+    # bounds from this run's counted work on the timed 1080p cells; no one
+    # PyTorch call computes a path-traced frame or a closest hit over a
+    # triangle table, so library_ms is null
+    main_b = megakernel_bound(main_scene, main_cmp)
+    room2_b = megakernel_bound(room2, room2_cmp)
+    sph_b = spheres_bound(rballs, sph_cmp)
     emit(kernels=[
         dict(name="megakernel", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/megakernel.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_boundary.py:236",
-             launches=launches, max_abs_err=main_cmp["max_abs_err"],
-             ms=main_cmp["kernel_ms"], plain_ms=main_cmp["plain_ms"]),
+             launches=launches, launches_per_frame=launches / FRAMES,
+             max_abs_err=main_cmp["max_abs_err"],
+             ms=main_cmp["kernel_ms"], plain_ms=main_cmp["plain_ms"],
+             bound_ms=main_b["bound_ms"], bound_by=main_b["bound_by"],
+             library_ms=None, ops=main_b["ops"], bytes=main_b["bytes"],
+             lane_occupancy=main_cmp["lane_occupancy"],
+             room2=dict(launches_per_frame=room2_launches / FRAMES,
+                        ms=room2_cmp["kernel_ms"],
+                        plain_ms=room2_cmp["plain_ms"],
+                        max_abs_err=room2_cmp["max_abs_err"],
+                        lane_occupancy=room2_cmp["lane_occupancy"],
+                        **room2_b)),
         dict(name="spheres", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/spheres.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_spheres.py:149",
-             launches=sph_launches, max_abs_err=sph_cmp["max_abs_err"],
-             ms=sph_cmp["kernel_ms"], plain_ms=sph_cmp["plain_ms"]),
+             launches=sph_launches, launches_per_frame=sph_launches / FRAMES,
+             max_abs_err=sph_cmp["max_abs_err"],
+             ms=sph_cmp["kernel_ms"], plain_ms=sph_cmp["plain_ms"],
+             bound_ms=sph_b["bound_ms"], bound_by=sph_b["bound_by"],
+             library_ms=None, ops=sph_b["ops"], bytes=sph_b["bytes"],
+             lane_occupancy=sph_cmp["lane_occupancy"]),
         # on the render path the brute.cuh loop runs inside the
         # megakernel: launches are the room2 launches whose device counts
         # show it ran; the numbers are the standalone kernel's check
         dict(name="brute", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/brute.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_brute.py:32",
-             launches=brute_launches,
+             launches=brute_launches, launches_per_frame=0.0,
              launched_as="brute.cuh loop in megakernel.cu's segment "
                          "prepass, counted on the device",
              prepass_calls=brute_calls,
              standalone_launches_in_check=brute_check_launches,
              max_abs_err=brute_cmp["max_abs_err"],
-             ms=brute_cmp["kernel_ms"], plain_ms=brute_cmp["plain_ms"])])
+             ms=brute_cmp["kernel_ms"], plain_ms=brute_cmp["plain_ms"],
+             bound_ms=brute_cmp["bound_ms"], bound_by=brute_cmp["bound_by"],
+             library_ms=None, ops=brute_cmp["ops"],
+             bytes=brute_cmp["bytes"])])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

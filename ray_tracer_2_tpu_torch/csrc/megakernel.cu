@@ -8,24 +8,30 @@
 // segment_prepass :1088 and resolve_and_shade :739, whose brute-force
 // groups ran ray_tracer_2_tpu/kernels/pallas_brute.py (its loop here is
 // csrc/brute.cuh, shared with csrc/brute.cu). On the TPU the lanes ran in
-// lockstep, so pixels were handed out through claim cumsums, a completion
-// log and an end-of-frame sort; here one thread owns one pixel, walks all
-// of its samples and segments itself and writes its own result, so none
-// of that machinery exists.
+// lockstep and claimed pixels through cumsum ranks, a completion log and
+// an end-of-frame sort; here each lane writes its own pixel, so no log or
+// sort exists, and the claim is one ballot and one atomic per warp
+// (csrc/claim.cuh).
 //
-// What bounds it on this card: the dependent loads of the traversal (each
-// wide row visit is a 512-byte row of `wide_rows` whose address depends on
-// the previous row; the hit triangle's attribute row and material row
-// follow) and divergence across the warp, whose threads trace paths of
-// different lengths. The small per-scene tables (camera, spheres, the
-// instance table and the brute-force triangles, at most 45 KB) are staged
-// in shared memory once per block; beyond that this first form does
-// nothing about either bound but read rows through the read-only cache.
-// It is written to be right and
-// to match the plain PyTorch version (kernels/megakernel.py render_plain)
-// operation for operation: compiled with --fmad=false, every sum is
-// evaluated in the order the plain version writes it, and min/max
-// propagate NaN as torch.minimum/maximum do.
+// What bounds it on this card: arithmetic, about 33 operations for each
+// child box of a visited wide row and 47 for each triangle of a visited
+// leaf; its tables (7.3 MB of wide rows and 10.2 MB of attribute rows for
+// 80,000 triangles) fit in L2. What keeps it from that bound: the
+// dependent loads of the traversal (each row's address comes from the
+// previous row) and divergence, since paths end at different bounces. The
+// design answers the second: the grid is as many blocks as can be resident
+// (csrc/claim.cuh persistent_blocks), each lane holds one path and traces
+// one segment per turn of the warp's loop, and a lane whose pixel is done
+// claims the next, so warps stay full until the frame is handed out. The
+// per-scene tables (camera, spheres, the instance table and the
+// brute-force triangles, at most 45 KB) are staged in shared memory once
+// per block; child boxes are read as 16-byte loads. The kernel counts its
+// own work (interior-row, leaf and child-box visits, lane-loop turns and
+// active lanes), and the plain version counts the same visits.
+// It is written to match the plain PyTorch version
+// (kernels/megakernel.py render_plain) operation for operation: compiled
+// with --fmad=false, every sum is evaluated in the order the plain version
+// writes it, and min/max propagate NaN as torch.minimum/maximum do.
 //
 // Semantics per pixel (reference kernels/megakernel.py render_persistent,
 // XLA boundary; kernels/megakernel.py ineligibility gives the class):
@@ -41,6 +47,7 @@
 #include <stdint.h>
 
 #include "brute.cuh"
+#include "claim.cuh"
 
 namespace {
 
@@ -85,6 +92,20 @@ constexpr int kBruteCols = 16;  // packed brute table (kernels/brute.py)
 constexpr int kDynSmemBytes = 45 * 1024;
 constexpr float kFlagGlass = 1.0f;  // material flag of glass
 
+// What the kernel counts, accumulated across launches in int64 words
+// (kernels/megakernel.py COUNTS): closest-hit calls of the brute-force
+// prepass (one per segment and brute-force group), launches that made any,
+// interior wide-row visits, leaf visits, child boxes tested, turns of a
+// warp's lane loop, and lanes holding a path summed over those turns.
+constexpr int kCntBruteCalls = 0;
+constexpr int kCntBruteLaunches = 1;
+constexpr int kCntRows = 2;
+constexpr int kCntLeaves = 3;
+constexpr int kCntBoxes = 4;
+constexpr int kCntTurns = 5;
+constexpr int kCntActive = 6;
+constexpr int kCounts = 7;
+
 struct Params {
   const float* wide_rows;
   const float* tri_attr;
@@ -94,14 +115,18 @@ struct Params {
   const float* inst;
   const float* brute;
   float* out;
-  unsigned long long* segments;
-  // brute-force prepass, accumulated across launches: [0] closest-hit
-  // calls (one per segment and brute-force group), [1] launches that made
-  // any
-  unsigned long long* prepass;
+  // per launch, zeroed by the wrapper (csrc/claim.cuh kScratch*): segments,
+  // the pixel cursor, "this launch ran the brute-force prepass"
+  unsigned long long* scratch;
+  unsigned long long* counts;  // kCounts words, accumulated
   int n_spheres, n_inst, n_brute, width, height, row_start, total;
   int bounces, rpp, skybox, antialias;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
+};
+
+// Visits of one segment's traversals (folded into 64-bit sums per lane)
+struct Visits {
+  uint32_t rows, leaves, boxes;
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -185,43 +210,73 @@ __device__ __forceinline__ float f16_bits(uint32_t b) {
   return __uint_as_float(sign | mag) * __uint_as_float(0x77800000u);
 }
 
+// One child box (f16 pairs lo | hi << 16 per axis) against the ray, folded
+// into the row's hit mask, nearest child and second-least entry distance.
+__device__ __forceinline__ void child_eval(uint32_t ux, uint32_t uy,
+                                           uint32_t uz, int c,
+                                           const float om[3],
+                                           const float inv[3], float limit,
+                                           uint32_t& mask, int& c_min,
+                                           float& m1, float& m2) {
+  float t1x = (f16_bits(ux & 0xFFFFu) - om[0]) * inv[0];
+  float t2x = (f16_bits(ux >> 16) - om[0]) * inv[0];
+  float t1y = (f16_bits(uy & 0xFFFFu) - om[1]) * inv[1];
+  float t2y = (f16_bits(uy >> 16) - om[1]) * inv[1];
+  float t1z = (f16_bits(uz & 0xFFFFu) - om[2]) * inv[2];
+  float t2z = (f16_bits(uz >> 16) - om[2]) * inv[2];
+  float tn = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
+                     nan_min(t1z, t2z));
+  float tf = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
+                     nan_max(t1z, t2z));
+  bool hit = (tf >= tn) && (tn < limit) && (tf > 0.0f);
+  float dn = hit ? tn : kInf;
+  if (hit) mask |= 1u << c;
+  if (dn < m1) {
+    m2 = m1;
+    m1 = dn;
+    c_min = c;
+  } else {
+    m2 = nan_min(m2, dn);
+  }
+}
+
 // One wide row against the ray: hit mask over its k children, the nearest
 // hit child (first index on ties) and the least entry distance over the
-// other hit children (megakernel.py wide_eval / slab_blocked).
-__device__ __forceinline__ void wide_eval(const float* row, const float om[3],
-                                          const float inv[3], float limit,
-                                          uint32_t& mask, int& c_min,
-                                          float& dn2) {
-  int k = (int)__ldg(row + kColK);
+// other hit children (megakernel.py wide_eval / slab_blocked). The child
+// boxes (x, y and z blocks of 32 words, 64 bytes into the 512-byte row)
+// are read four children at a time as 16-byte loads; the children are
+// still tested one by one in index order. Returns the children tested.
+__device__ __forceinline__ int wide_eval(const float* row, const float om[3],
+                                         const float inv[3], float limit,
+                                         uint32_t& mask, int& c_min,
+                                         float& dn2) {
+  int k = min((int)__ldg(row + kColK), kArity);
   mask = 0u;
   float m1 = kInf, m2 = kInf;
   c_min = 0;
-  for (int c = 0; c < kArity && c < k; ++c) {
-    uint32_t ux = __float_as_uint(__ldg(row + kColAabb + c));
-    uint32_t uy = __float_as_uint(__ldg(row + kColAabb + kArity + c));
-    uint32_t uz = __float_as_uint(__ldg(row + kColAabb + 2 * kArity + c));
-    float t1x = (f16_bits(ux & 0xFFFFu) - om[0]) * inv[0];
-    float t2x = (f16_bits(ux >> 16) - om[0]) * inv[0];
-    float t1y = (f16_bits(uy & 0xFFFFu) - om[1]) * inv[1];
-    float t2y = (f16_bits(uy >> 16) - om[1]) * inv[1];
-    float t1z = (f16_bits(uz & 0xFFFFu) - om[2]) * inv[2];
-    float t2z = (f16_bits(uz >> 16) - om[2]) * inv[2];
-    float tn = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
-                       nan_min(t1z, t2z));
-    float tf = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
-                       nan_max(t1z, t2z));
-    bool hit = (tf >= tn) && (tn < limit) && (tf > 0.0f);
-    float dn = hit ? tn : kInf;
-    if (hit) mask |= 1u << c;
-    if (dn < m1) {
-      m2 = m1;
-      m1 = dn;
-      c_min = c;
-    } else {
-      m2 = nan_min(m2, dn);
-    }
+  const float4* box = reinterpret_cast<const float4*>(row + kColAabb);
+  for (int g = 0; 4 * g < k; ++g) {
+    float4 bx = __ldg(box + g);
+    float4 by = __ldg(box + kArity / 4 + g);
+    float4 bz = __ldg(box + kArity / 2 + g);
+    int c = 4 * g;
+    child_eval(__float_as_uint(bx.x), __float_as_uint(by.x),
+               __float_as_uint(bz.x), c, om, inv, limit, mask, c_min, m1, m2);
+    if (c + 1 < k)
+      child_eval(__float_as_uint(bx.y), __float_as_uint(by.y),
+                 __float_as_uint(bz.y), c + 1, om, inv, limit, mask, c_min,
+                 m1, m2);
+    if (c + 2 < k)
+      child_eval(__float_as_uint(bx.z), __float_as_uint(by.z),
+                 __float_as_uint(bz.z), c + 2, om, inv, limit, mask, c_min,
+                 m1, m2);
+    if (c + 3 < k)
+      child_eval(__float_as_uint(bx.w), __float_as_uint(by.w),
+                 __float_as_uint(bz.w), c + 3, om, inv, limit, mask, c_min,
+                 m1, m2);
   }
   dn2 = m2;
+  return k > 0 ? k : 0;
 }
 
 struct Hit {
@@ -235,7 +290,7 @@ struct Hit {
 // deepest entry still closer than the best hit, lowest child index first.
 __device__ void traverse(const float* __restrict__ wide_rows, int root,
                          const float om[3], const float dm[3], float limit,
-                         Hit& h) {
+                         Hit& h, Visits& vis) {
   float inv[3] = {1.0f / dm[0], 1.0f / dm[1], 1.0f / dm[2]};
   uint32_t sb[kMaxStack], sm[kMaxStack];
   float sd[kMaxStack];
@@ -251,6 +306,7 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
     bool finished;
     if (!root_visit && __ldg(row + kColCount) > 0.5f) {
       // leaf: 8 triangles, blocked geometry with precomputed edges/normal
+      ++vis.leaves;
       const float* g = row + kColGeo;
       int first = (int)__ldg(row + kColFirst);
       for (int j = 0; j < 8; ++j) {
@@ -291,7 +347,8 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
       uint32_t mask;
       int c_min;
       float dn2;
-      wide_eval(row, om, inv, h.dst, mask, c_min, dn2);
+      ++vis.rows;
+      vis.boxes += wide_eval(row, om, inv, h.dst, mask, c_min, dn2);
       int base = (int)__ldg(row + kColBase);
       if (mask != 0u) {
         uint32_t rem = mask & ~(1u << c_min);
@@ -413,18 +470,280 @@ __device__ __forceinline__ void instance_ray(const float* in,
   normalize3(dm);
 }
 
+// One lane's path: the pixel it renders (-1: none) in the row window,
+// samples started, the pixel's seed and sum, and the current sample's ray,
+// transmission, incoming light and bounce.
+struct Path {
+  float o[3], d[3], trans[4], inc[4], acc[4];
+  uint32_t seed;
+  int pix, sample, bounce;
+};
+
+// Start the lane's next sample: the camera ray (megakernel.py camera_ray;
+// ray_tracer.wgsl:473-500), drawn from the pixel's seed.
+__device__ __forceinline__ void start_sample(const Params& p,
+                                             const float* sc, Path& q) {
+  const float* cam = sc + kScCam;
+  int px = q.pix % p.width;
+  int py = p.row_start + q.pix / p.width;
+  float w1 = (float)max(p.width - 1, 1);
+  float h1 = (float)max(p.height - 1, 1);
+  float inv_w = 1.0f / (float)p.width;
+  float vp0 = sc[kScView], vp1 = sc[kScView + 1], vp2 = sc[kScView + 2];
+  float u0 = (float)px / w1, u1 = (float)py / h1;
+  float lf0 = (u0 - 0.5f) * vp0, lf1 = (u1 - 0.5f) * vp1;
+  float fp[3];
+  for (int r = 0; r < 3; ++r)
+    fp[r] = ((lf0 * cam[4 * r] + lf1 * cam[4 * r + 1]) +
+             vp2 * cam[4 * r + 2]) + cam[4 * r + 3];
+  if (p.antialias) {
+    float ju = rand01(q.seed);
+    float jv = rand01(q.seed);
+    float du = ((ju - 0.5f) * vp0) / w1;
+    float dv = ((jv - 0.5f) * vp1) / h1;
+    for (int r = 0; r < 3; ++r)
+      fp[r] = (fp[r] + cam[4 * r] * du) + cam[4 * r + 1] * dv;
+  }
+  float a, b;
+  rand_disk(q.seed, a, b);
+  float dj0 = (a * sc[kScDefocus]) * inv_w;
+  float dj1 = (b * sc[kScDefocus]) * inv_w;
+  for (int r = 0; r < 3; ++r)
+    q.o[r] = (cam[4 * r + 3] + cam[4 * r] * dj0) + cam[4 * r + 1] * dj1;
+  rand_disk(q.seed, a, b);
+  float vj0 = (a * sc[kScDiverge]) * inv_w;
+  float vj1 = (b * sc[kScDiverge]) * inv_w;
+  for (int r = 0; r < 3; ++r)
+    q.d[r] = ((fp[r] + cam[4 * r] * vj0) + cam[4 * r + 1] * vj1) - q.o[r];
+  normalize3(q.d);
+  for (int c = 0; c < 4; ++c) {
+    q.trans[c] = 1.0f;
+    q.inc[c] = 0.0f;
+  }
+  q.bounce = 0;
+  ++q.sample;
+}
+
+// One segment of the lane's path: {dense sphere prepass; each brute-force
+// group; each wide-BVH instance; shade; Russian roulette}. Updates the
+// ray, transmission, incoming light and seed; returns whether the path
+// goes on. `tests` counts the brute-force closest-hit calls.
+template <bool kGeneral, bool kGlass>
+__device__ __forceinline__ bool trace_segment(
+    const Params& p, const float* s_sph, const float* s_inst,
+    const float* s_brute, Path& q, unsigned long long& tests,
+    Visits& vis) {
+  float* o = q.o;
+  float* d = q.d;
+  float* trans = q.trans;
+  float* inc = q.inc;
+  uint32_t& seed = q.seed;
+  SegHit h;
+  h.dst = kInf;
+  h.u = h.v = h.det = 0.0f;
+  h.kind = -1;
+  h.mat = 0;
+  h.flag = 0;
+  for (int r = 0; r < 3; ++r) h.point[r] = 0.0f;
+  float normal[3] = {0.0f, 0.0f, 0.0f};
+
+  // ---- dense sphere prepass (intersect.ray_sphere, first index on equal
+  // distance like argmin)
+  int sidx = 0;
+  bool s_in = false, s_hit = false;
+  float sph_dst = kInf;
+  float a_q = dot3(d, d);
+  for (int si = 0; si < p.n_spheres; ++si) {
+    const float* sp = s_sph + si * kSphStride;
+    float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
+    float b_q = 2.0f * dot3(oc, d);
+    float c_q = dot3(oc, oc) - sp[3] * sp[3];
+    float disc = b_q * b_q - (4.0f * a_q) * c_q;
+    float sq = sqrtf(nan_max(disc, 0.0f));
+    float dn = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f);
+    float df = (-b_q + sq) / (2.0f * a_q);
+    bool is_in = dn == 0.0f;
+    bool hit = (disc >= 0.0f) && (df >= 0.001f);
+    float ds = hit ? (is_in ? df : dn) : kInf;
+    if (ds < sph_dst) {
+      sph_dst = ds;
+      sidx = si;
+      s_in = is_in;
+      s_hit = hit;
+    }
+  }
+  if (s_hit) {
+    const float* sp = s_sph + sidx * kSphStride;
+    h.dst = sph_dst;
+    h.kind = -2;
+    h.mat = (int)sp[4];
+    h.flag = s_in ? 1 : 0;
+    for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * sph_dst;
+    float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1],
+                  h.point[2] - sp[2]};
+    normalize3(n);
+    for (int r = 0; r < 3; ++r) normal[r] = s_in ? -n[r] : n[r];
+  }
+
+  // ---- brute-force groups, in instance order (segment_prepass
+  // :1169-1191): the csrc/brute.cuh loop on the staged triangles
+  for (int i = 0; kGeneral && i < p.n_inst; ++i) {
+    const float* in = s_inst + i * kInstCols;
+    if (in[kInBrute] < 0.5f) continue;
+    float om[3], dm[3];
+    instance_ray(in, o, d, om, dm);
+    ++tests;
+    rt2_brute::Hit bh;
+    rt2_brute::closest_hit(
+        s_brute + (int)in[kInSlot] * rt2_brute::kStaged,
+        rt2_brute::kStaged, (int)in[kInCount], om, dm, bh);
+    if (bh.tri >= 0)
+      merge_instance(in, i, o, om, dm, bh.dst, bh.u, bh.v, bh.det,
+                     (int)in[kInTriOff] + bh.tri, bh.mat, h);
+  }
+
+  // ---- wide-BVH instances, in order: pruning limit seeded from the best
+  // world distance so far (start_segments :1257-1268, _advance_impl
+  // :685-689), traversal, merge
+  for (int i = 0; i < (kGeneral ? p.n_inst : 1); ++i) {
+    const float* in = s_inst + i * kInstCols;
+    if (kGeneral && in[kInBrute] > 0.5f) continue;
+    float om[3], dm[3], wv[3];
+    instance_ray(in, o, d, om, dm);
+    apply3x3(in + kInM2w, dm, wv);
+    float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
+    float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
+    Hit th;
+    traverse(p.wide_rows, (int)in[kInRoot], om, dm, limit, th, vis);
+    if (th.tri >= 0)
+      merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det, th.tri,
+                     th.mat, h);
+  }
+
+  // ---- resolve + shade (megakernel.py resolve_and_shade :739;
+  // ray_tracer.wgsl:398-471)
+  if (h.kind == -1) {
+    if (p.skybox) {
+      float env[4];
+      environment_light(d, env);
+      for (int c = 0; c < 4; ++c) inc[c] = inc[c] + trans[c] * env[c];
+    }
+    return false;
+  }
+  bool backface;
+  if (h.kind >= 0) {  // mesh normal through the hit instance's m2w
+    const float* at = p.tri_attr + (size_t)(h.kind >> 2) * kRow +
+                      (h.kind & 3) * 32;
+    float wb = (1.0f - h.u) - h.v;
+    float nm[3];
+    for (int r = 0; r < 3; ++r)
+      nm[r] = (__ldg(at + r) * wb + __ldg(at + 3 + r) * h.u) +
+              __ldg(at + 6 + r) * h.v;
+    normalize3(nm);
+    float sg = sign_of(h.det);
+    for (int r = 0; r < 3; ++r) nm[r] = nm[r] * sg;
+    apply3x3(s_inst + (kGeneral ? h.flag : 0) * kInstCols + kInM2w, nm,
+             normal);
+    normalize3(normal);
+    backface = h.det < 0.0f;
+  } else {
+    backface = h.flag > 0;
+  }
+  const float* m = p.mat_rows + (size_t)h.mat * 32;
+  float nd[3], no[3];
+  if (kGlass && __ldg(m + 21) == kFlagGlass) {  // glass (:826-852)
+    if (backface) {
+      float ak = __ldg(m + 16);
+      for (int c = 0; c < 3; ++c)
+        trans[c] = trans[c] * expf(((-h.dst) * __ldg(m + 12 + c)) * ak);
+      trans[3] = 1.0f;
+    }
+    float m_ior = __ldg(m + 20);
+    float ior = backface ? m_ior : 1.0f / m_ior;
+    float idn = 2.0f * dot3(d, normal);
+    float cos_i = dot3(normal, d);
+    float k = 1.0f - (ior * ior) * (1.0f - cos_i * cos_i);
+    float kr = sqrtf(nan_max(k, 0.0f));
+    float neg_d[3] = {-d[0], -d[1], -d[2]};
+    float cos_t = nan_min(dot3(neg_d, normal), 1.0f);
+    float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
+    bool cannot = ior * sin_t > 1.0f;
+    bool follow = true;
+    if (!cannot) {
+      float r_refl = rand01(seed);
+      follow = reflectance(cos_t, ior) > r_refl;
+    }
+    float g[3], dfd[3];
+    rand_direction(seed, g);
+    for (int r = 0; r < 3; ++r) dfd[r] = normal[r] + g[r];
+    normalize3(dfd);
+    if (follow) {
+      float t_mix = __ldg(m + 19);
+      for (int r = 0; r < 3; ++r) {
+        float refl = d[r] - idn * normal[r];
+        nd[r] = dfd[r] + (refl - dfd[r]) * t_mix;
+      }
+    } else {
+      float t_mix = __ldg(m + 18);
+      for (int r = 0; r < 3; ++r) {
+        float refr = k < 0.0f
+            ? 0.0f : ior * d[r] - (ior * cos_i + kr) * normal[r];
+        float a0 = -dfd[r];
+        nd[r] = a0 + (refr - a0) * t_mix;
+      }
+    }
+    normalize3(nd);
+    float gs = sign_of(dot3(normal, nd));
+    for (int r = 0; r < 3; ++r) no[r] = h.point[r] + (1e-4f * normal[r]) * gs;
+  } else {  // ---- diffuse / specular
+    float r_spec = rand01(seed);
+    bool is_spec = __ldg(m + 19) >= r_spec;
+    float diffuse[3];
+    rand_hemisphere(normal, seed, diffuse);
+    float idn = 2.0f * dot3(d, normal);
+    float tmix = __ldg(m + 18) * (is_spec ? 1.0f : 0.0f);
+    for (int r = 0; r < 3; ++r) {
+      float spec = d[r] - idn * normal[r];
+      nd[r] = diffuse[r] + (spec - diffuse[r]) * tmix;
+    }
+    normalize3(nd);
+    float emis = __ldg(m + 17);
+    for (int c = 0; c < 4; ++c) {
+      inc[c] = inc[c] + (__ldg(m + 4 + c) * emis) * trans[c];
+      trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
+    }
+    for (int r = 0; r < 3; ++r) no[r] = h.point[r];
+  }
+  // ---- Russian roulette from the taken branch's seed
+  float pr = fmaxf(fmaxf(trans[0], trans[1]), trans[2]);
+  float r_rr = rand01(seed);
+  bool survive = r_rr < pr;
+  float pdiv = pr > 0.0f ? pr : 1.0f;
+  for (int c = 0; c < 4; ++c) trans[c] = trans[c] / pdiv;
+  for (int r = 0; r < 3; ++r) {
+    o[r] = no[r];
+    d[r] = nd[r];
+  }
+  return survive;
+}
+
+// The persistent kernel: stage the tables, then turn the warp's lane loop
+// until no lane of the warp holds a path and the frame is handed out. At
+// the top of each turn a lane without a path writes its pixel if all of its
+// samples are done, claims a new pixel (csrc/claim.cuh) if it has none, and
+// starts its pixel's next sample; then every lane that holds a path traces
+// one segment.
+//
 // Compiled per scene class, from what the host knows of the scene:
 // kGeneral is false for exactly one instance, traversed in its wide BVH
 // (the main path), which then compiles without the brute-force prepass and
 // the instance loop; kGlass is false when no material is glass, which
 // compiles out the glass branch.
 template <bool kGeneral, bool kGlass>
-__global__ void __launch_bounds__(kThreads)
-render_kernel(Params p) {
+__device__ __forceinline__ void render_kernel(const Params& p) {
   __shared__ float s_scal[kScal];
   __shared__ float s_sph[kMaxSpheres * kSphStride];
   __shared__ unsigned long long s_warp[kThreads / 32];
-  __shared__ unsigned long long s_tests[kThreads / 32];
   extern __shared__ float s_dyn[];
   float* s_inst = s_dyn;
   float* s_brute = s_dyn + p.n_inst * kInstCols;
@@ -440,296 +759,127 @@ render_kernel(Params p) {
   }
   __syncthreads();
 
-  const float* sc = s_scal;
-  const float* cam = sc + kScCam;
-  int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long segs = 0, tests = 0;
-
-  if (pid < p.total) {
-    int px = pid % p.width;
-    int py = p.row_start + pid / p.width;
-    uint32_t seed = (uint32_t)(py * p.width + px) + p.frame_seed;
-    float w1 = (float)max(p.width - 1, 1);
-    float h1 = (float)max(p.height - 1, 1);
-    float inv_w = 1.0f / (float)p.width;
-    float vp0 = sc[kScView], vp1 = sc[kScView + 1], vp2 = sc[kScView + 2];
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-    for (int s = 0; s < p.rpp; ++s) {
-      // ---- camera ray (megakernel.py camera_ray; ray_tracer.wgsl:473-500)
-      float u0 = (float)px / w1, u1 = (float)py / h1;
-      float lf0 = (u0 - 0.5f) * vp0, lf1 = (u1 - 0.5f) * vp1;
-      float fp[3], o[3], d[3];
-      for (int r = 0; r < 3; ++r)
-        fp[r] = ((lf0 * cam[4 * r] + lf1 * cam[4 * r + 1]) +
-                 vp2 * cam[4 * r + 2]) + cam[4 * r + 3];
-      if (p.antialias) {
-        float ju = rand01(seed);
-        float jv = rand01(seed);
-        float du = ((ju - 0.5f) * vp0) / w1;
-        float dv = ((jv - 0.5f) * vp1) / h1;
-        for (int r = 0; r < 3; ++r)
-          fp[r] = (fp[r] + cam[4 * r] * du) + cam[4 * r + 1] * dv;
-      }
-      float a, b;
-      rand_disk(seed, a, b);
-      float dj0 = (a * sc[kScDefocus]) * inv_w;
-      float dj1 = (b * sc[kScDefocus]) * inv_w;
-      for (int r = 0; r < 3; ++r)
-        o[r] = (cam[4 * r + 3] + cam[4 * r] * dj0) + cam[4 * r + 1] * dj1;
-      rand_disk(seed, a, b);
-      float vj0 = (a * sc[kScDiverge]) * inv_w;
-      float vj1 = (b * sc[kScDiverge]) * inv_w;
-      for (int r = 0; r < 3; ++r)
-        d[r] = ((fp[r] + cam[4 * r] * vj0) + cam[4 * r + 1] * vj1) - o[r];
-      normalize3(d);
-
-      float trans[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-      float inc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int bounce = 0; bounce <= p.bounces; ++bounce) {
-        ++segs;
-        SegHit h;
-        h.dst = kInf;
-        h.u = h.v = h.det = 0.0f;
-        h.kind = -1;
-        h.mat = 0;
-        h.flag = 0;
-        for (int r = 0; r < 3; ++r) h.point[r] = 0.0f;
-        float normal[3] = {0.0f, 0.0f, 0.0f};
-
-        // ---- dense sphere prepass (intersect.ray_sphere, first index on
-        // equal distance like argmin)
-        int sidx = 0;
-        bool s_in = false, s_hit = false;
-        float sph_dst = kInf;
-        float a_q = dot3(d, d);
-        for (int si = 0; si < p.n_spheres; ++si) {
-          const float* sp = s_sph + si * kSphStride;
-          float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
-          float b_q = 2.0f * dot3(oc, d);
-          float c_q = dot3(oc, oc) - sp[3] * sp[3];
-          float disc = b_q * b_q - (4.0f * a_q) * c_q;
-          float sq = sqrtf(nan_max(disc, 0.0f));
-          float dn = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f);
-          float df = (-b_q + sq) / (2.0f * a_q);
-          bool is_in = dn == 0.0f;
-          bool hit = (disc >= 0.0f) && (df >= 0.001f);
-          float ds = hit ? (is_in ? df : dn) : kInf;
-          if (ds < sph_dst) {
-            sph_dst = ds;
-            sidx = si;
-            s_in = is_in;
-            s_hit = hit;
-          }
-        }
-        if (s_hit) {
-          const float* sp = s_sph + sidx * kSphStride;
-          h.dst = sph_dst;
-          h.kind = -2;
-          h.mat = (int)sp[4];
-          h.flag = s_in ? 1 : 0;
-          for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * sph_dst;
-          float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1],
-                        h.point[2] - sp[2]};
-          normalize3(n);
-          for (int r = 0; r < 3; ++r) normal[r] = s_in ? -n[r] : n[r];
-        }
-
-        // ---- brute-force groups, in instance order (segment_prepass
-        // :1169-1191): the csrc/brute.cuh loop on the staged triangles
-        for (int i = 0; kGeneral && i < p.n_inst; ++i) {
-          const float* in = s_inst + i * kInstCols;
-          if (in[kInBrute] < 0.5f) continue;
-          float om[3], dm[3];
-          instance_ray(in, o, d, om, dm);
-          ++tests;
-          rt2_brute::Hit bh;
-          rt2_brute::closest_hit(
-              s_brute + (int)in[kInSlot] * rt2_brute::kStaged,
-              rt2_brute::kStaged, (int)in[kInCount], om, dm, bh);
-          if (bh.tri >= 0)
-            merge_instance(in, i, o, om, dm, bh.dst, bh.u, bh.v, bh.det,
-                           (int)in[kInTriOff] + bh.tri, bh.mat, h);
-        }
-
-        // ---- wide-BVH instances, in order: pruning limit seeded from the
-        // best world distance so far (start_segments :1257-1268,
-        // _advance_impl :685-689), traversal, merge
-        for (int i = 0; i < (kGeneral ? p.n_inst : 1); ++i) {
-          const float* in = s_inst + i * kInstCols;
-          if (kGeneral && in[kInBrute] > 0.5f) continue;
-          float om[3], dm[3], wv[3];
-          instance_ray(in, o, d, om, dm);
-          apply3x3(in + kInM2w, dm, wv);
-          float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
-          float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
-          Hit th;
-          traverse(p.wide_rows, (int)in[kInRoot], om, dm, limit, th);
-          if (th.tri >= 0)
-            merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det,
-                           th.tri, th.mat, h);
-        }
-
-        // ---- resolve + shade (megakernel.py resolve_and_shade :739;
-        // ray_tracer.wgsl:398-471)
-        if (h.kind == -1) {
-          if (p.skybox) {
-            float env[4];
-            environment_light(d, env);
-            for (int c = 0; c < 4; ++c) inc[c] = inc[c] + trans[c] * env[c];
-          }
-          break;
-        }
-        bool backface;
-        if (h.kind >= 0) {  // mesh normal through the hit instance's m2w
-          const float* at = p.tri_attr + (size_t)(h.kind >> 2) * kRow +
-                            (h.kind & 3) * 32;
-          float wb = (1.0f - h.u) - h.v;
-          float nm[3];
-          for (int r = 0; r < 3; ++r)
-            nm[r] = (__ldg(at + r) * wb + __ldg(at + 3 + r) * h.u) +
-                    __ldg(at + 6 + r) * h.v;
-          normalize3(nm);
-          float sg = sign_of(h.det);
-          for (int r = 0; r < 3; ++r) nm[r] = nm[r] * sg;
-          apply3x3(s_inst + (kGeneral ? h.flag : 0) * kInstCols + kInM2w,
-                   nm, normal);
-          normalize3(normal);
-          backface = h.det < 0.0f;
-        } else {
-          backface = h.flag > 0;
-        }
-        const float* m = p.mat_rows + (size_t)h.mat * 32;
-        float nd[3], no[3];
-        if (kGlass && __ldg(m + 21) == kFlagGlass) {  // glass (:826-852)
-          if (backface) {
-            float ak = __ldg(m + 16);
-            for (int c = 0; c < 3; ++c)
-              trans[c] = trans[c] * expf(((-h.dst) * __ldg(m + 12 + c)) * ak);
-            trans[3] = 1.0f;
-          }
-          float m_ior = __ldg(m + 20);
-          float ior = backface ? m_ior : 1.0f / m_ior;
-          float idn = 2.0f * dot3(d, normal);
-          float cos_i = dot3(normal, d);
-          float k = 1.0f - (ior * ior) * (1.0f - cos_i * cos_i);
-          float kr = sqrtf(nan_max(k, 0.0f));
-          float neg_d[3] = {-d[0], -d[1], -d[2]};
-          float cos_t = nan_min(dot3(neg_d, normal), 1.0f);
-          float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
-          bool cannot = ior * sin_t > 1.0f;
-          bool follow = true;
-          if (!cannot) {
-            float r_refl = rand01(seed);
-            follow = reflectance(cos_t, ior) > r_refl;
-          }
-          float g[3], dfd[3];
-          rand_direction(seed, g);
-          for (int r = 0; r < 3; ++r) dfd[r] = normal[r] + g[r];
-          normalize3(dfd);
-          if (follow) {
-            float t_mix = __ldg(m + 19);
-            for (int r = 0; r < 3; ++r) {
-              float refl = d[r] - idn * normal[r];
-              nd[r] = dfd[r] + (refl - dfd[r]) * t_mix;
-            }
-          } else {
-            float t_mix = __ldg(m + 18);
-            for (int r = 0; r < 3; ++r) {
-              float refr = k < 0.0f
-                  ? 0.0f : ior * d[r] - (ior * cos_i + kr) * normal[r];
-              float a0 = -dfd[r];
-              nd[r] = a0 + (refr - a0) * t_mix;
-            }
-          }
-          normalize3(nd);
-          float gs = sign_of(dot3(normal, nd));
-          for (int r = 0; r < 3; ++r)
-            no[r] = h.point[r] + (1e-4f * normal[r]) * gs;
-        } else {  // ---- diffuse / specular
-          float r_spec = rand01(seed);
-          bool is_spec = __ldg(m + 19) >= r_spec;
-          float diffuse[3];
-          rand_hemisphere(normal, seed, diffuse);
-          float idn = 2.0f * dot3(d, normal);
-          float tmix = __ldg(m + 18) * (is_spec ? 1.0f : 0.0f);
-          for (int r = 0; r < 3; ++r) {
-            float spec = d[r] - idn * normal[r];
-            nd[r] = diffuse[r] + (spec - diffuse[r]) * tmix;
-          }
-          normalize3(nd);
-          float emis = __ldg(m + 17);
-          for (int c = 0; c < 4; ++c) {
-            inc[c] = inc[c] + (__ldg(m + 4 + c) * emis) * trans[c];
-            trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
-          }
-          for (int r = 0; r < 3; ++r) no[r] = h.point[r];
-        }
-        // ---- Russian roulette from the taken branch's seed
-        float pr = fmaxf(fmaxf(trans[0], trans[1]), trans[2]);
-        float r_rr = rand01(seed);
-        bool survive = r_rr < pr;
-        float pdiv = pr > 0.0f ? pr : 1.0f;
-        for (int c = 0; c < 4; ++c) trans[c] = trans[c] / pdiv;
-        for (int r = 0; r < 3; ++r) {
-          o[r] = no[r];
-          d[r] = nd[r];
-        }
-        if (!survive) break;
-      }
-      for (int c = 0; c < 4; ++c) acc[c] = acc[c] + inc[c];
+  unsigned* cursor =
+      reinterpret_cast<unsigned*>(p.scratch + rt2_claim::kScratchCursor);
+  const bool lead = (threadIdx.x & 31) == 0;
+  const float rpp = (float)p.rpp;
+  unsigned long long segs = 0, tests = 0, rows = 0, leaves = 0, boxes = 0;
+  unsigned long long turns = 0, active = 0;
+  Path q;
+  q.pix = -1;
+  q.sample = 0;
+  bool has_path = false, exhausted = false;
+  while (true) {
+    if (!has_path && q.pix >= 0 && q.sample == p.rpp) {
+      float* out = p.out + (size_t)q.pix * 4;
+      for (int c = 0; c < 4; ++c) out[c] = q.acc[c] / rpp;
+      q.pix = -1;
     }
-    float rpp = (float)p.rpp;
-    float* out = p.out + (size_t)pid * 4;
-    for (int c = 0; c < 4; ++c) out[c] = acc[c] / rpp;
-  }
-
-  // ---- exact segment (and prepass) counts: warp reduce, block reduce,
-  // one atomic each
-  for (int off = 16; off > 0; off >>= 1) {
-    segs += __shfl_down_sync(0xffffffffu, segs, off);
-    if (kGeneral) tests += __shfl_down_sync(0xffffffffu, tests, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    s_warp[threadIdx.x >> 5] = segs;
-    s_tests[threadIdx.x >> 5] = tests;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sum = 0;
-    for (int w = 0; w < kThreads / 32; ++w) sum += s_warp[w];
-    atomicAdd(p.segments, sum);
-    if (kGeneral) {
-      unsigned long long t = 0;
-      for (int w = 0; w < kThreads / 32; ++w) t += s_tests[w];
-      if (t > 0) {
-        atomicAdd(p.prepass, t);
-        if (blockIdx.x == 0) atomicAdd(p.prepass + 1, 1ull);
+    bool need = q.pix < 0 && !exhausted;
+    unsigned id = rt2_claim::claim(cursor, need);
+    if (need) {
+      if (id < (unsigned)p.total) {
+        q.pix = (int)id;
+        int px = q.pix % p.width;
+        int py = p.row_start + q.pix / p.width;
+        q.seed = (uint32_t)(py * p.width + px) + p.frame_seed;
+        q.sample = 0;
+        for (int c = 0; c < 4; ++c) q.acc[c] = 0.0f;
+      } else {
+        exhausted = true;
       }
     }
+    if (!has_path && q.pix >= 0) {
+      start_sample(p, s_scal, q);
+      has_path = true;
+    }
+    unsigned live = __ballot_sync(rt2_claim::kFull, has_path);
+    if (live == 0u) break;  // the same on every lane of the warp
+    if (lead) {
+      ++turns;
+      active += (unsigned)__popc(live);
+    }
+    if (has_path) {
+      ++segs;
+      Visits vis = {0u, 0u, 0u};
+      bool goes_on = trace_segment<kGeneral, kGlass>(p, s_sph, s_inst,
+                                                     s_brute, q, tests, vis);
+      rows += vis.rows;
+      leaves += vis.leaves;
+      boxes += vis.boxes;
+      if (!goes_on || ++q.bounce > p.bounces) {
+        for (int c = 0; c < 4; ++c) q.acc[c] = q.acc[c] + q.inc[c];
+        has_path = false;
+      }
+    }
+  }
+
+  // ---- exact counts: warp reduce, block reduce, one atomic each
+  rt2_claim::block_add<kThreads>(
+      segs, p.scratch + rt2_claim::kScratchSegments, s_warp);
+  rt2_claim::block_add<kThreads>(rows, p.counts + kCntRows, s_warp);
+  rt2_claim::block_add<kThreads>(leaves, p.counts + kCntLeaves, s_warp);
+  rt2_claim::block_add<kThreads>(boxes, p.counts + kCntBoxes, s_warp);
+  rt2_claim::block_add<kThreads>(turns, p.counts + kCntTurns, s_warp);
+  rt2_claim::block_add<kThreads>(active, p.counts + kCntActive, s_warp);
+  if (kGeneral) {
+    unsigned long long t = rt2_claim::block_add<kThreads>(
+        tests, p.counts + kCntBruteCalls, s_warp);
+    // the first block that ran the prepass counts the launch
+    if (threadIdx.x == 0 && t > 0 &&
+        atomicExch(p.scratch + rt2_claim::kScratchFlag, 1ull) == 0ull)
+      atomicAdd(p.counts + kCntBruteLaunches, 1ull);
   }
 }
 
+// The entry points of the four forms. Unbounded, the general forms take
+// 117 registers (4 resident blocks of 128 threads per SM); held to
+// kGeneralMinBlocks (72 registers, spilling) they measured faster on room2
+// and instances_scene. The main path's forms measured slower held to 7 or
+// 8 blocks, and with a minimum of 1 ptxas gave them 102 registers (4
+// blocks) instead of 96 (5 blocks), so they carry no minimum (PERF.md,
+// section 5).
+constexpr int kGeneralMinBlocks = 7;
+
+template <bool kGlass>
+__global__ void __launch_bounds__(kThreads) render_single(Params p) {
+  render_kernel<false, kGlass>(p);
+}
+
+template <bool kGlass>
+__global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
+render_general(Params p) {
+  render_kernel<true, kGlass>(p);
+}
+
 template <bool kGeneral, bool kGlass>
-void launch(int blocks, size_t smem, cudaStream_t stream, const Params& p) {
-  render_kernel<kGeneral, kGlass><<<blocks, kThreads, smem, stream>>>(p);
+void launch(size_t smem, cudaStream_t stream, const Params& p) {
+  auto kernel = kGeneral ? render_general<kGlass> : render_single<kGlass>;
+  int blocks = rt2_claim::persistent_blocks(kernel, kThreads, smem, p.total);
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
 }
 
 }  // namespace
 
 // Launch on `stream`; allocates nothing and does not synchronise. `general`
-// and `glass` pick the compiled form (render_kernel); `general` == 0 needs
+// and `glass` pick the compiled form (render_kernel, launched through
+// render_single or render_general); `general` == 0 needs
 // exactly one instance, a wide-BVH one, and `glass` == 0 no glass
-// material. Returns cudaGetLastError() (0 = launched).
+// material. `scratch` holds rt2_claim::kScratchWords zeroed int64 words
+// (the segment count lands in word 0), `counts` kCounts words that the
+// launch adds to. `wide_rows` must be 16-byte aligned. Returns
+// cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_persistent(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
     int antialias, int general, int glass, unsigned int frame_seed,
-    float* out, unsigned long long* segments, unsigned long long* prepass,
+    float* out, unsigned long long* scratch, unsigned long long* counts,
     void* stream) {
-  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_inst < 0 || n_brute < 0)
+  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_inst < 0 ||
+      n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
+      ((uintptr_t)wide_rows & 15u) != 0u)
     return (int)cudaErrorInvalidValue;
   if (!general && (n_inst != 1 || n_brute != 0))
     return (int)cudaErrorInvalidValue;
@@ -745,8 +895,8 @@ extern "C" int rt2_render_persistent(
   p.inst = inst;
   p.brute = brute;
   p.out = out;
-  p.segments = segments;
-  p.prepass = prepass;
+  p.scratch = scratch;
+  p.counts = counts;
   p.n_spheres = n_spheres;
   p.n_inst = n_inst;
   p.n_brute = n_brute;
@@ -759,15 +909,11 @@ extern "C" int rt2_render_persistent(
   p.skybox = skybox;
   p.antialias = antialias;
   p.frame_seed = frame_seed;
-  int blocks = (p.total + kThreads - 1) / kThreads;
   cudaStream_t st = (cudaStream_t)stream;
-  if (blocks > 0) {
-    if (general)
-      glass ? launch<true, true>(blocks, smem, st, p)
-            : launch<true, false>(blocks, smem, st, p);
-    else
-      glass ? launch<false, true>(blocks, smem, st, p)
-            : launch<false, false>(blocks, smem, st, p);
-  }
+  if (general)
+    glass ? launch<true, true>(smem, st, p) : launch<true, false>(smem, st, p);
+  else
+    glass ? launch<false, true>(smem, st, p)
+          : launch<false, false>(smem, st, p);
   return (int)cudaGetLastError();
 }

@@ -6,22 +6,25 @@
 // random_balls, room). On the TPU every ray of an (8, 128) tile ran in
 // lockstep: spheres streamed through sublane chunks, winner fields came out
 // of a one-hot MXU product, and a path that ended kept riding its tile as a
-// masked no-op until the whole block died. Here one thread owns one pixel,
-// runs its rpp x (bounces + 1) segments itself and stops when its path
-// ends, so none of that machinery exists.
+// masked no-op until the whole block died. Here each lane holds one path
+// and traces one segment per turn of its warp's loop; a lane whose pixel
+// is done writes it and claims the next pixel (csrc/claim.cuh), so warps
+// stay full while the frame lasts. The grid is as many blocks as can be
+// resident at once (csrc/claim.cuh persistent_blocks).
 //
 // What bounds it on this card: arithmetic. Every segment tests every
-// sphere (485 in random_balls, ~20 flops each) and every triangle, and the
-// winner's material row is one 192-byte read. The sphere and triangle
-// tables are staged once per block in shared memory, where all threads of
-// a warp read the same word at the same time (a broadcast); the field
-// table is read through the read-only cache. Divergence across path
-// lengths and between the glass and diffuse branches is not addressed in
-// this first form, which is written to be right and to match the plain
-// PyTorch version (kernels/spheres.py render_spheres_plain) operation for
-// operation: compiled with --fmad=false, every sum evaluated in the order
-// the plain version writes it, min/max propagating NaN like
-// torch.minimum/maximum, normalisation as v * (1 / sqrt(v.v)).
+// sphere (485 in random_balls, ~27 operations each) and every triangle,
+// and the winner's material row is one 192-byte read. The sphere and
+// triangle tables are staged once per resident block in shared memory,
+// where all threads of a warp read the same word at the same time (a
+// broadcast); the field table is read through the read-only cache. Lane
+// occupancy is counted on the device (turns of the lane loop, lanes with a
+// path summed over them). Divergence between the glass and diffuse
+// branches is not addressed. The kernel matches the plain PyTorch version
+// (kernels/spheres.py render_spheres_plain) operation for operation:
+// compiled with --fmad=false, every sum evaluated in the order the plain
+// version writes it, min/max propagating NaN like torch.minimum/maximum,
+// normalisation as v * (1 / sqrt(v.v)).
 //
 // Semantics per pixel (reference kernel, scene class pallas_spheres.eligible):
 //   seed = pixel_id + |frames| * 719393
@@ -32,6 +35,8 @@
 //   out[pixel] = (sum over samples) * inv_rpp; every started segment counts.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "claim.cuh"
 
 namespace {
 
@@ -57,13 +62,23 @@ constexpr int kCamDiverge = 16;
 constexpr int kCamHeight = 17;
 constexpr int kCam = 18;
 
+// What the kernel counts, accumulated across launches in int64 words
+// (kernels/spheres.py COUNTS): turns of a warp's lane loop, and lanes
+// holding a path summed over those turns.
+constexpr int kCntTurns = 0;
+constexpr int kCntActive = 1;
+constexpr int kCounts = 2;
+
 struct Params {
   const float* spheres;
   const float* tris;
   const float* fields;
   const float* cam;
   float* out;
-  unsigned long long* segments;
+  // per launch, zeroed by the wrapper (csrc/claim.cuh kScratch*): segments,
+  // the pixel cursor
+  unsigned long long* scratch;
+  unsigned long long* counts;  // kCounts words, accumulated
   int n_spheres, n_tris, fast, width, row_start, total, bounces, rpp, skybox;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
   float inv_rpp;        // float32(1 / rpp)
@@ -157,6 +172,245 @@ __device__ __forceinline__ void environment_light(const float d[3],
   }
 }
 
+// One lane's path: the pixel it renders (-1: none) in the row window,
+// samples started, the pixel's seed and sums, and the current sample's
+// ray, transmission and bounce.
+struct Path {
+  float o[3], d[3], tr[4], inc[4], acc[4];
+  uint32_t seed;
+  int pix, sample, bounce;
+};
+
+// Start the lane's next sample (wgsl:487-497): the pixel's focal point,
+// the defocus disk, then the diverge disk; the finished sample's light
+// joins the sum.
+__device__ __forceinline__ void start_sample(const Params& p,
+                                             const float* cam, Path& q) {
+  int xi = q.pix % p.width;
+  int yi = p.row_start + q.pix / p.width;
+  float w1 = fmaxf((float)p.width - 1.0f, 1.0f);
+  float h1 = fmaxf(cam[kCamHeight] - 1.0f, 1.0f);
+  float lfx = ((float)xi / w1 - 0.5f) * cam[kCamView];
+  float lfy = ((float)yi / h1 - 0.5f) * cam[kCamView + 1];
+  float f[3];
+  for (int r = 0; r < 3; ++r)
+    f[r] = ((cam[3 * r] * lfx + cam[3 * r + 1] * lfy) +
+            cam[3 * r + 2] * cam[kCamView + 2]) + cam[kCamOrigin + r];
+  float a, b;
+  rand_disk(q.seed, a, b);
+  float jx = a * cam[kCamDefocus], jy = b * cam[kCamDefocus];
+  for (int r = 0; r < 3; ++r)
+    q.o[r] = (cam[kCamOrigin + r] + cam[3 * r] * jx) + cam[3 * r + 1] * jy;
+  rand_disk(q.seed, a, b);
+  float vx = a * cam[kCamDiverge], vy = b * cam[kCamDiverge];
+  for (int r = 0; r < 3; ++r)
+    q.d[r] = ((f[r] + cam[3 * r] * vx) + cam[3 * r + 1] * vy) - q.o[r];
+  norm3(q.d);
+  for (int c = 0; c < 4; ++c) {
+    q.acc[c] = q.acc[c] + q.inc[c];
+    q.inc[c] = 0.0f;
+    q.tr[c] = 1.0f;
+  }
+  q.bounce = 0;
+  ++q.sample;
+}
+
+// One segment of the lane's path: closest sphere, closest triangle, sky on
+// a miss, the glass or the diffuse/specular branch, Russian roulette.
+// Updates the ray, transmission, incoming light and seed; returns whether
+// the path goes on.
+__device__ __forceinline__ bool trace_segment(const Params& p,
+                                              const float* s_sph,
+                                              const float* s_tri, Path& q) {
+  float* o = q.o;
+  float* d = q.d;
+  float* tr = q.tr;
+  float* inc = q.inc;
+  uint32_t& seed = q.seed;
+  // ---- closest sphere, lowest id on equal distance
+  float sd = kInf;
+  int sid = -1;
+  bool sins = false;
+  if (p.n_spheres > 0) {
+    float aq = dot3(d, d);
+    if (p.fast) {  // ray_sphere_fast: shared terms, one 1/a per ray
+      float inv_a = 1.0f / aq;
+      float oo = dot3(o, o), od = dot3(o, d);
+      for (int k = 0; k < p.n_spheres; ++k) {
+        const float* sp = s_sph + k * kSphStaged;
+        float cd = (sp[0] * d[0] + sp[1] * d[1]) + sp[2] * d[2];
+        float co = (sp[0] * o[0] + sp[1] * o[1]) + sp[2] * o[2];
+        float h = od - cd;
+        float cq = (oo - 2.0f * co) + sp[4];
+        float disc = h * h - aq * cq;
+        float sq = sqrtf(nan_max(disc, 0.0f));
+        float dn = nan_max((-h - sq) * inv_a, 0.0f);
+        float df = (-h + sq) * inv_a;
+        bool inside = dn == 0.0f;
+        bool hit = (disc >= 0.0f) && (df >= 0.001f);
+        float dst = hit ? (inside ? df : dn) : kInf;
+        if (dst < sd) {
+          sd = dst;
+          sid = k;
+          sins = inside;
+        }
+      }
+    } else {  // ray_sphere: the reference-order quadratic
+      for (int k = 0; k < p.n_spheres; ++k) {
+        const float* sp = s_sph + k * kSphStaged;
+        float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
+        float bq = 2.0f * dot3(oc, d);
+        float cq = dot3(oc, oc) - sp[3] * sp[3];
+        float disc = bq * bq - (4.0f * aq) * cq;
+        float sq = sqrtf(nan_max(disc, 0.0f));
+        float dn = nan_max((-bq - sq) / (2.0f * aq), 0.0f);
+        float df = (-bq + sq) / (2.0f * aq);
+        bool inside = dn == 0.0f;
+        bool hit = (disc >= 0.0f) && (df >= 0.001f);
+        float dst = hit ? (inside ? df : dn) : kInf;
+        if (dst < sd) {
+          sd = dst;
+          sid = k;
+          sins = inside;
+        }
+      }
+    }
+  }
+  // ---- closest world-baked triangle (Möller–Trumbore with the
+  // precomputed geometric normal), lowest id on equal distance
+  float td = kInf, tu = 0.0f, tv = 0.0f, tdet = 0.0f;
+  int tid = -1;
+  for (int t = 0; t < p.n_tris; ++t) {
+    const float* g = s_tri + t * kTriStaged;
+    float det = -((d[0] * g[9] + d[1] * g[10]) + d[2] * g[11]);
+    bool cull = g[12] > 0.5f;
+    bool keep = cull ? (det >= 1e-8f) : (fabsf(det) >= 1e-8f);
+    float inv = 1.0f / (keep ? det : 1.0f);
+    float aox = o[0] - g[0], aoy = o[1] - g[1], aoz = o[2] - g[2];
+    float daox = aoy * d[2] - aoz * d[1];
+    float daoy = aoz * d[0] - aox * d[2];
+    float daoz = aox * d[1] - aoy * d[0];
+    float dst = ((aox * g[9] + aoy * g[10]) + aoz * g[11]) * inv;
+    float u = ((g[6] * daox + g[7] * daoy) + g[8] * daoz) * inv;
+    float v = -((g[3] * daox + g[4] * daoy) + g[5] * daoz) * inv;
+    float w = (1.0f - u) - v;
+    bool hit = keep && dst > 1e-5f && u >= 0.0f && v >= 0.0f && w >= 0.0f;
+    float dstw = hit ? dst : kInf;
+    if (dstw < td) {
+      td = dstw;
+      tid = t;
+      tu = u;
+      tv = v;
+      tdet = det;
+    }
+  }
+  bool tri_win = td < sd;  // equal distance: the sphere
+  float dist = tri_win ? td : sd;
+
+  if (!(dist < kInf)) {  // ---- miss: sky, and the path ends
+    if (p.skybox) {
+      float env[4];
+      environment_light(d, env);
+      for (int c = 0; c < 4; ++c) inc[c] = inc[c] + tr[c] * env[c];
+    }
+    return false;
+  }
+  const float* F = p.fields +
+      (size_t)(tri_win ? p.n_spheres + tid : sid) * kFieldCols;
+  bool backface = tri_win ? (tdet < 0.0f) : sins;
+  float hp[3], n[3];
+  for (int r = 0; r < 3; ++r) hp[r] = o[r] + d[r] * dist;
+  if (tri_win) {
+    float wb = (1.0f - tu) - tv;
+    float sg = tdet < 0.0f ? -1.0f : 1.0f;
+    for (int r = 0; r < 3; ++r)
+      n[r] = ((__ldg(F + kFN0 + r) * wb + __ldg(F + kFN0 + 3 + r) * tu) +
+              __ldg(F + kFN0 + 6 + r) * tv) * sg;
+    norm3(n);
+  } else {
+    for (int r = 0; r < 3; ++r) n[r] = hp[r] - __ldg(F + kFCentre + r);
+    norm3(n);
+    float flip = backface ? -1.0f : 1.0f;
+    for (int r = 0; r < 3; ++r) n[r] = n[r] * flip;
+  }
+  float m_spec = __ldg(F + 19), m_smooth = __ldg(F + 18);
+  float ddn = dot3(d, n);
+  float rf[3];
+  for (int r = 0; r < 3; ++r) rf[r] = d[r] - (2.0f * ddn) * n[r];
+  float ntr[4], nd[3], no[3];
+
+  if (__ldg(F + 21) == kGlass) {  // ---- glass (wgsl:414-436)
+    float abs_k = __ldg(F + 16), m_ior = __ldg(F + 20);
+    for (int c = 0; c < 3; ++c)
+      ntr[c] = backface
+          ? tr[c] * expf(((-dist) * __ldg(F + 12 + c)) * abs_k) : tr[c];
+    ntr[3] = backface ? 1.0f : tr[3];
+    float ior = backface ? m_ior : 1.0f / m_ior;
+    float kk = 1.0f - (ior * ior) * (1.0f - ddn * ddn);
+    float kr = sqrtf(nan_max(kk, 0.0f));
+    float cos_t = nan_min(-ddn, 1.0f);
+    float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
+    bool cannot = ior * sin_t > 1.0f;
+    bool follow = true;
+    if (!cannot) {
+      float r_refl = rand01(seed);
+      follow = reflectance(cos_t, ior) > r_refl;
+    }
+    float g[3], dfd[3];
+    rand_direction(seed, g);
+    for (int r = 0; r < 3; ++r) dfd[r] = n[r] + g[r];
+    norm3(dfd);
+    if (follow) {
+      for (int r = 0; r < 3; ++r)
+        nd[r] = dfd[r] + (rf[r] - dfd[r]) * m_spec;
+    } else {
+      for (int r = 0; r < 3; ++r) {
+        float rr = kk >= 0.0f
+            ? ior * d[r] - (ior * ddn + kr) * n[r] : 0.0f;
+        nd[r] = -dfd[r] + (rr + dfd[r]) * m_smooth;
+      }
+    }
+    norm3(nd);
+    float gs = sign_of(dot3(n, nd));
+    for (int r = 0; r < 3; ++r) no[r] = hp[r] + (1e-4f * n[r]) * gs;
+  } else {  // ---- diffuse / specular (wgsl:437-459)
+    float r_spec = rand01(seed);
+    bool is_spec = m_spec >= r_spec;
+    float u[3];
+    rand_direction(seed, u);
+    float hemi = sign_of(dot3(n, u));
+    if (hemi == 0.0f) hemi = 1.0f;
+    float mix = m_smooth * (is_spec ? 1.0f : 0.0f);
+    for (int r = 0; r < 3; ++r) {
+      float hd = u[r] * hemi;
+      nd[r] = hd + (rf[r] - hd) * mix;
+    }
+    norm3(nd);
+    float emis_k = __ldg(F + 17);
+    for (int c = 0; c < 4; ++c) {
+      inc[c] = inc[c] + (__ldg(F + 4 + c) * emis_k) * tr[c];
+      ntr[c] = tr[c] * __ldg(F + (is_spec ? 8 : 0) + c);
+    }
+    for (int r = 0; r < 3; ++r) no[r] = hp[r];
+  }
+  // ---- Russian roulette
+  float pr = nan_max(ntr[0], nan_max(ntr[1], ntr[2]));
+  float r_rr = rand01(seed);
+  float pdiv = pr > 0.0f ? pr : 1.0f;
+  for (int c = 0; c < 4; ++c) tr[c] = ntr[c] / pdiv;
+  for (int r = 0; r < 3; ++r) {
+    o[r] = no[r];
+    d[r] = nd[r];
+  }
+  return r_rr < pr;
+}
+
+// The persistent kernel: stage the tables, then turn the warp's lane loop
+// until no lane of the warp holds a path and the frame is handed out. At
+// the top of each turn a lane without a path writes its pixel if all of its
+// samples are done, claims a new pixel (csrc/claim.cuh) if it has none, and
+// starts its pixel's next sample; then every lane that holds a path traces
+// one segment.
 __global__ void __launch_bounds__(kThreads)
 spheres_kernel(Params p) {
   extern __shared__ float s_tab[];  // spheres (S x 5), then tris (T x 13)
@@ -171,253 +425,76 @@ spheres_kernel(Params p) {
   for (int i = threadIdx.x; i < kCam; i += blockDim.x) s_cam[i] = p.cam[i];
   __syncthreads();
 
-  const float* cam = s_cam;
-  int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long segs = 0;
-
-  if (pid < p.total) {
-    int xi = pid % p.width;
-    int yi = p.row_start + pid / p.width;
-    uint32_t seed = (uint32_t)yi * (uint32_t)p.width + (uint32_t)xi +
-                    p.frame_seed;
-    float w1 = fmaxf((float)p.width - 1.0f, 1.0f);
-    float h1 = fmaxf(cam[kCamHeight] - 1.0f, 1.0f);
-    float lfx = ((float)xi / w1 - 0.5f) * cam[kCamView];
-    float lfy = ((float)yi / h1 - 0.5f) * cam[kCamView + 1];
-    float f[3];
-    for (int r = 0; r < 3; ++r)
-      f[r] = ((cam[3 * r] * lfx + cam[3 * r + 1] * lfy) +
-              cam[3 * r + 2] * cam[kCamView + 2]) + cam[kCamOrigin + r];
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float inc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-    for (int s = 0; s < p.rpp; ++s) {
-      // ---- sample start (wgsl:487-497): defocus disk, then diverge disk
-      float o[3], d[3], tr[4], a, b;
-      rand_disk(seed, a, b);
-      float jx = a * cam[kCamDefocus], jy = b * cam[kCamDefocus];
-      for (int r = 0; r < 3; ++r)
-        o[r] = (cam[kCamOrigin + r] + cam[3 * r] * jx) + cam[3 * r + 1] * jy;
-      rand_disk(seed, a, b);
-      float vx = a * cam[kCamDiverge], vy = b * cam[kCamDiverge];
-      for (int r = 0; r < 3; ++r)
-        d[r] = ((f[r] + cam[3 * r] * vx) + cam[3 * r + 1] * vy) - o[r];
-      norm3(d);
-      for (int c = 0; c < 4; ++c) {
-        acc[c] = acc[c] + inc[c];
-        inc[c] = 0.0f;
-        tr[c] = 1.0f;
-      }
-
-      for (int bounce = 0; bounce <= p.bounces; ++bounce) {
-        ++segs;
-        // ---- closest sphere, lowest id on equal distance
-        float sd = kInf;
-        int sid = -1;
-        bool sins = false;
-        if (p.n_spheres > 0) {
-          float aq = dot3(d, d);
-          if (p.fast) {  // ray_sphere_fast: shared terms, one 1/a per ray
-            float inv_a = 1.0f / aq;
-            float oo = dot3(o, o), od = dot3(o, d);
-            for (int k = 0; k < p.n_spheres; ++k) {
-              const float* sp = s_sph + k * kSphStaged;
-              float cd = (sp[0] * d[0] + sp[1] * d[1]) + sp[2] * d[2];
-              float co = (sp[0] * o[0] + sp[1] * o[1]) + sp[2] * o[2];
-              float h = od - cd;
-              float cq = (oo - 2.0f * co) + sp[4];
-              float disc = h * h - aq * cq;
-              float sq = sqrtf(nan_max(disc, 0.0f));
-              float dn = nan_max((-h - sq) * inv_a, 0.0f);
-              float df = (-h + sq) * inv_a;
-              bool inside = dn == 0.0f;
-              bool hit = (disc >= 0.0f) && (df >= 0.001f);
-              float dst = hit ? (inside ? df : dn) : kInf;
-              if (dst < sd) {
-                sd = dst;
-                sid = k;
-                sins = inside;
-              }
-            }
-          } else {  // ray_sphere: the reference-order quadratic
-            for (int k = 0; k < p.n_spheres; ++k) {
-              const float* sp = s_sph + k * kSphStaged;
-              float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
-              float bq = 2.0f * dot3(oc, d);
-              float cq = dot3(oc, oc) - sp[3] * sp[3];
-              float disc = bq * bq - (4.0f * aq) * cq;
-              float sq = sqrtf(nan_max(disc, 0.0f));
-              float dn = nan_max((-bq - sq) / (2.0f * aq), 0.0f);
-              float df = (-bq + sq) / (2.0f * aq);
-              bool inside = dn == 0.0f;
-              bool hit = (disc >= 0.0f) && (df >= 0.001f);
-              float dst = hit ? (inside ? df : dn) : kInf;
-              if (dst < sd) {
-                sd = dst;
-                sid = k;
-                sins = inside;
-              }
-            }
-          }
+  unsigned* cursor =
+      reinterpret_cast<unsigned*>(p.scratch + rt2_claim::kScratchCursor);
+  const bool lead = (threadIdx.x & 31) == 0;
+  unsigned long long segs = 0, turns = 0, active = 0;
+  Path q;
+  q.pix = -1;
+  q.sample = 0;
+  bool has_path = false, exhausted = false;
+  while (true) {
+    if (!has_path && q.pix >= 0 && q.sample == p.rpp) {
+      float* out = p.out + (size_t)q.pix * 4;
+      for (int c = 0; c < 4; ++c) out[c] = (q.acc[c] + q.inc[c]) * p.inv_rpp;
+      q.pix = -1;
+    }
+    bool need = q.pix < 0 && !exhausted;
+    unsigned id = rt2_claim::claim(cursor, need);
+    if (need) {
+      if (id < (unsigned)p.total) {
+        q.pix = (int)id;
+        int xi = q.pix % p.width;
+        int yi = p.row_start + q.pix / p.width;
+        q.seed = (uint32_t)yi * (uint32_t)p.width + (uint32_t)xi +
+                 p.frame_seed;
+        q.sample = 0;
+        for (int c = 0; c < 4; ++c) {
+          q.acc[c] = 0.0f;
+          q.inc[c] = 0.0f;
         }
-        // ---- closest world-baked triangle (Möller–Trumbore with the
-        // precomputed geometric normal), lowest id on equal distance
-        float td = kInf, tu = 0.0f, tv = 0.0f, tdet = 0.0f;
-        int tid = -1;
-        for (int t = 0; t < p.n_tris; ++t) {
-          const float* g = s_tri + t * kTriStaged;
-          float det = -((d[0] * g[9] + d[1] * g[10]) + d[2] * g[11]);
-          bool cull = g[12] > 0.5f;
-          bool keep = cull ? (det >= 1e-8f) : (fabsf(det) >= 1e-8f);
-          float inv = 1.0f / (keep ? det : 1.0f);
-          float aox = o[0] - g[0], aoy = o[1] - g[1], aoz = o[2] - g[2];
-          float daox = aoy * d[2] - aoz * d[1];
-          float daoy = aoz * d[0] - aox * d[2];
-          float daoz = aox * d[1] - aoy * d[0];
-          float dst = ((aox * g[9] + aoy * g[10]) + aoz * g[11]) * inv;
-          float u = ((g[6] * daox + g[7] * daoy) + g[8] * daoz) * inv;
-          float v = -((g[3] * daox + g[4] * daoy) + g[5] * daoz) * inv;
-          float w = (1.0f - u) - v;
-          bool hit = keep && dst > 1e-5f && u >= 0.0f && v >= 0.0f &&
-                     w >= 0.0f;
-          float dstw = hit ? dst : kInf;
-          if (dstw < td) {
-            td = dstw;
-            tid = t;
-            tu = u;
-            tv = v;
-            tdet = det;
-          }
-        }
-        bool tri_win = td < sd;  // equal distance: the sphere
-        float dist = tri_win ? td : sd;
-
-        if (!(dist < kInf)) {  // ---- miss: sky, and the path ends
-          if (p.skybox) {
-            float env[4];
-            environment_light(d, env);
-            for (int c = 0; c < 4; ++c) inc[c] = inc[c] + tr[c] * env[c];
-          }
-          break;
-        }
-        const float* F = p.fields +
-            (size_t)(tri_win ? p.n_spheres + tid : sid) * kFieldCols;
-        bool backface = tri_win ? (tdet < 0.0f) : sins;
-        float hp[3], n[3];
-        for (int r = 0; r < 3; ++r) hp[r] = o[r] + d[r] * dist;
-        if (tri_win) {
-          float wb = (1.0f - tu) - tv;
-          float sg = tdet < 0.0f ? -1.0f : 1.0f;
-          for (int r = 0; r < 3; ++r)
-            n[r] = ((__ldg(F + kFN0 + r) * wb + __ldg(F + kFN0 + 3 + r) * tu) +
-                    __ldg(F + kFN0 + 6 + r) * tv) * sg;
-          norm3(n);
-        } else {
-          for (int r = 0; r < 3; ++r) n[r] = hp[r] - __ldg(F + kFCentre + r);
-          norm3(n);
-          float flip = backface ? -1.0f : 1.0f;
-          for (int r = 0; r < 3; ++r) n[r] = n[r] * flip;
-        }
-        float m_spec = __ldg(F + 19), m_smooth = __ldg(F + 18);
-        float ddn = dot3(d, n);
-        float rf[3];
-        for (int r = 0; r < 3; ++r) rf[r] = d[r] - (2.0f * ddn) * n[r];
-        float ntr[4], nd[3], no[3];
-
-        if (__ldg(F + 21) == kGlass) {  // ---- glass (wgsl:414-436)
-          float abs_k = __ldg(F + 16), m_ior = __ldg(F + 20);
-          for (int c = 0; c < 3; ++c)
-            ntr[c] = backface
-                ? tr[c] * expf(((-dist) * __ldg(F + 12 + c)) * abs_k) : tr[c];
-          ntr[3] = backface ? 1.0f : tr[3];
-          float ior = backface ? m_ior : 1.0f / m_ior;
-          float kk = 1.0f - (ior * ior) * (1.0f - ddn * ddn);
-          float kr = sqrtf(nan_max(kk, 0.0f));
-          float cos_t = nan_min(-ddn, 1.0f);
-          float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
-          bool cannot = ior * sin_t > 1.0f;
-          bool follow = true;
-          if (!cannot) {
-            float r_refl = rand01(seed);
-            follow = reflectance(cos_t, ior) > r_refl;
-          }
-          float g[3], dfd[3];
-          rand_direction(seed, g);
-          for (int r = 0; r < 3; ++r) dfd[r] = n[r] + g[r];
-          norm3(dfd);
-          if (follow) {
-            for (int r = 0; r < 3; ++r)
-              nd[r] = dfd[r] + (rf[r] - dfd[r]) * m_spec;
-          } else {
-            for (int r = 0; r < 3; ++r) {
-              float rr = kk >= 0.0f
-                  ? ior * d[r] - (ior * ddn + kr) * n[r] : 0.0f;
-              nd[r] = -dfd[r] + (rr + dfd[r]) * m_smooth;
-            }
-          }
-          norm3(nd);
-          float gs = sign_of(dot3(n, nd));
-          for (int r = 0; r < 3; ++r) no[r] = hp[r] + (1e-4f * n[r]) * gs;
-        } else {  // ---- diffuse / specular (wgsl:437-459)
-          float r_spec = rand01(seed);
-          bool is_spec = m_spec >= r_spec;
-          float u[3];
-          rand_direction(seed, u);
-          float hemi = sign_of(dot3(n, u));
-          if (hemi == 0.0f) hemi = 1.0f;
-          float mix = m_smooth * (is_spec ? 1.0f : 0.0f);
-          for (int r = 0; r < 3; ++r) {
-            float hd = u[r] * hemi;
-            nd[r] = hd + (rf[r] - hd) * mix;
-          }
-          norm3(nd);
-          float emis_k = __ldg(F + 17);
-          for (int c = 0; c < 4; ++c) {
-            inc[c] = inc[c] + (__ldg(F + 4 + c) * emis_k) * tr[c];
-            ntr[c] = tr[c] * __ldg(F + (is_spec ? 8 : 0) + c);
-          }
-          for (int r = 0; r < 3; ++r) no[r] = hp[r];
-        }
-        // ---- Russian roulette
-        float pr = nan_max(ntr[0], nan_max(ntr[1], ntr[2]));
-        float r_rr = rand01(seed);
-        float pdiv = pr > 0.0f ? pr : 1.0f;
-        for (int c = 0; c < 4; ++c) tr[c] = ntr[c] / pdiv;
-        for (int r = 0; r < 3; ++r) {
-          o[r] = no[r];
-          d[r] = nd[r];
-        }
-        if (!(r_rr < pr)) break;
+      } else {
+        exhausted = true;
       }
     }
-    float* out = p.out + (size_t)pid * 4;
-    for (int c = 0; c < 4; ++c) out[c] = (acc[c] + inc[c]) * p.inv_rpp;
+    if (!has_path && q.pix >= 0) {
+      start_sample(p, s_cam, q);
+      has_path = true;
+    }
+    unsigned live = __ballot_sync(rt2_claim::kFull, has_path);
+    if (live == 0u) break;  // the same on every lane of the warp
+    if (lead) {
+      ++turns;
+      active += (unsigned)__popc(live);
+    }
+    if (has_path) {
+      ++segs;
+      if (!trace_segment(p, s_sph, s_tri, q) || ++q.bounce > p.bounces)
+        has_path = false;
+    }
   }
 
-  // ---- exact segment count: warp reduce, block reduce, one atomic
-  for (int off = 16; off > 0; off >>= 1)
-    segs += __shfl_down_sync(0xffffffffu, segs, off);
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = segs;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sum = 0;
-    for (int w = 0; w < kThreads / 32; ++w) sum += s_warp[w];
-    atomicAdd(p.segments, sum);
-  }
+  // ---- exact counts: warp reduce, block reduce, one atomic each
+  rt2_claim::block_add<kThreads>(
+      segs, p.scratch + rt2_claim::kScratchSegments, s_warp);
+  rt2_claim::block_add<kThreads>(turns, p.counts + kCntTurns, s_warp);
+  rt2_claim::block_add<kThreads>(active, p.counts + kCntActive, s_warp);
 }
 
 }  // namespace
 
-// Launch on `stream`; allocates nothing and does not synchronise. Returns
-// cudaGetLastError() (0 = launched).
+// Launch on `stream`; allocates nothing and does not synchronise.
+// `scratch` holds rt2_claim::kScratchWords zeroed int64 words (the segment
+// count lands in word 0), `counts` kCounts words that the launch adds to.
+// Returns cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_spheres(
     const float* spheres, const float* tris, const float* fields,
     const float* cam, int n_spheres, int n_tris, int fast, int width,
     int row_start, int rows, int bounces, int rpp, int skybox,
     unsigned int frame_seed, float inv_rpp, float* out,
-    unsigned long long* segments, void* stream) {
+    unsigned long long* scratch, unsigned long long* counts, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 0 ||
-      n_tris > kMaxTris || rpp < 1 || bounces < 0)
+      n_tris > kMaxTris || rpp < 1 || bounces < 0 || width < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.spheres = spheres;
@@ -425,7 +502,8 @@ extern "C" int rt2_render_spheres(
   p.fields = fields;
   p.cam = cam;
   p.out = out;
-  p.segments = segments;
+  p.scratch = scratch;
+  p.counts = counts;
   p.n_spheres = n_spheres;
   p.n_tris = n_tris;
   p.fast = fast;
@@ -439,8 +517,8 @@ extern "C" int rt2_render_spheres(
   p.inv_rpp = inv_rpp;
   size_t smem = (size_t)(n_spheres * kSphStaged + n_tris * kTriStaged) *
                 sizeof(float);
-  int blocks = (p.total + kThreads - 1) / kThreads;
-  if (blocks > 0)
-    spheres_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  auto kernel = spheres_kernel;
+  int blocks = rt2_claim::persistent_blocks(kernel, kThreads, smem, p.total);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -67,11 +67,11 @@ def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
 
 
 class Renderer:
-    """Host-facing wrapper: owns the accumulation buffer on ``device`` and
-    the last frame's exact traced-segment count (ref RayTracer,
-    ray_tracer.rs:49-236)."""
+    """Host-facing wrapper: owns the accumulation buffer on ``device`` (the
+    CUDA card unless the caller asks for the CPU) and the last frame's
+    exact traced-segment count (ref RayTracer, ray_tracer.rs:49-236)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.framebuffer: torch.Tensor | None = None
         self.last_segments: torch.Tensor | None = None

@@ -1,0 +1,153 @@
+"""Device times of the port's two render kernels at 1920x1080, for comparing
+source trees in one run on one card.
+
+    python3 -m ray_tracer_2_tpu_torch.kernel_times [TREE ...] \\
+        [--order ABBA] [--reps 20] [--out FILE]
+
+Each TREE is the root of a checkout of this repository (default: the one
+this module lies in); the first is A, the second B. ``--order`` lists the
+runs by letter, so two trees measured as "ABBA" run A, B, B, A. Each run is
+a fresh process that imports the tree's own package, builds its kernels
+(printing ``ptxas`` registers, stack and spills), builds the scenes and
+times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
+1, ... between two CUDA events. A cell is a scene at a bounce count:
+
+* the megakernel on ``main_path_scene`` and ``room2_scene`` at bounces 0-5
+  and ``instances_scene`` at bounces 5;
+* the small-scene kernel on ``random_balls`` and ``room`` at bounces 0-5.
+
+Where the tree's kernels count their lane loop (``turns``,
+``active_lanes``), each cell also gives lane occupancy, over the timed
+launches. Every result is one JSON line on standard output (and in
+``--out``); the last lines are a summary per cell. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+W, H = 1920, 1080
+BOUNCES = range(6)
+# the worker: import the package of the tree given as argv[1]
+_BOOT = ("import sys; sys.path.insert(0, sys.argv[1]); "
+         "import runpy; runpy.run_path(sys.argv[2], run_name='__worker__')")
+
+
+def _cells():
+    for b in BOUNCES:
+        yield "megakernel", "main_path_scene", b
+    for b in BOUNCES:
+        yield "megakernel", "room2_scene", b
+    yield "megakernel", "instances_scene", 5
+    for name in ("random_balls", "room"):
+        for b in BOUNCES:
+            yield "spheres", name, b
+
+
+def _worker(tree: str, label: str, reps: int) -> None:
+    import torch
+
+    import ray_tracer_2_tpu_torch as pkg
+    from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all
+    from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
+    from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
+    from ray_tracer_2_tpu_torch.scene import scenes
+    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
+
+    def emit(**obj):
+        print(json.dumps(dict(run=label, **obj)), flush=True)
+
+    here = Path(pkg.__file__).resolve().parents[1]
+    if here != Path(tree).resolve():
+        raise RuntimeError(f"imported the package of {here}, not {tree}")
+    kernels = dict(megakernel=CUDA_MEGAKERNEL, spheres=CUDA_SPHERES)
+    build_all(*kernels.values())
+    for name, k in kernels.items():
+        emit(phase="build", kernel=name, ptxas=[
+            ln.strip() for ln in k.build_log.splitlines()
+            if any(w in ln for w in ("entry function", "registers", "spill"))])
+    built = {}
+    kw = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
+    for kname, sname, b in _cells():
+        if sname not in built:
+            built[sname] = instantiate_scene(
+                getattr(scenes, sname)()).to("cuda")
+        k, scene = kernels[kname], built[sname]
+        k(scene, 0, bounces=b, **kw)
+        torch.cuda.synchronize()
+        k.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        segs = [k(scene, f, bounces=b, **kw)[1] for f in range(reps)]
+        end.record()
+        torch.cuda.synchronize()
+        c = k.read_counts() if "turns" in getattr(k, "counts", ()) else {}
+        seg = sum(int(s) for s in segs)
+        r = dict(phase="cell", kernel=kname, scene=sname, bounces=b,
+                 ms=start.elapsed_time(end) / reps,
+                 segments_per_pixel=seg / (reps * W * H))
+        if c:
+            r["lane_occupancy"] = c["active_lanes"] / (32.0 * c["turns"])
+            for key in ("rows", "leaves", "boxes"):
+                if key in c:
+                    r[f"{key}_per_segment"] = c[key] / seg
+        emit(**r)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*",
+                    default=[str(Path(__file__).resolve().parents[1])])
+    ap.add_argument("--order", default=None,
+                    help="runs by tree letter, e.g. ABBA (default: each "
+                         "tree once)")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    args = ap.parse_args(argv)
+    letters = "ABCDEFGH"[:len(args.trees)]
+    order = args.order or letters
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    lines = [dict(phase="device", nvidia_smi=smi,
+                  trees=dict(zip(letters, args.trees)), order=order)]
+    out = open(args.out, "w") if args.out else None
+    for i, letter in enumerate(order):
+        tree = args.trees[letters.index(letter)]
+        label = f"{letter}{i}"
+        res = subprocess.run(
+            [sys.executable, "-c", _BOOT, str(Path(tree).resolve()),
+             str(Path(__file__).resolve()), label, str(args.reps)],
+            capture_output=True, text=True, timeout=args.timeout)
+        if res.returncode != 0:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
+            raise RuntimeError(f"run {label} on {tree} failed")
+        for ln in res.stdout.splitlines():
+            if ln.startswith("{"):
+                lines.append(json.loads(ln))
+    summary = {}
+    for r in lines:
+        if r.get("phase") == "cell":
+            key = f"{r['kernel']} {r['scene']} b{r['bounces']}"
+            summary.setdefault(key, {}).setdefault(r["run"][0], []).append(
+                r["ms"])
+    lines += [dict(phase="summary", cell=k, ms=v) for k, v in summary.items()]
+    for r in lines:
+        print(json.dumps(r), flush=True)
+        if out:
+            out.write(json.dumps(r) + "\n")
+    if out:
+        out.close()
+    return 0
+
+
+if __name__ == "__worker__":
+    _worker(sys.argv[1], sys.argv[3], int(sys.argv[4]))
+elif __name__ == "__main__":
+    sys.exit(main())

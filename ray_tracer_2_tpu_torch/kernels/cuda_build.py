@@ -28,6 +28,10 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC"]
+#: int64 words of the per-launch scratch of the persistent kernels
+#: (csrc/claim.cuh kScratchWords): the exact segment count, the pixel
+#: cursor (the low 32 bits of its word) and a flag the launch sets once
+LAUNCH_SCRATCH = 3
 
 
 def _find_nvcc() -> str:
@@ -58,11 +62,13 @@ class CudaKernel:
     """One ``csrc`` source and its C entry point ``symbol``: builds the
     library at first use (rebuilding when the source or flags change),
     loads it, and keeps the count of launches in ``launches`` (the
-    subclass's ``__call__`` adds one per launch; ``reset_counts`` zeroes
-    it)."""
+    subclass's ``__call__`` adds one per launch) and the kernel's own
+    device counts named in ``counts`` (int64 words the kernel adds to,
+    per device, in the C source's order). ``reset_counts`` zeroes both."""
 
     symbol: str = ""
     argtypes: list = []
+    counts: tuple = ()
 
     def __init__(self, source: Path, build_dir: Path = BUILD_DIR):
         self.source = Path(source)
@@ -72,6 +78,7 @@ class CudaKernel:
         self.build_log = ""        # nvcc/ptxas output (registers, spills)
         self._fn = None
         self._lock = threading.Lock()
+        self._counts = {}          # device -> int64 words of ``counts``
 
     def build(self):
         """Compile (if the library for this source is missing) and load;
@@ -104,9 +111,28 @@ class CudaKernel:
         fn.argtypes = list(self.argtypes)
         return fn
 
+    def device_counts(self, dev: torch.device) -> torch.Tensor:
+        """The int64 words on ``dev`` that the kernel adds its counts to
+        (zeroed at first use)."""
+        c = self._counts.get(dev)
+        if c is None:
+            c = self._counts[dev] = torch.zeros(
+                len(self.counts), dtype=torch.int64, device=dev)
+        return c
+
+    def read_counts(self) -> dict:
+        """What the kernel counted on the device since the last
+        ``reset_counts``, summed over devices. Synchronises."""
+        total = [0] * len(self.counts)
+        for c in self._counts.values():
+            total = [a + b for a, b in zip(total, c.tolist())]
+        return dict(zip(self.counts, total))
+
     def reset_counts(self) -> None:
-        """Set the launch count (and any count the kernel keeps) to 0."""
+        """Set the launch count and the kernel's device counts to 0."""
         self.launches = 0
+        for c in self._counts.values():
+            c.zero_()
 
 
 def check_launch(dev, *, width: int, height: int, row_start: int,
@@ -125,6 +151,21 @@ def check_launch(dev, *, width: int, height: int, row_start: int,
             raise ValueError(f"{name}: expected contiguous float32 "
                              f"(n, {cols}) on {dev}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+
+
+def launch_scratch(dev: torch.device) -> torch.Tensor:
+    """The zeroed per-launch scratch of a persistent kernel on ``dev``:
+    ``LAUNCH_SCRATCH`` int64 words, word 0 the segment count."""
+    return torch.zeros(LAUNCH_SCRATCH, dtype=torch.int64, device=dev)
+
+
+def check_aligned(name: str, x: torch.Tensor, nbytes: int) -> None:
+    """Raise ``ValueError`` unless ``x``'s data starts on an
+    ``nbytes``-byte boundary (a kernel reads it in ``nbytes``-byte
+    loads)."""
+    if x.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data must start on a {nbytes}-byte "
+                         f"boundary (a view at an offset? pass a copy)")
 
 
 def frame_seed(frames: int) -> int:

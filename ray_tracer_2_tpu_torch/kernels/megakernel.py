@@ -21,9 +21,15 @@ tensors live on, never by a switch:
   per-ray resume stack. It serves CPU tensors, and ``chip_smoke.py`` holds
   the kernel against it on the card.
 * ``CUDA_MEGAKERNEL`` — the hand-written CUDA kernel
-  (``csrc/megakernel.cu``, its brute-force loop in ``csrc/brute.cuh``),
-  one thread per pixel. It serves CUDA tensors; there is no fallback to
-  the plain version.
+  (``csrc/megakernel.cu``, its brute-force loop in ``csrc/brute.cuh``):
+  persistent blocks whose lanes trace one segment per turn and refill from
+  a per-launch pixel cursor (``csrc/claim.cuh``). It serves CUDA tensors;
+  there is no fallback to the plain version.
+
+Both count the traversal's work: interior wide-row visits, leaf visits and
+child boxes tested (``COUNTS``; on the card the two versions' counts are
+equal). Pixel values do not depend on the order pixels are rendered in,
+since every draw derives from the pixel id.
 
 Both follow the reference's XLA boundary op for op (same RNG stream, same
 sums in the same order) so images agree to float rounding; see
@@ -51,7 +57,7 @@ from ray_tracer_2_tpu_torch.kernels.brute import (
     BRUTE_MAX_TRIS, brute_force_intersect_plain, pack_brute_table,
 )
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    PKG, CudaKernel, check_launch, frame_seed,
+    PKG, CudaKernel, check_aligned, check_launch, frame_seed, launch_scratch,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import EPS_DET, EPSILON, INF, \
     ray_sphere, sphere_normal
@@ -76,6 +82,13 @@ PLAIN_CHUNK = 1 << 18
 INST_COLS = 32
 #: floats of a brute-force triangle the kernel stages (brute.cuh kStaged)
 BRUTE_STAGED = 11
+#: the kernel's device counts, in csrc/megakernel.cu's order (kCnt*):
+#: brute-force closest-hit calls (one per segment and group), launches
+#: that ran the prepass, interior wide-row visits, leaf visits, child boxes
+#: tested, turns of a warp's lane loop, lanes holding a path summed over
+#: those turns
+COUNTS = ("brute_calls", "brute_launches", "rows", "leaves", "boxes",
+          "turns", "active_lanes")
 #: shared memory the kernel stages the instance and brute-force tables in
 #: (csrc/megakernel.cu kDynSmemBytes): under the 48 KB a block gets
 #: without opting in, with its static tables beside it
@@ -186,6 +199,10 @@ class _Tables:
         self.h1 = f32(float(max(height - 1, 1)))
         self.inv_w = float(np.float32(1.0) / np.float32(width))
         self.one = f32(1.0)
+        # traversal work, as the kernel counts it
+        self.rows = 0
+        self.leaves = 0
+        self.boxes = torch.zeros((), dtype=torch.int64, device=dev)
 
 
 def _affine(m, v, translate: bool):
@@ -317,6 +334,8 @@ def _traverse(t: _Tables, root, om, dm, limit):
         child. Returns the lanes whose row had no hit child."""
         mask, c_min, dn2 = _wide_eval(rows, om[lanes], inv[lanes],
                                       best[lanes])
+        t.rows += lanes.numel()
+        t.boxes += rows[:, COL_K].to(torch.int64).clamp(0, MAX_ARITY).sum()
         base = rows[:, COL_BASE].to(torch.int64)
         has = mask != 0
         rem = mask & ~(1 << c_min)
@@ -339,6 +358,7 @@ def _traverse(t: _Tables, root, om, dm, limit):
         if bool((~leaf).any()):
             done.append(descend(act[~leaf], rows[~leaf]))
         lf = act[leaf]
+        t.leaves += lf.numel()
         if lf.numel():
             better, d_, u_, v_, det_, tri_, mat_ = _leaf_test(
                 rows[leaf], om[lf], dm[lf], best[lf])
@@ -534,11 +554,12 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
 
 def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
                    antialias, row_start):
+    """Returns (summed light, segments of each pixel)."""
     x = pix % width
     y = row_start + pix // width
     seed = rng.seed_for_pixel(y * width + x, frames)
     acc = torch.zeros((pix.shape[0], 4), dtype=torch.float32, device=t.dev)
-    segs = 0
+    segs = torch.zeros(pix.shape[0], dtype=torch.int64, device=t.dev)
     for _ in range(rpp):
         o, d, seed = _camera_ray(t, x, y, seed, antialias)
         trans = torch.ones_like(acc)
@@ -547,7 +568,7 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
         for _bounce in range(bounces + 1):
             if not idx.numel():
                 break
-            segs += idx.numel()
+            segs[idx] += 1
             oi, di = o[idx], d[idx]
             hit = _intersect(t, oi, di)
             o[idx], d[idx], trans[idx], inc[idx], seed[idx], cont = _shade(
@@ -560,15 +581,18 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
 def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
                  bounces: int, rays_per_pixel: int, skybox: bool,
                  antialias: bool = False, row_start: int = 0,
-                 rows: int | None = None):
-    """The plain PyTorch version of ``render_persistent`` (any device)."""
+                 rows: int | None = None, counts: dict | None = None):
+    """The plain PyTorch version of ``render_persistent`` (any device).
+    Given a dict ``counts``, fills in the traversal's work as the kernel
+    counts it (``rows``, ``leaves``, ``boxes``: ints) and the segments of
+    each pixel (``pixel_segments``: (rows, width) int64)."""
     _require_eligible(scene)
     rows = height if rows is None else rows
     rpp = max(int(rays_per_pixel), 1)
     t = _Tables(scene, width, height)
     total = rows * width
     out = torch.empty((total, 4), dtype=torch.float32, device=t.dev)
-    segs = 0
+    pixel_segs = torch.empty(total, dtype=torch.int64, device=t.dev)
     for c0 in range(0, total, PLAIN_CHUNK):
         pix = torch.arange(c0, min(c0 + PLAIN_CHUNK, total), device=t.dev)
         acc, s = _render_pixels(t, pix, frames, width=width, bounces=bounces,
@@ -576,9 +600,11 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
                                 row_start=row_start)
         out[c0:c0 + pix.shape[0]] = acc / torch.tensor(
             float(rpp), dtype=torch.float32, device=t.dev)
-        segs += s
-    return (out.reshape(rows, width, 4),
-            torch.tensor(segs, dtype=torch.int64, device=t.dev))
+        pixel_segs[c0:c0 + pix.shape[0]] = s
+    if counts is not None:
+        counts.update(rows=t.rows, leaves=t.leaves, boxes=int(t.boxes),
+                      pixel_segments=pixel_segs.reshape(rows, width))
+    return out.reshape(rows, width, 4), pixel_segs.sum()
 
 
 # --------------------------------------------------------------------------
@@ -635,31 +661,24 @@ class CudaMegakernel(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` at first
     use, checks every tensor it hands over, launches on the current stream
     and counts its launches in ``launches``. The kernel itself counts its
-    brute-force prepass on the device (``prepass_counts``)."""
+    work on the device (``COUNTS``, read with ``read_counts``; the
+    brute-force prepass's with ``prepass_counts``)."""
 
     symbol = "rt2_render_persistent"
     argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
                 + [ctypes.c_uint32] + [ctypes.c_void_p] * 4)
+    counts = COUNTS
 
     def __init__(self, source: Path = PKG / "csrc" / "megakernel.cu"):
         super().__init__(source)
-        self._prepass = {}  # device -> int64 [closest-hit calls, launches]
 
     def prepass_counts(self) -> tuple[int, int]:
         """What the kernel counted of its brute-force prepass since the last
         ``reset_counts``: (closest-hit calls of the ``csrc/brute.cuh`` loop,
         one per segment and brute-force group; launches that made any).
         Synchronises with the device."""
-        calls = launches = 0
-        for c in self._prepass.values():
-            calls += int(c[0])
-            launches += int(c[1])
-        return calls, launches
-
-    def reset_counts(self) -> None:
-        super().reset_counts()
-        for c in self._prepass.values():
-            c.zero_()
+        c = self.read_counts()
+        return c["brute_calls"], c["brute_launches"]
 
     def __call__(self, scene: TorchScene, frames: int, *, width: int,
                  height: int, bounces: int, rays_per_pixel: int,
@@ -683,13 +702,11 @@ class CudaMegakernel(CudaKernel):
             raise ValueError(f"bad tables: {tab['scal'].numel()} camera "
                              f"floats, {tab['brute'].shape[0]} brute rows "
                              f"for {n_brute}")
+        check_aligned("wide_rows", scene.wide_rows, 16)
         fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
-        segments = torch.zeros(1, dtype=torch.int64, device=dev)
-        prepass = self._prepass.get(dev)
-        if prepass is None:
-            prepass = self._prepass[dev] = torch.zeros(
-                2, dtype=torch.int64, device=dev)
+        scratch = launch_scratch(dev)
+        counts = self.device_counts(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
@@ -701,11 +718,11 @@ class CudaMegakernel(CudaKernel):
                      int(bool(skybox)), int(bool(antialias)),
                      int(tab["general"]), int(tab["glass"]),
                      frame_seed(frames), out.data_ptr(),
-                     segments.data_ptr(), prepass.data_ptr(), stream)
+                     scratch.data_ptr(), counts.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         self.launches += 1
-        return out, segments[0]
+        return out, scratch[0]
 
 
 #: the process's one handle on the kernel (its ``launches`` count is what

@@ -14,8 +14,10 @@ by the device the scene's tensors live on, never by a switch:
   (rays x spheres) and (rays x triangles) crosses in pixel chunks. It
   serves CPU tensors, and ``chip_smoke.py`` holds the kernel against it on
   the card.
-* ``CUDA_SPHERES`` — the hand-written CUDA kernel (``csrc/spheres.cu``),
-  one thread per pixel. It serves CUDA tensors; there is no fallback.
+* ``CUDA_SPHERES`` — the hand-written CUDA kernel (``csrc/spheres.cu``):
+  persistent blocks whose lanes trace one segment per turn and refill from
+  a per-launch pixel cursor (``csrc/claim.cuh``), counting the turns and
+  active lanes (``COUNTS``). It serves CUDA tensors; there is no fallback.
 
 Both keep the reference kernel's random draws and operation order: the
 camera of this kernel (``defocus / width`` as a float32 division, two
@@ -37,7 +39,7 @@ import torch
 
 from ray_tracer_2_tpu_torch import rng
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    PKG, CudaKernel, check_launch, frame_seed,
+    PKG, CudaKernel, check_launch, frame_seed, launch_scratch,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import (
     EPS_DET, EPSILON, INF, SPHERE_FAST_MIN, ray_sphere, ray_sphere_fast,
@@ -61,6 +63,9 @@ MAX_SPHERES = SPHERE_BVH_MIN - 1
 F_CENTRE = 32
 F_N0 = 36
 N_FIELDS = 48
+#: the kernel's device counts, in csrc/spheres.cu's order (kCnt*): turns
+#: of a warp's lane loop, lanes holding a path summed over those turns
+COUNTS = ("turns", "active_lanes")
 #: elements of one (rays x spheres) float32 temporary of the plain
 #: version (256 MB); its pixel chunks are sized by it
 PLAIN_ELEMS = 1 << 26
@@ -385,7 +390,7 @@ def _render_chunk(tab: SmallTables, cam, pix, frames, *, width, bounces,
     n = pix.shape[0]
     acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     inc = torch.zeros_like(acc)
-    segs = 0
+    segs = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(rpp):
         # sample start (wgsl:487-497): defocus disk, then diverge disk
         dj, seed = rng.rand_in_unit_disk(seed)
@@ -404,7 +409,7 @@ def _render_chunk(tab: SmallTables, cam, pix, frames, *, width, bounces,
         for _bounce in range(bounces + 1):
             if not idx.numel():
                 break
-            segs += idx.numel()
+            segs[idx] += 1
             o[idx], d[idx], tr[idx], inc[idx], seed[idx], cont = _segment(
                 tab, o[idx], d[idx], tr[idx], inc[idx], seed[idx],
                 skybox=skybox, fast=fast)
@@ -415,8 +420,11 @@ def _render_chunk(tab: SmallTables, cam, pix, frames, *, width, bounces,
 def render_spheres_plain(scene: TorchScene, frames: int, *, width: int,
                          height: int, bounces: int, rays_per_pixel: int,
                          skybox: bool, row_start: int = 0,
-                         rows: int | None = None):
-    """The plain PyTorch version of ``render_spheres`` (any device)."""
+                         rows: int | None = None,
+                         counts: dict | None = None):
+    """The plain PyTorch version of ``render_spheres`` (any device). Given a
+    dict ``counts``, fills in the segments of each pixel
+    (``pixel_segments``: (rows, width) int64)."""
     _require_eligible(scene)
     rows = height if rows is None else rows
     rpp = max(int(rays_per_pixel), 1)
@@ -428,7 +436,7 @@ def render_spheres_plain(scene: TorchScene, frames: int, *, width: int,
     inv_rpp = torch.tensor(float(np.float32(1.0 / rpp)), dtype=torch.float32,
                            device=dev)
     out = torch.empty((total, 4), dtype=torch.float32, device=dev)
-    segs = 0
+    pixel_segs = torch.empty(total, dtype=torch.int64, device=dev)
     for c0 in range(0, total, chunk):
         pix = torch.arange(c0, min(c0 + chunk, total), device=dev)
         acc, s = _render_chunk(tab, cam, pix, frames, width=width,
@@ -436,9 +444,10 @@ def render_spheres_plain(scene: TorchScene, frames: int, *, width: int,
                                row_start=row_start,
                                fast=tab.n_spheres >= SPHERE_FAST_MIN)
         out[c0:c0 + pix.shape[0]] = acc * inv_rpp
-        segs += s
-    return (out.reshape(rows, width, 4),
-            torch.tensor(segs, dtype=torch.int64, device=dev))
+        pixel_segs[c0:c0 + pix.shape[0]] = s
+    if counts is not None:
+        counts.update(pixel_segments=pixel_segs.reshape(rows, width))
+    return out.reshape(rows, width, 4), pixel_segs.sum()
 
 
 # --------------------------------------------------------------------------
@@ -447,12 +456,13 @@ def render_spheres_plain(scene: TorchScene, frames: int, *, width: int,
 class CudaSpheres(CudaKernel):
     """Wrapper of the small-scene CUDA kernel: builds ``csrc/spheres.cu`` at
     first use, checks every tensor it hands over, launches on the current
-    stream and counts its launches in ``launches``."""
+    stream and counts its launches in ``launches``; the kernel counts its
+    lane loop on the device (``COUNTS``, read with ``read_counts``)."""
 
     symbol = "rt2_render_spheres"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p])
+                + [ctypes.c_uint32, ctypes.c_float] + [ctypes.c_void_p] * 4)
+    counts = COUNTS
 
     def __init__(self, source: Path = PKG / "csrc" / "spheres.cu"):
         super().__init__(source)
@@ -480,7 +490,8 @@ class CudaSpheres(CudaKernel):
         fn = self.build()
         rpp = max(int(rays_per_pixel), 1)
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
-        segments = torch.zeros(1, dtype=torch.int64, device=dev)
+        scratch = launch_scratch(dev)
+        counts = self.device_counts(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(tab.spheres.data_ptr(), tab.tris.data_ptr(),
@@ -488,12 +499,12 @@ class CudaSpheres(CudaKernel):
                      int(S >= SPHERE_FAST_MIN), width, row_start, rows,
                      bounces, rpp, int(bool(skybox)), frame_seed(frames),
                      float(np.float32(1.0 / rpp)), out.data_ptr(),
-                     segments.data_ptr(), stream)
+                     scratch.data_ptr(), counts.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"spheres kernel launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
-        return out, segments[0]
+        return out, scratch[0]
 
 
 #: the process's one handle on the kernel (its ``launches`` count is what

@@ -247,6 +247,57 @@ def test_brute_kernel_matches_plain():
     assert float((err < 1e-5).float().mean()) >= 0.999
 
 
+# Edges of the persistent kernels' pixel cursor: fewer pixels than a warp,
+# a pixel total that is not a multiple of 32, a row window, several samples
+# with antialias, no bounce.
+_EDGES = [dict(width=5, height=3, bounces=5),
+          dict(width=37, height=21, bounces=3),
+          dict(width=64, height=36, bounces=2, row_start=11, rows=13),
+          dict(width=45, height=26, bounces=2, rays_per_pixel=3,
+               antialias=True),
+          dict(width=40, height=22, bounces=0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_EDGES)))
+def test_persistent_megakernel_edges(scene, case):
+    """The megakernel against its plain version at the cursor's edges:
+    segments exact, >= 99.9% of pixels within 1e-5, row, leaf and
+    child-box visits equal, and one active lane per traced segment."""
+    kw = dict(dict(rays_per_pixel=1, skybox=True), **_EDGES[case])
+    CUDA_MEGAKERNEL.reset_counts()
+    ki, ks = CUDA_MEGAKERNEL(scene, 1, **kw)
+    kc = CUDA_MEGAKERNEL.read_counts()
+    pc = {}
+    pi, ps = render_plain(scene, 1, counts=pc, **kw)
+    assert bool(torch.isfinite(ki).all())
+    assert int(ks) == int(ps) == kc["active_lanes"]
+    assert [kc[k] for k in ("rows", "leaves", "boxes")] == \
+        [pc[k] for k in ("rows", "leaves", "boxes")]
+    assert 0 < kc["turns"] and kc["active_lanes"] <= 32 * kc["turns"]
+    assert _frac_within(ki, pi) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_EDGES)))
+def test_persistent_spheres_edges(small_scenes, case):
+    """The small-scene kernel against its plain version at the cursor's
+    edges (rpp 3 without antialias, which that path does not take):
+    segments exact, >= 99.9% of pixels within 1e-5, one active lane per
+    traced segment."""
+    kw = dict(dict(rays_per_pixel=1, skybox=True), **_EDGES[case])
+    kw.pop("antialias", None)
+    scene = small_scenes["room"]
+    CUDA_SPHERES.reset_counts()
+    ki, ks = CUDA_SPHERES(scene, 1, **kw)
+    kc = CUDA_SPHERES.read_counts()
+    pi, ps = render_spheres_plain(scene, 1, **kw)
+    assert bool(torch.isfinite(ki).all())
+    assert int(ks) == int(ps) == kc["active_lanes"]
+    assert 0 < kc["turns"] and kc["active_lanes"] <= 32 * kc["turns"]
+    assert _frac_within(ki, pi) >= 0.999
+
+
 def test_brute_wrapper_rejects_cpu_tensors():
     """Runs anywhere: the brute-force wrapper raises on CPU tensors
     instead of falling back to the plain version."""

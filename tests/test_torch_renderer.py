@@ -82,7 +82,7 @@ def test_outside_the_slice_raises(scenes_):
     and the debug modes, NEE and normal maps."""
     _, ts = scenes_
     rballs = instantiate_scene(scenes.random_balls())
-    renderer = Renderer()
+    renderer = Renderer(device="cpu")
     for scene, over in ((rballs, dict(antialias=True)), (_textured(ts), {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.render(scene, dataclasses.replace(PARAMS, **over))
@@ -100,7 +100,7 @@ def test_brute_force_mesh_renders():
     rs = ref_instantiate(ref_definition(
         scenes.wide_bvh_scene(lat=4, lon=9))).render_scene
     ts = torch_scene(rs)
-    renderer = Renderer()
+    renderer = Renderer(device="cpu")
     renderer.render(ts, dataclasses.replace(PARAMS, frames=0))
     ref, segs = ref_render_persistent(
         rs, jnp.int32(0), width=W, height=H, bounces=0, rays_per_pixel=1,
@@ -145,7 +145,7 @@ def test_room_antialias_goes_through_the_megakernel(monkeypatch):
                 CUDA_BRUTE.launches)
     params = RenderParams(width=W, height=H, bounces=3, rays_per_pixel=2,
                           skybox=True, antialias=True)
-    renderer = Renderer()
+    renderer = Renderer(device="cpu")
     fb = jnp.zeros((H, W, 4), jnp.float32)
     for f in range(2):
         sample, segs = ref_render_persistent(

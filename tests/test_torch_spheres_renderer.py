@@ -103,7 +103,7 @@ def test_routing(monkeypatch):
     metal = _pair("metal")[1]
     for ts, route in ((wide, "render_persistent"), (metal, "render_spheres")):
         calls.clear()
-        Renderer().render(ts, PARAMS)
+        Renderer(device="cpu").render(ts, PARAMS)
         assert calls == [route]
         assert ts.derived["small_scene"] == (route == "render_spheres")
     assert small_scene(metal) and not small_scene(wide)
@@ -113,7 +113,7 @@ def test_antialias_on_a_small_scene_raises():
     """random_balls with antialias goes to the megakernel, which takes at
     most 32 dense spheres."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        Renderer().render(_pair("random_balls")[1],
+        Renderer(device="cpu").render(_pair("random_balls")[1],
                           dataclasses.replace(PARAMS, antialias=True))
 
 
@@ -123,7 +123,7 @@ def test_antialias_on_a_small_scene_renders():
     launched on the CPU."""
     rs, ts = _pair("metal")
     launches = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches)
-    renderer = Renderer()
+    renderer = Renderer(device="cpu")
     renderer.render(ts, dataclasses.replace(PARAMS, bounces=3,
                                             rays_per_pixel=2,
                                             antialias=True))
