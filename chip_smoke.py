@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout
-(one nvcc each, side by side) and holds each against its plain PyTorch
+Builds the port's CUDA kernels from the sources in this checkout (the
+three render kernels and the four probe sources, one nvcc each, side by
+side) and holds each against its plain PyTorch
 version on the card. Then it drives three paths through
 ``Renderer.render`` at 1920x1080, 5 bounces, and checks that every frame
 went through the path's kernel and no other:
@@ -30,6 +31,13 @@ version's, and reports lane occupancy (active lanes over 32 x turns of the
 lane loop) beside what one thread per pixel would have had. The kernels
 line gives each kernel's bound: the larger of its operations, counted in
 this run, over the card's float32 peak and its bytes over the memory rate.
+
+Then the probe phase runs every probe kernel of ``probes/`` (the
+hand-written Hopper counterparts of the TPU probe scripts
+``scripts/probe_{trav,packet,r2,lut}.py``) once, at the first of its
+script's sizes, through the runner of ``python3 -m
+ray_tracer_2_tpu_torch.probes``, and holds each bit-equal to its plain
+version on the card: output, final index and checksum.
 
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last line is the result. Any failed check raises, so the exit
@@ -59,10 +67,6 @@ BRUTE_RAYS = W * H
 # PIXEL_TOL at every bounce count.
 PIXEL_TOL = 1e-5
 NEED_FRAC = 0.999
-# The card's published peaks (H100 SXM at 700 W): float32 outside the
-# tensor cores and device memory.
-PEAK_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # Float operations per unit of counted work, read off csrc/ (adds,
 # multiplies, min/max, compares and selects; a division or square root
 # counts one; integer work and transcendentals are left out, so the bound
@@ -176,26 +180,13 @@ def check_cases(cases, launch, plain, **tags):
     return results
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of ``ops`` over the
-    float32 peak and ``nbytes`` over the memory rate."""
-    t_ops = ops / PEAK_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=ops, bytes=nbytes)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def megakernel_bound(scene, r) -> dict:
     """Bound of the megakernel on a compared cell: its counted child boxes,
     leaves and segments (each segment tests every sphere and brute-force
     triangle and transforms the ray into every instance), against its
     tables read once and the image written once."""
     from ray_tracer_2_tpu_torch.kernels.megakernel import brute_instances
+    from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
     brute_tris = sum(scene.inst_spans[i][2] for i in brute_instances(scene))
     per_seg = (scene.n_spheres * OPS_SPHERE + brute_tris * OPS_BRUTE
                + scene.n_instances * OPS_INSTANCE + OPS_SEGMENT)
@@ -211,6 +202,7 @@ def spheres_bound(scene, r) -> dict:
     written once."""
     from ray_tracer_2_tpu_torch.kernels.intersect import SPHERE_FAST_MIN
     from ray_tracer_2_tpu_torch.kernels.spheres import pack_tables
+    from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
     tab = pack_tables(scene)
     s, t = tab.n_spheres, tab.n_tris
     per_seg = (s * (OPS_SPHERE_FAST if s >= SPHERE_FAST_MIN else OPS_SPHERE)
@@ -247,6 +239,7 @@ def compare_brute(seed: int = 0):
     from ray_tracer_2_tpu_torch.kernels.brute import (
         CUDA_BRUTE, INF, brute_force_intersect_plain, pack_brute_table,
     )
+    from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
     scene = brute_group()
     _, tri_off, count = scene.inst_spans[0]
     check(count == 256, f"brute group of {count} triangles")
@@ -287,6 +280,36 @@ def compare_brute(seed: int = 0):
     return r
 
 
+def probe_entry(name, wrapper, replaces, launches, records) -> dict:
+    """The kernels-line entry of a probe kernel, from the probe phase's
+    first line for it (trav also gives its global-memory and scheduled
+    forms)."""
+    r = next(x for x in records if x["kernel"] == name)
+    size = {k: v for k, v in r.items() if k in ("B", "R", "T", "P", "K", "C",
+                                                "dtype", "variant", "table",
+                                                "n_bins")}
+    e = dict(name=name, route="cuda",
+             source=f"ray_tracer_2_tpu_torch/csrc/{wrapper.source.name}",
+             replaces=replaces, launches=launches[name],
+             launches_per_frame=0.0,
+             launched_as="probe entry point (python3 -m "
+                         "ray_tracer_2_tpu_torch.probes)",
+             max_abs_err=r["max_abs_err"], ms=r["device_ms"],
+             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=r["library_ms"],
+             ops=r["ops"], bytes=r["bytes"], size=size)
+    if name == "trav":
+        g = next(x for x in records if x["kernel"] == "trav"
+                 and x.get("table") == "global")
+        s = next(x for x in records if x["kernel"] == "trav_sched")
+        e["global_table"] = dict(ms=g["device_ms"], bound_ms=g["bound_ms"])
+        e["sched"] = dict(launches=launches["trav_sched"], ms=s["device_ms"],
+                          plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                          bound_by=s["bound_by"],
+                          max_abs_err=s["max_abs_err"], B=s["B"], T=s["T"])
+    return e
+
+
 def drive(renderer, scene, params):
     """FRAMES progressive frames through ``Renderer.render``, frames 2-5
     timed on the host clock after a synchronise. Returns (seconds of the
@@ -317,13 +340,15 @@ def main() -> int:
     from ray_tracer_2_tpu_torch.config import RenderParams
     from ray_tracer_2_tpu_torch.engine.renderer import Renderer
     from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
-    from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all
+    from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all, \
+        ptxas_lines
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         CUDA_MEGAKERNEL, brute_instances, render_plain,
     )
     from ray_tracer_2_tpu_torch.kernels.spheres import (
         CUDA_SPHERES, render_spheres_plain,
     )
+    from ray_tracer_2_tpu_torch.probes import load_all
     from ray_tracer_2_tpu_torch.scene import scenes
     from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 
@@ -341,13 +366,14 @@ def main() -> int:
     # ---- 2. build: one nvcc per source, side by side ---------------------
     t0 = time.perf_counter()
     kernels = (CUDA_MEGAKERNEL, CUDA_SPHERES, CUDA_BRUTE)
-    build_all(*kernels)
-    for k in kernels:
-        ptxas = [ln.strip() for ln in k.build_log.splitlines()
-                 if any(w in ln for w in ("entry function", "registers",
-                                          "spill"))]
+    probes = load_all()
+    from ray_tracer_2_tpu_torch.probes.trav import TRAV_SCHED
+    probe_wrappers = [w for w, _ in probes.KERNELS.values()] + [TRAV_SCHED]
+    build_all(*kernels, *probe_wrappers)
+    for k in {k.source: k for k in (*kernels, *probe_wrappers)}.values():
         emit(phase="build", source=k.source.name,
-             nvcc_seconds=k.build_seconds, ptxas=ptxas)
+             nvcc_seconds=k.build_seconds,
+             ptxas=ptxas_lines(k.build_log))
     emit(phase="build", seconds=time.perf_counter() - t0)
 
     # ---- 3. each kernel against its plain version, on the card -----------
@@ -460,6 +486,29 @@ def main() -> int:
          ms_per_frame=dt * 1e3 / (FRAMES - 2),
          mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
+    # ---- 7. the probes ------------------------------------------------------
+    zero_counts()
+    for w in probe_wrappers:
+        w.reset_counts()
+    t0 = time.perf_counter()
+    ctx = probes.Ctx(device=torch.device("cuda", 0), seed=0, smoke=True,
+                     card=card)
+    check(probes.run(ctx, probes.kernel_probes()), "every probe ran and "
+          "matched its plain version")
+    probe_launches = {name: w.launches for name, (w, _) in
+                      probes.KERNELS.items()}
+    probe_launches["trav_sched"] = TRAV_SCHED.launches
+    for name, n in probe_launches.items():
+        check(n > 0, f"probe kernel {name} launched")
+    for r in ctx.records:
+        check(r["plain_equal"] is True, f"probe {r['probe']} bit-equal to "
+                                        "its plain version")
+    emit(phase="probes", probes=len(ctx.records),
+         seconds=time.perf_counter() - t0, launches=probe_launches,
+         card=card)
+    check(CUDA_MEGAKERNEL.launches == CUDA_SPHERES.launches == 0,
+          "no render kernel launched by the probes")
+
     # bounds from this run's counted work on the timed 1080p cells; no one
     # PyTorch call computes a path-traced frame or a closest hit over a
     # triangle table, so library_ms is null
@@ -506,7 +555,9 @@ def main() -> int:
              ms=brute_cmp["kernel_ms"], plain_ms=brute_cmp["plain_ms"],
              bound_ms=brute_cmp["bound_ms"], bound_by=brute_cmp["bound_by"],
              library_ms=None, ops=brute_cmp["ops"],
-             bytes=brute_cmp["bytes"])])
+             bytes=brute_cmp["bytes"]),
+        *[probe_entry(name, w, replaces, probe_launches, ctx.records)
+          for name, (w, replaces) in probes.KERNELS.items()]])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

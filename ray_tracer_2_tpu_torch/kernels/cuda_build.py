@@ -4,9 +4,11 @@ Each kernel source has a plain C entry point. At first use it is compiled
 with ``nvcc`` for Hopper (sm_90a) into a shared library under
 ``ray_tracer_2_tpu_torch/_build/``, named by a hash of the source, the
 headers it includes and the flags, so a changed source or header is
-rebuilt, and loaded with ``ctypes``. The wrappers
-(``kernels/megakernel.py``, ``kernels/spheres.py``, ``kernels/brute.py``)
-subclass ``CudaKernel`` with their symbol, argument types and launch.
+rebuilt, and loaded with ``ctypes`` once per process however many entry
+points it has. The render wrappers (``kernels/megakernel.py``,
+``kernels/spheres.py``, ``kernels/brute.py``) subclass ``CudaKernel`` with
+their symbol, argument types and launch; the probes (``probes/``) wrap each
+entry point of ``csrc/probe_*.cu`` in a ``CudaFunction``.
 """
 from __future__ import annotations
 
@@ -58,6 +60,42 @@ def source_bytes(path: Path) -> bytes:
     return b"".join(parts)
 
 
+_LIBS = {}                 # library path -> (CDLL, nvcc seconds, nvcc log)
+_LIB_LOCKS = {}            # library path -> lock held while it is built
+_LIBS_LOCK = threading.Lock()
+
+
+def load_library(source: Path, build_dir: Path = BUILD_DIR):
+    """Compile ``source`` (if its library is missing) and load it once per
+    process, however many entry points of it are wrapped. Returns (CDLL,
+    nvcc seconds of this process's build or 0, nvcc/ptxas output)."""
+    source = Path(source)
+    tag = hashlib.sha256(source_bytes(source)
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = Path(build_dir) / f"{source.stem}_{tag}.so"
+    with _LIBS_LOCK:
+        lock = _LIB_LOCKS.setdefault(lib, threading.Lock())
+    with lock:
+        if lib in _LIBS:
+            return _LIBS[lib]
+        seconds, log = 0.0, ""
+        if not lib.exists():
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            res = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                  str(source)],
+                                 capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source.name} "
+                                   f"({res.returncode}):\n{log}")
+            os.replace(tmp, lib)
+        _LIBS[lib] = (ctypes.CDLL(str(lib)), seconds, log)
+        return _LIBS[lib]
+
+
 class CudaKernel:
     """One ``csrc`` source and its C entry point ``symbol``: builds the
     library at first use (rebuilding when the source or flags change),
@@ -89,24 +127,9 @@ class CudaKernel:
             return self._fn
 
     def _load(self):
-        src = source_bytes(self.source)
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
-        lib = self.build_dir / f"{self.source.stem}_{tag}.so"
-        if not lib.exists():
-            self.build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            res = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                  str(self.source)],
-                                 capture_output=True, text=True)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name} "
-                                   f"({res.returncode}):\n{self.build_log}")
-            os.replace(tmp, lib)
-        fn = getattr(ctypes.CDLL(str(lib)), self.symbol)
+        lib, self.build_seconds, self.build_log = load_library(
+            self.source, self.build_dir)
+        fn = getattr(lib, self.symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = list(self.argtypes)
         return fn
@@ -174,8 +197,66 @@ def frame_seed(frames: int) -> int:
     return ((abs(int(frames)) & 0xFFFFFFFF) * 719393) & 0xFFFFFFFF
 
 
+class CudaFunction(CudaKernel):
+    """One C entry point of a source that holds several (the probes'
+    ``csrc/probe_*.cu``): its ``argtypes`` are spelled as a string, one
+    letter per argument before the trailing stream (``p`` a pointer, ``i``
+    an int, ``f`` a float). ``launch`` hands tensors over as their data
+    pointers on the current stream of their device, raises if the entry
+    point returns a CUDA error, and counts the launch. The caller checks
+    the tensors (``check_tensor``)."""
+
+    _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+    def __init__(self, source: Path, symbol: str, signature: str):
+        super().__init__(source)
+        self.symbol = symbol
+        self.argtypes = [self._CTYPES[c] for c in signature] \
+            + [ctypes.c_void_p]
+
+    def launch(self, *args) -> None:
+        devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+        if len(devs) != 1 or next(iter(devs)).type != "cuda":
+            raise ValueError(f"{self.symbol}: the CUDA kernel takes CUDA "
+                             f"tensors on one device, got {sorted(map(str, devs))}")
+        if len(args) != len(self.argtypes) - 1:
+            raise TypeError(f"{self.symbol}: {len(self.argtypes) - 1} "
+                            f"arguments, got {len(args)}")
+        fn = self.build()
+        dev = devs.pop()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                       for a in args], stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, dev: torch.device) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``dev`` starting on a 16-byte boundary (the probes read
+    rows in 16-byte loads)."""
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous() \
+            or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
+                         f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    check_aligned(name, x, 16)
+
+
+def ptxas_lines(log: str) -> list:
+    """The lines of an nvcc build log that give each kernel's registers,
+    shared memory and spills (``-Xptxas=-v``)."""
+    return [ln.strip() for ln in log.splitlines()
+            if any(w in ln for w in ("entry function", "registers",
+                                     "spill"))]
+
+
 def build_all(*kernels: CudaKernel) -> None:
-    """Build the kernels' libraries side by side (one nvcc each)."""
+    """Build the kernels' libraries side by side (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=max(len(kernels), 1)) as pool:
         for f in [pool.submit(k.build) for k in kernels]:
             f.result()

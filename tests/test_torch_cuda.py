@@ -1,8 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions there.
 
 The main path's kernel (``csrc/megakernel.cu``, on the wide-BVH scene, on
-room2 and on four shared instances), the small-scene kernel (``csrc/spheres.cu``) and the brute-force
-kernel (``csrc/brute.cu``). These tests need a CUDA card (the kernels have
+room2 and on four shared instances), the small-scene kernel (``csrc/spheres.cu``), the brute-force
+kernel (``csrc/brute.cu``) and the probe kernels (``csrc/probe_*.cu``). These tests need a CUDA card (the kernels have
 no CPU mode) and skip without one. The file imports neither JAX nor the JAX package, so it also runs on
 the GPU machine, which has no JAX; there, skip the JAX-importing conftest:
 
@@ -303,3 +303,115 @@ def test_brute_wrapper_rejects_cpu_tensors():
     instead of falling back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         CUDA_BRUTE(torch.zeros((4, 8)), torch.zeros((2, 16)), 2)
+
+
+# ------------------------------------------------------------- the probes --
+# Every probe that launches a kernel of probes/ (csrc/probe_*.cu), by the
+# name the entry point knows it.
+_KERNEL_PROBES = ["launch", "trav", "sched", "leaf", "packet", "pallas_hello",
+                  "pallas_onehot_loop", "pallas_lane_gather",
+                  "pallas_sublane_gather", "pallas_dyn_dma",
+                  "lane_gather_chain", "sublane_gather_samey",
+                  "lut1024_chain", "lut_row_fetch", "scalar_treelet_select",
+                  "mxu_leaf_dense", "big_body_compile"]
+
+
+def test_kernel_probe_list_is_complete():
+    """Runs anywhere: the list above is the entry point's kernel probes."""
+    from ray_tracer_2_tpu_torch.probes import load_all
+    assert load_all().kernel_probes() == _KERNEL_PROBES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _KERNEL_PROBES)
+def test_probe_kernel_matches_plain(name):
+    """Each probe kernel at the first of its script's sizes, through the
+    entry point's runner: every output (the probe's, the final index, the
+    checksum) bit-equal to the plain version on the card."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.probes import load_all
+    common = load_all()
+    dev = torch.device("cuda", 0)
+    ctx = common.Ctx(device=dev, smoke=True, card=common.card_name(dev))
+    assert common.run(ctx, [name])
+    assert ctx.records
+    assert all(r["plain_equal"] is True and r["max_abs_err"] == 0.0
+               for r in ctx.records)
+
+
+def _probe_edge_cases():
+    """Sizes off the scripts' grid: lanes that do not fill a block, tables
+    of other heights, several packet copies."""
+    from ray_tracer_2_tpu_torch.probes import lut, packet, r2, trav
+    rng = np.random.default_rng(21)
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return x if dtype is None else x.to(dtype)
+
+    R, T, B = 16, 7, 37
+    tabs = t(rng.integers(0, R, (T * R, 128)).astype(np.float32),
+             torch.bfloat16)
+    iv, off = (t(rng.random((B, 128)).astype(np.float32)) for _ in "ab")
+    idx0 = t(rng.integers(0, R, (B, 1)).astype(np.int32))
+    tid0 = t(rng.integers(0, T, (B, 1)).astype(np.int32))
+    nodes = rng.random((50, 128)).astype(np.float32)
+    nodes[:, 12:14] = rng.integers(0, 150, (50, 2))
+    blk = t(rng.integers(0, 1024, (8, 128)).astype(np.int32))
+    return [
+        (trav.trav, (tabs, iv, off, idx0, tid0), dict(R=R, K=50)),
+        (trav.trav, (tabs, iv, off, idx0, tid0), dict(R=R, K=50,
+                                                      staged=False)),
+        (trav.trav, (tabs, iv, off, idx0, tid0), dict(R=R, K=50,
+                                                      sched=True)),
+        (trav.leaf, (t(rng.random((64, 128)).astype(np.float32),
+                       torch.bfloat16),
+                     t(np.zeros((64, 128), np.float32), torch.bfloat16), iv,
+                     t(rng.integers(0, 64, (B, 1)).astype(np.int32))),
+         dict(K=30)),
+        (packet.packet, (t(nodes), t(rng.random((33, 128)).astype(np.float32)),
+                         t(rng.random((33, 128)).astype(np.float32) - 0.5)),
+         dict(K=200, copies=3)),
+        (r2.onehot_loop, (t(rng.integers(0, 40, (40, 128))
+                            .astype(np.float32), torch.bfloat16),
+                          t(rng.integers(0, 40, (45, 1)).astype(np.int32))),
+         dict(steps=20)),
+        (r2.lane_gather, (t(rng.integers(0, 128, (100, 128))
+                            .astype(np.float32)),
+                          t(rng.integers(0, 128, (100, 1)).astype(np.int32))),
+         dict(steps=20)),
+        (lut.lane_gather_chain, (t(rng.integers(0, 128, (16, 128))
+                                   .astype(np.float32)),
+                                 t(rng.integers(0, 128, (16, 128))
+                                   .astype(np.int32))), dict(steps=20)),
+        (lut.lut_row_fetch, (t(rng.integers(0, 1024, (24, 128))
+                               .astype(np.float32)), blk), dict(steps=9)),
+        (lut.big_body, (t(rng.integers(0, 1024, (56, 128))
+                          .astype(np.float32)), blk), dict(steps=9)),
+        (lut.mxu_leaf_dense, (t(rng.random((37, 16)).astype(np.float32)),
+                              t(rng.random((16, 40)).astype(np.float32))),
+         dict(steps=7)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(11))
+def test_probe_kernel_edges(case):
+    """Probe kernels against their plain versions off the scripts' sizes:
+    every output bit-equal."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.probes.common import compare
+    fn, args, kw = _probe_edge_cases()[case]
+    got = fn(*(a.cuda() for a in args), **kw)
+    want = fn(*args, **kw)
+    assert compare(tuple(g.cpu() for g in got) if isinstance(got, tuple)
+                   else got.cpu(), want) == (True, 0.0)
+
+
+def test_probe_wrappers_reject_cpu_tensors():
+    """Runs anywhere: a probe kernel's wrapper raises on CPU tensors
+    instead of running the plain version."""
+    from ray_tracer_2_tpu_torch.probes import load_all
+    for wrapper, _ in load_all().KERNELS.values():
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            wrapper.launch(torch.zeros(4), 4, torch.zeros(4))

@@ -118,6 +118,46 @@ def ref_render(rs, frames, fused=True, **over):
     return np.asarray(img), int(float(segs))
 
 
+def import_probe_scripts():
+    """Put the TPU probe scripts (``scripts/probe_*.py``) on ``sys.path``
+    and return the ``scripts`` directory."""
+    scripts = str(Path(__file__).resolve().parents[1] / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return scripts
+
+
+def to_torch(a) -> torch.Tensor:
+    """A JAX or numpy array as a CPU tensor of the same type (bfloat16
+    through float32, which holds every bfloat16 exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+class BenchRecorder:
+    """Stands in for a TPU probe script's ``bench`` / ``bench_varying``:
+    calls ``fn`` once on its arguments, at once (the scripts' closures
+    read their loop variables late), and keeps (arguments as numpy,
+    output as numpy) in ``calls``. With ``keep``, only the calls whose
+    index is in it run; the rest are skipped (their sizes are too large
+    for the CPU)."""
+
+    def __init__(self, keep=None):
+        self.calls, self.keep, self.n = [], keep, 0
+
+    def bench(self, fn, *args, **kw):
+        i, self.n = self.n, self.n + 1
+        if self.keep is None or i in self.keep:
+            out = jax.tree.map(np.asarray, fn(*args))
+            self.calls.append(([np.asarray(a) for a in args], out))
+        return 1.0
+
+    def bench_varying(self, fn, argiter, **kw):
+        return self.bench(fn, next(argiter))
+
+
 def port_render(ts, frames, **over):
     """The port's ``render_persistent`` at W x H. Returns (image, segments)."""
     kw = dict(width=W, height=H, bounces=0, rays_per_pixel=1, skybox=True)
