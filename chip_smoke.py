@@ -30,14 +30,25 @@ megakernel's interior-row, leaf and child-box visits equal to the plain
 version's, and reports lane occupancy (active lanes over 32 x turns of the
 lane loop) beside what one thread per pixel would have had. The kernels
 line gives each kernel's bound: the larger of its operations, counted in
-this run, over the card's float32 peak and its bytes over the memory rate.
+this run, over the card's float32 peak and its bytes over the memory rate;
+and, as ``bound_nofma_ms``, the same with the operations over half that
+peak, which is what code compiled without contraction (``--fmad=false``,
+every kernel here) can execute.
+
+The brute-force kernel is held against its plain version on 2,073,600 rays
+x 256 triangles, on a 600-triangle table (three staged chunks) and on the edge-case list of
+``kernels/brute_cases.py`` (duplicates, degenerate triangles, parallel
+rays, origins on the plane, hits on edges and vertices, culled against
+two-sided rows, table sizes around 16, 256 and 600).
 
 Then the probe phase runs every probe kernel of ``probes/`` (the
 hand-written Hopper counterparts of the TPU probe scripts
 ``scripts/probe_{trav,packet,r2,lut}.py``) once, at the first of its
-script's sizes, through the runner of ``python3 -m
-ray_tracer_2_tpu_torch.probes``, and holds each bit-equal to its plain
-version on the card: output, final index and checksum.
+script's sizes (``mxu_leaf_dense`` at both), through the runner of
+``python3 -m ray_tracer_2_tpu_torch.probes``, and holds each bit-equal to
+its plain version on the card: output, final index and checksum. The
+tensor-core form of ``mxu_leaf_dense`` sums in the unit's own order and is
+held to its stated gate instead (``probes/lut.py:mma_gate``).
 
 Each phase prints one JSON line; the line before the last lists the
 kernels, the last line is the result. Any failed check raises, so the exit
@@ -76,7 +87,8 @@ OPS_LEAF = 8 * 47       # megakernel.cu traverse, per leaf of 8 triangles
 OPS_SPHERE = 35         # the exact quadratic (both kernels), per sphere
 OPS_SPHERE_FAST = 30    # spheres.cu shared-term formula, per sphere
 OPS_TRI = 49            # spheres.cu triangle test, per triangle
-OPS_BRUTE = 62          # brute.cuh closest_hit, per triangle
+OPS_BRUTE = 47          # brute.cuh test_row, per ray-triangle pair (what
+                        # depends on the triangle alone is staged once)
 OPS_INSTANCE = 60       # megakernel.cu instance ray, limit, merge
 OPS_SEGMENT = 160       # camera ray share, shading, roulette per segment
 
@@ -86,7 +98,14 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T0 = time.perf_counter()
+
+
 def emit(**obj) -> None:
+    """Print one JSON line; a phase line also says how many seconds into
+    the run it was printed (``t``)."""
+    if "phase" in obj:
+        obj["t"] = round(time.perf_counter() - T0, 2)
     print(json.dumps(obj), flush=True)
 
 
@@ -231,14 +250,42 @@ def brute_group():
     return instantiate_scene(s).to("cuda")
 
 
+def brute_record(got: dict, ref: dict) -> dict:
+    """The kernel's record against the plain version's, field by field."""
+    fields = ("dst", "u", "v", "det")
+    err = torch.stack([(got[k] - ref[k]).abs() for k in fields]).amax(dim=0)
+    hit = ref["tri"] >= 0
+    return dict(hits=int(hit.sum()),
+                tri_exact=bool((got["tri"] == ref["tri"]).all()),
+                mat_exact=bool((got["mat"] == ref["mat"]).all()),
+                bit_equal=all(torch.equal(got[k], ref[k]) for k in fields),
+                frac_within_tol=float((err < PIXEL_TOL).float().mean()),
+                max_abs_err=float(err[hit].max()) if bool(hit.any()) else 0.0)
+
+
+def check_brute(r: dict, what: str) -> None:
+    check(r["tri_exact"] and r["mat_exact"], f"brute kernel, {what}: tri and "
+                                             "mat exact")
+    check(r["frac_within_tol"] >= NEED_FRAC,
+          f"brute kernel, {what}: {r['frac_within_tol']:.5f} of rays within "
+          f"{PIXEL_TOL} (need {NEED_FRAC})")
+
+
 def compare_brute(seed: int = 0):
     """``rt2_brute_intersect`` against ``brute_force_intersect_plain`` on
     BRUTE_RAYS rays from ``seed`` (origins in a 3-unit box around the
-    group, directions uniform)."""
+    group, directions uniform): the 256-triangle group, a 600-triangle
+    table (three staged chunks), and every edge case of
+    ``kernels/brute_cases.py``. Returns the 256-triangle result."""
     import numpy as np
     from ray_tracer_2_tpu_torch.kernels.brute import (
-        CUDA_BRUTE, INF, brute_force_intersect_plain, pack_brute_table,
+        CUDA_BRUTE, brute_force_intersect,
+        brute_force_intersect_plain, kernel_record, pack_brute_table,
     )
+    from ray_tracer_2_tpu_torch.kernels.brute_cases import (
+        edge_cases, table_scene,
+    )
+    from ray_tracer_2_tpu_torch.kernels.cuda_build import ptxas_summary
     from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
     scene = brute_group()
     _, tri_off, count = scene.inst_spans[0]
@@ -251,32 +298,57 @@ def compare_brute(seed: int = 0):
     table = pack_brute_table(scene, tri_off, count)
     rays = torch.cat([o, d, torch.zeros_like(o[:, :2])], dim=1).contiguous()
     out = CUDA_BRUTE(rays, table, count)
+    kernel_ms(lambda: CUDA_BRUTE(rays, table, count), reps=20)  # warm clocks
     k_ms = kernel_ms(lambda: CUDA_BRUTE(rays, table, count), reps=20)
     ref, p_ms = timed(lambda: brute_force_intersect_plain(
         scene, o, d, tri_off, count))
-    tri = torch.where(out[:, 0] < INF, tri_off + out[:, 5].long(), -1)
-    err = torch.stack([(out[:, c] - ref[k]).abs() for c, k in
-                       enumerate(("dst", "u", "v", "det"))]).amax(dim=0)
-    hit = ref["tri"] >= 0
     culled = table[:, 10] > 0.5
     r = dict(rays=BRUTE_RAYS, triangles=count,
              culled=int(culled.sum()), two_sided=int((~culled).sum()),
-             hits=int(hit.sum()),
-             tri_exact=bool((tri == ref["tri"]).all()),
-             mat_exact=bool((out[:, 4].long() == ref["mat"]).all()),
-             frac_within_tol=float((err < PIXEL_TOL).float().mean()),
-             max_abs_err=float(err[hit].max()) if bool(hit.any()) else 0.0,
+             **brute_record(kernel_record(out, tri_off), ref),
              kernel_ms=k_ms, plain_ms=p_ms,
+             rays_per_thread=1, ptxas=ptxas_summary(CUDA_BRUTE.build_log),
+             g_pairs_per_s=BRUTE_RAYS * count / k_ms / 1e6,
              **bound(BRUTE_RAYS * count * OPS_BRUTE,
                      nbytes(rays, table, out)))
     emit(phase="kernel_vs_plain", kernel="brute", need_frac=NEED_FRAC, **r)
-    check(r["tri_exact"] and r["mat_exact"], "brute kernel: tri and mat "
-                                             "exact")
-    check(r["frac_within_tol"] >= NEED_FRAC,
-          f"brute kernel: {r['frac_within_tol']:.5f} of rays within "
-          f"{PIXEL_TOL} (need {NEED_FRAC})")
+    check_brute(r, "256 triangles")
     check(0.05 * BRUTE_RAYS <= r["hits"] < BRUTE_RAYS, "brute kernel: a "
           "share of the rays hit")
+    # ---- three staged chunks: the 600-triangle soup of the case list
+    cases = {c.name: c for c in edge_cases()}
+    big = table_scene(cases["soup_600"], "cuda")
+    big_table = pack_brute_table(big, 0, 600)
+    big_out = CUDA_BRUTE(rays, big_table, 600)
+    big_ms = kernel_ms(lambda: CUDA_BRUTE(rays, big_table, 600), reps=10)
+    big_ref, big_p_ms = timed(lambda: brute_force_intersect_plain(
+        big, o, d, 0, 600))
+    rb = dict(rays=BRUTE_RAYS, triangles=600,
+              **brute_record(kernel_record(big_out), big_ref),
+              kernel_ms=big_ms, plain_ms=big_p_ms,
+              ms_per_256=big_ms * 256 / 600,
+              **bound(BRUTE_RAYS * 600 * OPS_BRUTE,
+                      nbytes(rays, big_table, big_out)))
+    emit(phase="kernel_vs_plain", kernel="brute", table="soup_600",
+         need_frac=NEED_FRAC, **rb)
+    check_brute(rb, "600 triangles")
+    check(rb["hits"] > 0.05 * BRUTE_RAYS, "brute kernel, 600 triangles: a "
+                                          "share of the rays hit")
+    # ---- the edge cases the plain version is pinned on (CPU tests)
+    edge = {}
+    for name, case in cases.items():
+        ns = table_scene(case, "cuda")
+        co = torch.from_numpy(case.origin).cuda()
+        cd = torch.from_numpy(case.direction).cuda()
+        got = brute_force_intersect(ns, co, cd, 0, case.count)
+        want = brute_force_intersect_plain(ns, co, cd, 0, case.count)
+        e = dict(rays=len(case.origin), triangles=case.count,
+                 **brute_record(got, want))
+        check_brute(e, f"edge case {name}")
+        check(e["hits"] >= case.min_hits, f"edge case {name}: "
+                                          f"{e['hits']} rays hit")
+        edge[name] = e
+    emit(phase="kernel_vs_plain", kernel="brute", edge_cases=edge)
     return r
 
 
@@ -287,7 +359,7 @@ def probe_entry(name, wrapper, replaces, launches, records) -> dict:
     r = next(x for x in records if x["kernel"] == name)
     size = {k: v for k, v in r.items() if k in ("B", "R", "T", "P", "K", "C",
                                                 "dtype", "variant", "table",
-                                                "n_bins")}
+                                                "n_bins", "form")}
     e = dict(name=name, route="cuda",
              source=f"ray_tracer_2_tpu_torch/csrc/{wrapper.source.name}",
              replaces=replaces, launches=launches[name],
@@ -296,8 +368,19 @@ def probe_entry(name, wrapper, replaces, launches, records) -> dict:
                          "ray_tracer_2_tpu_torch.probes)",
              max_abs_err=r["max_abs_err"], ms=r["device_ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-             bound_by=r["bound_by"], library_ms=r["library_ms"],
-             ops=r["ops"], bytes=r["bytes"], size=size)
+             bound_by=r["bound_by"], bound_nofma_ms=r["bound_nofma_ms"],
+             library_ms=r["library_ms"], ops=r["ops"], bytes=r["bytes"],
+             size=size)
+    for k in ("kernel_only_ms", "host_us", "library_kernel_only_ms",
+              "library_host_us", "gate"):
+        if r.get(k) is not None:
+            e[k] = r[k]
+    if name.startswith("mxu_leaf_dense"):   # one entry per form and size
+        e["lines"] = [
+            {k: x.get(k) for k in ("dtype", "form", "T", "device_ms",
+                                   "kernel_only_ms", "bound_ms",
+                                   "bound_nofma_ms", "plain_equal", "gate")}
+            for x in records if x["kernel"] == name]
     if name == "trav":
         g = next(x for x in records if x["kernel"] == "trav"
                  and x.get("table") == "global")
@@ -494,15 +577,22 @@ def main() -> int:
     ctx = probes.Ctx(device=torch.device("cuda", 0), seed=0, smoke=True,
                      card=card)
     check(probes.run(ctx, probes.kernel_probes()), "every probe ran and "
-          "matched its plain version")
+          "matched its plain version (mxu_leaf_dense on the tensor cores: "
+          "passed its gate)")
+    check(sum(r["probe"] == "mxu_leaf_dense" for r in ctx.records) == 6,
+          "mxu_leaf_dense: three forms at two sizes")
     probe_launches = {name: w.launches for name, (w, _) in
                       probes.KERNELS.items()}
     probe_launches["trav_sched"] = TRAV_SCHED.launches
     for name, n in probe_launches.items():
         check(n > 0, f"probe kernel {name} launched")
     for r in ctx.records:
-        check(r["plain_equal"] is True, f"probe {r['probe']} bit-equal to "
-                                        "its plain version")
+        if r["gate"] is not None:   # the tensor-core form: its stated gate
+            check(r["gate"]["ok"] is True, f"probe {r['probe']} "
+                  f"{r.get('form')} inside its gate")
+        else:
+            check(r["plain_equal"] is True, f"probe {r['probe']} bit-equal "
+                                            "to its plain version")
     emit(phase="probes", probes=len(ctx.records),
          seconds=time.perf_counter() - t0, launches=probe_launches,
          card=card)
@@ -523,6 +613,7 @@ def main() -> int:
              max_abs_err=main_cmp["max_abs_err"],
              ms=main_cmp["kernel_ms"], plain_ms=main_cmp["plain_ms"],
              bound_ms=main_b["bound_ms"], bound_by=main_b["bound_by"],
+             bound_nofma_ms=main_b["bound_nofma_ms"],
              library_ms=None, ops=main_b["ops"], bytes=main_b["bytes"],
              lane_occupancy=main_cmp["lane_occupancy"],
              room2=dict(launches_per_frame=room2_launches / FRAMES,
@@ -538,6 +629,7 @@ def main() -> int:
              max_abs_err=sph_cmp["max_abs_err"],
              ms=sph_cmp["kernel_ms"], plain_ms=sph_cmp["plain_ms"],
              bound_ms=sph_b["bound_ms"], bound_by=sph_b["bound_by"],
+             bound_nofma_ms=sph_b["bound_nofma_ms"],
              library_ms=None, ops=sph_b["ops"], bytes=sph_b["bytes"],
              lane_occupancy=sph_cmp["lane_occupancy"]),
         # on the render path the brute.cuh loop runs inside the
@@ -554,8 +646,11 @@ def main() -> int:
              max_abs_err=brute_cmp["max_abs_err"],
              ms=brute_cmp["kernel_ms"], plain_ms=brute_cmp["plain_ms"],
              bound_ms=brute_cmp["bound_ms"], bound_by=brute_cmp["bound_by"],
+             bound_nofma_ms=brute_cmp["bound_nofma_ms"],
              library_ms=None, ops=brute_cmp["ops"],
-             bytes=brute_cmp["bytes"]),
+             bytes=brute_cmp["bytes"],
+             rays_per_thread=brute_cmp["rays_per_thread"],
+             ptxas=brute_cmp["ptxas"]),
         *[probe_entry(name, w, replaces, probe_launches, ctx.records)
           for name, (w, replaces) in probes.KERNELS.items()]])
     emit(ok=True, device=dict(platform="gpu",

@@ -24,8 +24,9 @@
 // one segment per turn of the warp's loop, and a lane whose pixel is done
 // claims the next, so warps stay full until the frame is handed out. The
 // per-scene tables (camera, spheres, the instance table and the
-// brute-force triangles, at most 45 KB) are staged in shared memory once
-// per block; child boxes are read as 16-byte loads. The kernel counts its
+// brute-force triangles as hoisted rows of 64 bytes, csrc/brute.cuh, at
+// most 66 KB) are staged in shared memory once per block; child boxes and
+// staged triangle rows are read as 16-byte loads. The kernel counts its
 // own work (interior-row, leaf and child-box visits, lane-loop turns and
 // active lanes), and the plain version counts the same visits.
 // It is written to match the plain PyTorch version
@@ -88,8 +89,14 @@ constexpr int kInBrute = 28;
 constexpr int kInSlot = 29;
 constexpr int kBruteCols = 16;  // packed brute table (kernels/brute.py)
 // instance and brute tables share the block's dynamic shared memory
-// (kernels/megakernel.py SMEM_BYTES)
-constexpr int kDynSmemBytes = 45 * 1024;
+// (kernels/megakernel.py SMEM_BYTES): 66 KB, so that every scene that fit
+// the earlier 45 KB at 44 bytes a staged triangle still fits at 64. Above
+// 48 KB the launch opts in (cudaFuncSetAttribute); the 7 resident blocks
+// the general forms are held to fit while a scene's tables stay under
+// 31 KB (7 x (31 + 1 + 1) KB <= 227 KB), fewer above, as
+// csrc/claim.cuh persistent_blocks then counts.
+constexpr int kDynSmemBytes = 66 * 1024;
+constexpr int kOptInSmemBytes = 48 * 1024;
 constexpr float kFlagGlass = 1.0f;  // material flag of glass
 
 // What the kernel counts, accumulated across launches in int64 words
@@ -531,7 +538,7 @@ __device__ __forceinline__ void start_sample(const Params& p,
 template <bool kGeneral, bool kGlass>
 __device__ __forceinline__ bool trace_segment(
     const Params& p, const float* s_sph, const float* s_inst,
-    const float* s_brute, Path& q, unsigned long long& tests,
+    const float4* s_brute, Path& q, unsigned long long& tests,
     Visits& vis) {
   float* o = q.o;
   float* d = q.d;
@@ -594,12 +601,13 @@ __device__ __forceinline__ bool trace_segment(
     instance_ray(in, o, d, om, dm);
     ++tests;
     rt2_brute::Hit bh;
-    rt2_brute::closest_hit(
-        s_brute + (int)in[kInSlot] * rt2_brute::kStaged,
-        rt2_brute::kStaged, (int)in[kInCount], om, dm, bh);
+    const float4* rows = s_brute + (int)in[kInSlot] * rt2_brute::kRowWords;
+    rt2_brute::closest_hit(rows, (int)in[kInCount], om, dm, bh);
     if (bh.tri >= 0)
       merge_instance(in, i, o, om, dm, bh.dst, bh.u, bh.v, bh.det,
-                     (int)in[kInTriOff] + bh.tri, bh.mat, h);
+                     (int)in[kInTriOff] + bh.tri,
+                     rt2_brute::row_material(
+                         rows + bh.tri * rt2_brute::kRowWords), h);
   }
 
   // ---- wide-BVH instances, in order: pruning limit seeded from the best
@@ -744,19 +752,17 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
   __shared__ float s_scal[kScal];
   __shared__ float s_sph[kMaxSpheres * kSphStride];
   __shared__ unsigned long long s_warp[kThreads / 32];
-  extern __shared__ float s_dyn[];
+  extern __shared__ __align__(16) float s_dyn[];
   float* s_inst = s_dyn;
-  float* s_brute = s_dyn + p.n_inst * kInstCols;
+  float4* s_brute = reinterpret_cast<float4*>(s_dyn + p.n_inst * kInstCols);
   for (int i = threadIdx.x; i < kScal; i += blockDim.x) s_scal[i] = p.scal[i];
   for (int i = threadIdx.x; i < p.n_spheres * kSphStride; i += blockDim.x)
     s_sph[i] = p.spheres[i];
   for (int i = threadIdx.x; i < p.n_inst * kInstCols; i += blockDim.x)
     s_inst[i] = p.inst[i];
-  for (int i = threadIdx.x; i < p.n_brute * rt2_brute::kStaged;
-       i += blockDim.x) {
-    int row = i / rt2_brute::kStaged, col = i % rt2_brute::kStaged;
-    s_brute[i] = p.brute[(size_t)row * kBruteCols + col];
-  }
+  for (int i = threadIdx.x; kGeneral && i < p.n_brute; i += blockDim.x)
+    rt2_brute::stage_row(p.brute + (size_t)i * kBruteCols,
+                         s_brute + i * rt2_brute::kRowWords);
   __syncthreads();
 
   unsigned* cursor =
@@ -853,10 +859,16 @@ render_general(Params p) {
 }
 
 template <bool kGeneral, bool kGlass>
-void launch(size_t smem, cudaStream_t stream, const Params& p) {
+cudaError_t launch(size_t smem, cudaStream_t stream, const Params& p) {
   auto kernel = kGeneral ? render_general<kGlass> : render_single<kGlass>;
+  if (smem > (size_t)kOptInSmemBytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   int blocks = rt2_claim::persistent_blocks(kernel, kThreads, smem, p.total);
   kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -867,7 +879,7 @@ void launch(size_t smem, cudaStream_t stream, const Params& p) {
 // exactly one instance, a wide-BVH one, and `glass` == 0 no glass
 // material. `scratch` holds rt2_claim::kScratchWords zeroed int64 words
 // (the segment count lands in word 0), `counts` kCounts words that the
-// launch adds to. `wide_rows` must be 16-byte aligned. Returns
+// launch adds to. `wide_rows` and `brute` must be 16-byte aligned. Returns
 // cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_persistent(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
@@ -879,12 +891,12 @@ extern "C" int rt2_render_persistent(
     void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_inst < 0 ||
       n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
-      ((uintptr_t)wide_rows & 15u) != 0u)
+      (((uintptr_t)wide_rows | (uintptr_t)brute) & 15u) != 0u)
     return (int)cudaErrorInvalidValue;
   if (!general && (n_inst != 1 || n_brute != 0))
     return (int)cudaErrorInvalidValue;
   size_t smem = sizeof(float) * ((size_t)n_inst * kInstCols +
-                                 (size_t)n_brute * rt2_brute::kStaged);
+                                 (size_t)n_brute * 4 * rt2_brute::kRowWords);
   if (smem > (size_t)kDynSmemBytes) return (int)cudaErrorInvalidValue;
   Params p;
   p.wide_rows = wide_rows;
@@ -911,9 +923,8 @@ extern "C" int rt2_render_persistent(
   p.frame_seed = frame_seed;
   cudaStream_t st = (cudaStream_t)stream;
   if (general)
-    glass ? launch<true, true>(smem, st, p) : launch<true, false>(smem, st, p);
-  else
-    glass ? launch<false, true>(smem, st, p)
-          : launch<false, false>(smem, st, p);
-  return (int)cudaGetLastError();
+    return (int)(glass ? launch<true, true>(smem, st, p)
+                       : launch<true, false>(smem, st, p));
+  return (int)(glass ? launch<false, true>(smem, st, p)
+                     : launch<false, false>(smem, st, p));
 }

@@ -94,14 +94,14 @@ class Renderer:
                 f"{self.device}; move it once with scene.to(device)")
         if params.debug_mode != DebugMode.OFF:
             raise NotImplementedError(
-                "debug modes wait for their slice (ROADMAP Queue 1 item 8)")
+                "debug modes wait for their slice (ROADMAP Queue 1 item 5)")
         if params.nee:
             raise NotImplementedError(
                 "next-event estimation waits for its slice "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 2)")
         if params.normal_maps:
             raise NotImplementedError(
-                "normal maps wait for their slice (ROADMAP Queue 1 item 8)")
+                "normal maps wait for their slice (ROADMAP Queue 1 item 4)")
         self.ensure_framebuffer(params.width, params.height)
         self.framebuffer, self.last_segments = render_frame(
             scene, self.framebuffer, int(params.frames),

@@ -1,5 +1,5 @@
-"""Device times of the port's two render kernels at 1920x1080, for comparing
-source trees in one run on one card.
+"""Device times of the port's render kernels at 1920x1080 and of the
+brute-force kernel, for comparing source trees in one run on one card.
 
     python3 -m ray_tracer_2_tpu_torch.kernel_times [TREE ...] \\
         [--order ABBA] [--reps 20] [--out FILE]
@@ -14,7 +14,24 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
 
 * the megakernel on ``main_path_scene`` and ``room2_scene`` at bounces 0-5
   and ``instances_scene`` at bounces 5;
-* the small-scene kernel on ``random_balls`` and ``room`` at bounces 0-5.
+* the small-scene kernel on ``random_balls`` and ``room`` at bounces 0-5;
+* the prepass share: ``room2_scene`` and ``instances_scene`` at bounces 5
+  once more with every triangle of every brute-force group of 128
+  triangles or fewer listed twice (scene ``...-doubleprepass``). The copy
+  of a triangle ties with it and the lower index keeps a tie, so every
+  path, the image and the segment count stay what they were and only the
+  prepass loop's work doubles: the time added is what the loop costs in a
+  frame;
+* the standalone brute-force kernel on 2,073,600 seeded rays x 256
+  triangles (kernel ``brute``), and on the first 256, 512 and all 600
+  triangles of a 600-triangle table (three staged chunks): what staging a
+  chunk between two loops costs;
+* the ``mxu_leaf_dense`` probe kernel at the script's sizes (1024 rays, T =
+  128 and 512, 64 steps), float32, bfloat16 and the tensor-core form:
+  kernel-only time (``probes.common.graph_ms``: the calls captured into a
+  CUDA graph and replayed), since one call is a few tens of microseconds
+  and the host's dispatch would otherwise be what is read. A tree from
+  before the probes had ``graph_ms`` gives no such cells.
 
 Where the tree's kernels count their lane loop (``turns``,
 ``active_lanes``), each cell also gives lane occupancy, over the timed
@@ -42,15 +59,77 @@ def _cells():
     for b in BOUNCES:
         yield "megakernel", "room2_scene", b
     yield "megakernel", "instances_scene", 5
+    yield "megakernel", "room2_scene-doubleprepass", 5
+    yield "megakernel", "instances_scene-doubleprepass", 5
     for name in ("random_balls", "room"):
         for b in BOUNCES:
             yield "spheres", name, b
+
+
+def _brute_inputs():
+    """The brute check's inputs (as ``chip_smoke.py``): one ray per 1080p
+    pixel from a seed, a table of 256 triangles of mixed cull and one of
+    600 triangles."""
+    import numpy as np
+    import torch
+
+    from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table
+    from ray_tracer_2_tpu_torch.math.transform import Transform
+    from ray_tracer_2_tpu_torch.scene import scenes
+    from ray_tracer_2_tpu_torch.scene.definition import (
+        MeshFromData, SceneDefinition,
+    )
+    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
+    s = SceneDefinition()
+    s.add_mesh(Transform(), MeshFromData(scenes.latlon_soup(8, 8, 1.0)),
+               MaterialDefinition.new())
+    s.add_mesh(Transform(), MeshFromData(scenes.latlon_soup(8, 8, 0.5)),
+               MaterialDefinition.new().glass(1.5))
+    scene = instantiate_scene(s).to("cuda")
+    _, tri_off, count = scene.inst_spans[0]
+    s = SceneDefinition()
+    s.add_mesh(Transform(), MeshFromData(scenes.latlon_soup(15, 20, 1.0)),
+               MaterialDefinition.new())
+    big = instantiate_scene(s).to("cuda")
+    rng = np.random.default_rng(0)
+    o = rng.uniform(-1.5, 1.5, (W * H, 3)).astype(np.float32)
+    d = rng.normal(size=(W * H, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays = torch.from_numpy(np.concatenate(
+        [o, d, np.zeros((W * H, 2), np.float32)], axis=1)).cuda()
+    return (rays, pack_brute_table(scene, tri_off, count),
+            pack_brute_table(big, 0, 600))
+
+
+def _doubled_groups(definition):
+    """``definition`` with the triangles of every mesh of 128 triangles or
+    fewer (a brute-force group, still one when doubled) listed twice;
+    entities that share a mesh go on sharing it."""
+    import numpy as np
+
+    from ray_tracer_2_tpu_torch.scene.definition import MeshData, \
+        MeshFromData
+    doubled = {}
+    for e in definition.entities:
+        p = e.primitive
+        if not isinstance(p, MeshFromData) \
+                or p.resolved().triangle_count() > 128:
+            continue
+        if id(p) not in doubled:
+            m = p.resolved()
+            doubled[id(p)] = MeshFromData(MeshData(
+                m.positions, m.normals, m.uvs,
+                np.concatenate([m.indices, m.indices])))
+        e.primitive = doubled[id(p)]
+    return definition
 
 
 def _worker(tree: str, label: str, reps: int) -> None:
     import torch
 
     import ray_tracer_2_tpu_torch as pkg
+    from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
     from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all
     from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
     from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
@@ -64,8 +143,8 @@ def _worker(tree: str, label: str, reps: int) -> None:
     if here != Path(tree).resolve():
         raise RuntimeError(f"imported the package of {here}, not {tree}")
     kernels = dict(megakernel=CUDA_MEGAKERNEL, spheres=CUDA_SPHERES)
-    build_all(*kernels.values())
-    for name, k in kernels.items():
+    build_all(*kernels.values(), CUDA_BRUTE)
+    for name, k in dict(kernels, brute=CUDA_BRUTE).items():
         emit(phase="build", kernel=name, ptxas=[
             ln.strip() for ln in k.build_log.splitlines()
             if any(w in ln for w in ("entry function", "registers", "spill"))])
@@ -73,8 +152,10 @@ def _worker(tree: str, label: str, reps: int) -> None:
     kw = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
     for kname, sname, b in _cells():
         if sname not in built:
-            built[sname] = instantiate_scene(
-                getattr(scenes, sname)()).to("cuda")
+            definition = getattr(scenes, sname.split("-")[0])()
+            if sname.endswith("-doubleprepass"):
+                definition = _doubled_groups(definition)
+            built[sname] = instantiate_scene(definition).to("cuda")
         k, scene = kernels[kname], built[sname]
         k(scene, 0, bounces=b, **kw)
         torch.cuda.synchronize()
@@ -96,6 +177,47 @@ def _worker(tree: str, label: str, reps: int) -> None:
                 if key in c:
                     r[f"{key}_per_segment"] = c[key] / seg
         emit(**r)
+    rays, table, big = _brute_inputs()
+    for tab, n in ((table, 256), (big, 256), (big, 512), (big, 600)):
+        CUDA_BRUTE(rays, tab, n)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            CUDA_BRUTE(rays, tab, n)
+        end.record()
+        torch.cuda.synchronize()
+        emit(phase="cell", kernel="brute",
+             scene=f"2073600 rays x {n} of {tab.shape[0]} tris",
+             bounces=0, ms=start.elapsed_time(end) / reps)
+    _mxu_cells(emit)
+
+
+def _mxu_cells(emit) -> None:
+    import numpy as np
+    import torch
+
+    try:
+        from ray_tracer_2_tpu_torch.probes.common import graph_ms
+    except ImportError:     # a tree from before the probes had it
+        return
+    from ray_tracer_2_tpu_torch.probes.lut import mxu_leaf_dense
+    dev = torch.device("cuda", 0)
+    for dt in (torch.float32, torch.bfloat16):
+        for T in (128, 512):
+            rng = np.random.default_rng(0)
+            rays = torch.from_numpy(rng.random((1024, 16))
+                                    .astype(np.float32)).to(dev).to(dt)
+            tris = torch.from_numpy(rng.random((16, T))
+                                    .astype(np.float32)).to(dev).to(dt)
+            for form in ("simt", "mma") if dt == torch.bfloat16 \
+                    else ("simt",):
+                ms = graph_ms(lambda: mxu_leaf_dense(rays, tris, steps=64,
+                                                     form=form), dev)
+                emit(phase="cell", kernel="mxu_leaf_dense",
+                     scene=f"{str(dt).split('.')[-1]} T={T} {form}",
+                     bounces=64, ms=ms)
 
 
 def main(argv=None) -> int:

@@ -13,12 +13,15 @@ function, chosen by the device the tensors live on, never by a switch:
   triangles, argmin within a chunk, a strict ``<`` across chunks. It
   serves CPU tensors and is what the plain megakernel's prepass runs.
 * ``CUDA_BRUTE`` — the hand-written CUDA kernel (``csrc/brute.cu``, its
-  loop in ``csrc/brute.cuh``), one thread per ray, the group's packed
-  table (``pack_brute_table``) staged in shared memory. It serves CUDA
-  tensors; there is no fallback. The megakernel's segment prepass runs
-  the same ``brute.cuh`` loop inside ``csrc/megakernel.cu``, so on the
-  render path the loop runs as part of each megakernel launch (counted on
-  the device: ``CUDA_MEGAKERNEL.prepass_counts``).
+  staged row and pair test in ``csrc/brute.cuh``): the group's packed
+  table (``pack_brute_table``) is staged in shared memory with each
+  triangle's edges and normal computed once, and every thread walks it
+  with one ray in registers. It serves CUDA tensors; there is no
+  fallback. The megakernel's segment prepass runs the same
+  ``brute.cuh`` test on the same staged rows inside
+  ``csrc/megakernel.cu``, one ray per lane, so on the render path the loop
+  runs as part of each megakernel launch (counted on the device:
+  ``CUDA_MEGAKERNEL.prepass_counts``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ from pathlib import Path
 
 import torch
 
-from ray_tracer_2_tpu_torch.kernels.cuda_build import PKG, CudaKernel
+from ray_tracer_2_tpu_torch.kernels.cuda_build import (
+    PKG, CudaKernel, check_aligned, launch_on,
+)
 from ray_tracer_2_tpu_torch.kernels.intersect import INF, ray_triangle
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
@@ -89,10 +94,17 @@ def brute_force_intersect(scene: TorchScene, origin, direction,
                                   device=origin.device)], dim=1).contiguous()
     out = CUDA_BRUTE(rays, pack_brute_table(scene, tri_offset, tri_count),
                      tri_count)
+    return dict(kernel_record(out, tri_offset),
+                stats=_stats(B, tri_count, out.device))
+
+
+def kernel_record(out: torch.Tensor, tri_offset: int = 0) -> dict:
+    """The kernel's (B, 8) output [dst u v det mat tri_local 0 0] as the
+    record's fields, ``tri`` global (-1 on a miss)."""
     dst = out[:, 0]
     tri = torch.where(dst < INF, tri_offset + out[:, 5].long(), -1)
     return dict(dst=dst, tri=tri, u=out[:, 1], v=out[:, 2], det=out[:, 3],
-                mat=out[:, 4].long(), stats=_stats(B, tri_count, dst.device))
+                mat=out[:, 4].long())
 
 
 def _stats(B: int, tri_count: int, dev) -> torch.Tensor:
@@ -172,16 +184,14 @@ class CudaBrute(CudaKernel):
                 raise ValueError(f"{name}: expected contiguous float32 "
                                  f"(n, {cols}) on {dev}, got {x.dtype} "
                                  f"{tuple(x.shape)} on {x.device}")
+            check_aligned(name, x, 16)
         if not 0 <= n_tris <= tris.shape[0]:
             raise ValueError(f"n_tris {n_tris} outside the table's "
                              f"{tris.shape[0]} rows")
-        fn = self.build()
         out = torch.empty((rays.shape[0], 8), dtype=torch.float32,
                           device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(rays.data_ptr(), tris.data_ptr(), int(n_tris),
-                     rays.shape[0], out.data_ptr(), stream)
+        err = launch_on(dev, self.build(), rays.data_ptr(), tris.data_ptr(),
+                        int(n_tris), rays.shape[0], out.data_ptr())
         if err != 0:
             raise RuntimeError(f"brute kernel launch failed: CUDA error "
                                f"{err}")

@@ -121,6 +121,8 @@ class CudaKernel:
     def build(self):
         """Compile (if the library for this source is missing) and load;
         returns the C entry point."""
+        if self._fn is not None:    # every launch but the first
+            return self._fn
         with self._lock:
             if self._fn is None:
                 self._fn = self._load()
@@ -156,6 +158,18 @@ class CudaKernel:
         self.launches = 0
         for c in self._counts.values():
             c.zero_()
+
+
+def launch_on(dev: torch.device, fn, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the current stream
+    of ``dev``; ``dev`` is made the current device for the call only if it
+    is not already (entering ``torch.cuda.device`` costs several
+    microseconds a launch). Returns the entry point's CUDA error code."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def check_launch(dev, *, width: int, height: int, row_start: int,
@@ -215,19 +229,25 @@ class CudaFunction(CudaKernel):
             + [ctypes.c_void_p]
 
     def launch(self, *args) -> None:
-        devs = {a.device for a in args if isinstance(a, torch.Tensor)}
-        if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        dev, ptrs = None, []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if dev is None:
+                    dev = a.device
+                if a.device != dev or dev.type != "cuda":
+                    devs = sorted({str(t.device) for t in args
+                                   if isinstance(t, torch.Tensor)})
+                    raise ValueError(f"{self.symbol}: the CUDA kernel takes "
+                                     f"CUDA tensors on one device, got {devs}")
+                a = a.data_ptr()
+            ptrs.append(a)
+        if dev is None:
             raise ValueError(f"{self.symbol}: the CUDA kernel takes CUDA "
-                             f"tensors on one device, got {sorted(map(str, devs))}")
+                             "tensors on one device, got []")
         if len(args) != len(self.argtypes) - 1:
             raise TypeError(f"{self.symbol}: {len(self.argtypes) - 1} "
                             f"arguments, got {len(args)}")
-        fn = self.build()
-        dev = devs.pop()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                       for a in args], stream)
+        err = launch_on(dev, self.build(), *ptrs)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")
@@ -253,6 +273,46 @@ def ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines()
             if any(w in ln for w in ("entry function", "registers",
                                      "spill"))]
+
+
+def _kernel_name(symbol: str) -> str:
+    """``brute_kernel<Li4>`` from the mangled name of a kernel in an
+    anonymous namespace (``_ZN<n><namespace><m><name>I<args>EE...``); the
+    symbol itself if it does not read that way."""
+    m = re.match(r"_ZN(\d+)", symbol)
+    if not m:
+        return symbol
+    rest = symbol[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return symbol
+    name = rest[m.end():m.end() + int(m.group(1))]
+    args = re.match(r"I(\w+?)EE", rest[m.end() + int(m.group(1)):])
+    return f"{name}<{args.group(1)}>" if args else name
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel of an nvcc build log (``-Xptxas=-v``), by ``_kernel_name``:
+    registers, stack and spill bytes."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def build_all(*kernels: CudaKernel) -> None:

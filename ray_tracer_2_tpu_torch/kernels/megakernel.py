@@ -57,7 +57,8 @@ from ray_tracer_2_tpu_torch.kernels.brute import (
     BRUTE_MAX_TRIS, brute_force_intersect_plain, pack_brute_table,
 )
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    PKG, CudaKernel, check_aligned, check_launch, frame_seed, launch_scratch,
+    PKG, CudaKernel, check_aligned, check_launch, frame_seed, launch_on,
+    launch_scratch,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import EPS_DET, EPSILON, INF, \
     ray_sphere, sphere_normal
@@ -80,8 +81,9 @@ PLAIN_CHUNK = 1 << 18
 #: kInstCols): w2m[:3, :4], m2w[:3, :4], root row, first triangle,
 #: triangle count, material-id delta, brute-force flag, brute table row
 INST_COLS = 32
-#: floats of a brute-force triangle the kernel stages (brute.cuh kStaged)
-BRUTE_STAGED = 11
+#: floats of a brute-force triangle as the kernel stages it (brute.cuh
+#: kRowWords float4 words: v0, both edges, the normal, material, cull)
+BRUTE_STAGED = 16
 #: the kernel's device counts, in csrc/megakernel.cu's order (kCnt*):
 #: brute-force closest-hit calls (one per segment and group), launches
 #: that ran the prepass, interior wide-row visits, leaf visits, child boxes
@@ -90,9 +92,10 @@ BRUTE_STAGED = 11
 COUNTS = ("brute_calls", "brute_launches", "rows", "leaves", "boxes",
           "turns", "active_lanes")
 #: shared memory the kernel stages the instance and brute-force tables in
-#: (csrc/megakernel.cu kDynSmemBytes): under the 48 KB a block gets
-#: without opting in, with its static tables beside it
-SMEM_BYTES = 45 * 1024
+#: (csrc/megakernel.cu kDynSmemBytes). A staged triangle takes 64 bytes;
+#: when it took 44 the budget was 45 KB, and 66 KB admits every scene that
+#: budget did (45 KB x 16 / 11 < 66 KB). Above 48 KB the launch opts in.
+SMEM_BYTES = 66 * 1024
 
 _F16_MAGIC = 2.0 ** 112          # rebias of f16 exponents onto f32
 # absolute and relative slack of the traversal's pruning limit (reference
@@ -137,18 +140,19 @@ def ineligibility(scene: TorchScene) -> str | None:
     """Why ``scene`` lies outside the ported megakernel, naming the ROADMAP
     item that lifts it; None if it is inside."""
     if "texture" in scene.shade_classes:
-        return "textured materials (ROADMAP Queue 1 item 8)"
+        return "textured materials (ROADMAP Queue 1 item 4)"
     if scene.n_spheres >= SPHERE_BVH_MIN:
-        return "the sphere BVH (ROADMAP Queue 1 item 8)"
+        return "the sphere BVH (ROADMAP Queue 1 item 1)"
     if scene.n_spheres > MAX_SPHERES:
         return ("more than 32 spheres, the dense sphere fast path "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 1)")
     if bvh_instances(scene) and scene.wide_depth + 2 > MAX_STACK:
         return f"wide BVHs deeper than {MAX_STACK - 2} levels"
     if smem_bytes(scene) > SMEM_BYTES:
         return (f"instance and brute-force tables of {smem_bytes(scene)} "
                 f"bytes, over the kernel's {SMEM_BYTES}-byte shared-memory "
-                "budget (ROADMAP Queue 1 item 4)")
+                "budget: larger tables wait to be read from global "
+                "memory (ROADMAP Queue 1 item 1)")
     return None
 
 
@@ -703,22 +707,21 @@ class CudaMegakernel(CudaKernel):
                              f"floats, {tab['brute'].shape[0]} brute rows "
                              f"for {n_brute}")
         check_aligned("wide_rows", scene.wide_rows, 16)
+        check_aligned("brute", tab["brute"], 16)
         fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         scratch = launch_scratch(dev)
         counts = self.device_counts(dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
-                     scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
-                     tab["scal"].data_ptr(), tab["inst"].data_ptr(),
-                     tab["brute"].data_ptr(), scene.n_spheres,
-                     scene.n_instances, n_brute, width, height, row_start,
-                     rows, bounces, max(int(rays_per_pixel), 1),
-                     int(bool(skybox)), int(bool(antialias)),
-                     int(tab["general"]), int(tab["glass"]),
-                     frame_seed(frames), out.data_ptr(),
-                     scratch.data_ptr(), counts.data_ptr(), stream)
+        err = launch_on(
+            dev, fn, scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
+            scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
+            tab["scal"].data_ptr(), tab["inst"].data_ptr(),
+            tab["brute"].data_ptr(), scene.n_spheres, scene.n_instances,
+            n_brute, width, height, row_start, rows, bounces,
+            max(int(rays_per_pixel), 1), int(bool(skybox)),
+            int(bool(antialias)), int(tab["general"]), int(tab["glass"]),
+            frame_seed(frames), out.data_ptr(), scratch.data_ptr(),
+            counts.data_ptr())
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         self.launches += 1

@@ -39,7 +39,7 @@ import torch
 
 from ray_tracer_2_tpu_torch import rng
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    PKG, CudaKernel, check_launch, frame_seed, launch_scratch,
+    PKG, CudaKernel, check_launch, frame_seed, launch_on, launch_scratch,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import (
     EPS_DET, EPSILON, INF, SPHERE_FAST_MIN, ray_sphere, ray_sphere_fast,
@@ -93,7 +93,7 @@ def _require_eligible(scene: TorchScene) -> None:
     if not eligible(scene):
         raise NotImplementedError(
             "not a small scene (spheres plus <= 64 untextured triangles); "
-            "its route waits for ROADMAP Queue 1 item 8")
+            "textured small scenes wait for ROADMAP Queue 1 item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,14 +492,13 @@ class CudaSpheres(CudaKernel):
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         scratch = launch_scratch(dev)
         counts = self.device_counts(dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(tab.spheres.data_ptr(), tab.tris.data_ptr(),
-                     tab.fields.data_ptr(), cam.data_ptr(), S, T,
-                     int(S >= SPHERE_FAST_MIN), width, row_start, rows,
-                     bounces, rpp, int(bool(skybox)), frame_seed(frames),
-                     float(np.float32(1.0 / rpp)), out.data_ptr(),
-                     scratch.data_ptr(), counts.data_ptr(), stream)
+        err = launch_on(
+            dev, fn, tab.spheres.data_ptr(), tab.tris.data_ptr(),
+            tab.fields.data_ptr(), cam.data_ptr(), S, T,
+            int(S >= SPHERE_FAST_MIN), width, row_start, rows, bounces, rpp,
+            int(bool(skybox)), frame_seed(frames),
+            float(np.float32(1.0 / rpp)), out.data_ptr(),
+            scratch.data_ptr(), counts.data_ptr())
         if err != 0:
             raise RuntimeError(f"spheres kernel launch failed: CUDA error "
                                f"{err}")

@@ -10,12 +10,23 @@ output carries the script's own keys, computed as the script computes them
 from the time of one call on the host clock (after
 ``torch.cuda.synchronize()``: the counterpart of the scripts' wall time,
 dispatch included), and besides: ``device_ms`` (CUDA events over the same
-calls), ``plain_ms`` (one warm call of the plain version), ``library_ms``
-(one PyTorch call computing the same function, where there is one),
+calls: for a kernel of a few microseconds that is the host's cost per call,
+the card idling between launches), ``host_us`` (the host clock per call
+while the calls are queued, before any synchronisation), ``kernel_only_ms``
+where asked for (the same calls captured once into a CUDA graph and
+replayed, CUDA events around the replays: no Python, no wrapper, no
+allocator between the launches), ``plain_ms`` (one warm call of the plain
+version), ``library_ms`` / ``library_host_us`` / ``library_kernel_only_ms``
+(one PyTorch call computing the same function, where there is one, timed
+the same three ways),
 ``bound_ms`` / ``bound_by`` (the larger of the counted operations over the
 card's 67 TFLOP/s float32 peak and the bytes over its 3.35 TB/s),
+``bound_nofma_ms`` (the same with the operations over half that peak: every
+kernel here is compiled with ``--fmad=false``, so a multiply and an add are
+two instructions and half the peak is the ceiling it can approach),
 ``max_abs_err`` / ``plain_equal`` (kernel against plain version on the same
-inputs, every output exact) and ``card`` (``nvidia-smi``'s name and power
+inputs, every output exact; a kernel that cannot be bit-equal states its
+``gate`` instead) and ``card`` (``nvidia-smi``'s name and power
 limit). On the CPU the device keys are null: nothing there measures a card.
 """
 from __future__ import annotations
@@ -36,6 +47,9 @@ CSRC = PKG / "csrc"
 #: the card's published peaks (H100 SXM at 700 W): float32 outside the
 #: tensor cores, bfloat16 on the tensor cores (dense), device memory
 PEAK_FLOPS = 67e12
+#: what float32 code compiled without contraction (``--fmad=false``: one
+#: operation an instruction) can execute at most
+PEAK_FLOPS_NOFMA = PEAK_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -117,7 +131,8 @@ def on_cuda(*tensors) -> bool:
 @dataclasses.dataclass
 class Ctx:
     """One run of the probes: the device, the seed the inputs come from,
-    ``smoke`` (only the first of each script's sizes), the card's name and
+    ``smoke`` (only the first of each script's sizes and no measurement
+    beyond a line's own times), the card's name and
     the lines printed so far."""
     device: torch.device
     seed: int = 0
@@ -143,10 +158,12 @@ def _sync(device: torch.device) -> None:
 
 
 def bench(fn, device: torch.device, iters: int = 10,
-          warmup: int = 2) -> dict:
+          warmup: int = 2, kernel_only: bool = False) -> dict:
     """Time ``fn()`` over ``iters`` calls after ``warmup``: ``wall_s``, the
-    host clock per call between two synchronisations, and ``device_ms``,
-    CUDA events around the same calls (None on the CPU)."""
+    host clock per call between two synchronisations; ``host_us``, the host
+    clock per call until the last call returned (queued, not finished);
+    ``device_ms``, CUDA events around the same calls (None on the CPU);
+    with ``kernel_only`` on the card, ``kernel_only_ms`` (``graph_ms``)."""
     for _ in range(warmup):
         fn()
     _sync(device)
@@ -159,12 +176,45 @@ def bench(fn, device: torch.device, iters: int = 10,
         start.record()
     for _ in range(iters):
         fn()
+    t1 = time.perf_counter()
     if end is not None:
         end.record()
     _sync(device)
     wall = (time.perf_counter() - t0) / iters
-    return dict(wall_s=wall, device_ms=None if start is None
-                else start.elapsed_time(end) / iters)
+    return dict(wall_s=wall, host_us=(t1 - t0) / iters * 1e6,
+                device_ms=None if start is None
+                else start.elapsed_time(end) / iters,
+                kernel_only_ms=graph_ms(fn, device)
+                if kernel_only and device.type == "cuda" else None)
+
+
+def graph_ms(fn, device: torch.device, launches: int = 20,
+             replays: int = 10) -> float:
+    """Milliseconds of one ``fn()`` on the card with the host taken out:
+    ``launches`` calls are captured once into a ``torch.cuda.CUDAGraph``
+    (their kernels, and the fills of outputs they allocate) and the graph
+    is replayed ``replays`` times between two CUDA events. ``fn`` must not
+    synchronise or read a result back."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):       # warm the allocator off the
+        fn()                            # default stream, as capture asks
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def timed_once(fn, device: torch.device):
@@ -177,14 +227,19 @@ def timed_once(fn, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound(ops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> dict:
+def bound(ops: float, nbytes: float, peak_flops: float = PEAK_FLOPS,
+          nofma_flops: float = PEAK_FLOPS_NOFMA) -> dict:
     """The least time the card could take: the larger of ``ops`` over the
     peak for their type (float32 unless given) and ``nbytes`` over the
-    memory rate."""
+    memory rate. ``bound_nofma_ms`` is the same with ``ops`` over
+    ``nofma_flops``, the rate code compiled without contraction can run
+    at (for a tensor-core product, whose multiply-adds are fused in the
+    unit, pass its peak)."""
     t_ops = ops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_nofma_ms=max(ops / nofma_flops * 1e3, t_bytes),
                 ops=float(ops), bytes=float(nbytes))
 
 
@@ -221,37 +276,52 @@ def compare(out, ref) -> tuple[bool, float]:
 def measure(ctx: Ctx, name: str, size: dict, fn, args: tuple, keys, *,
             plain=None, library=None, ops: float = 0.0, nbytes: float = 0.0,
             kernel: str | None = None, iters: int = 10, warmup: int = 2,
-            peak_flops: float = PEAK_FLOPS, extra: dict | None = None) -> dict:
+            peak_flops: float = PEAK_FLOPS,
+            nofma_flops: float = PEAK_FLOPS_NOFMA, kernel_only: bool = False,
+            gate=None, extra=None) -> dict:
     """Run ``fn(*args)`` once, hold it against ``plain(*args)`` (on the
     card), time it with ``bench``, time ``plain`` once after a warm-up call
     and ``library`` with ``bench``,
     print the line and keep it in ``ctx.records``. ``keys(seconds)`` gives
-    the script's keys from the host time of one call. Raises
-    ``ProbeMismatch`` after printing if the kernel and its plain version
-    differ."""
+    the script's keys from the host time of one call. The kernel must be
+    bit-equal to its plain version, unless ``gate(out, ref)`` is given: it
+    returns the gate's numbers, ``ok`` and ``max_abs_err`` among them, and
+    decides instead. ``extra`` is a dict of further keys or a function of
+    the timing dict giving them. Raises ``ProbeMismatch`` after printing if
+    the kernel and its plain version differ."""
     dev = ctx.device
     out = fn(*args)
     _sync(dev)
-    equal = err = plain_ms = library_ms = None
+    equal = err = plain_ms = gated = None
     if plain is not None:
         ref = plain(*args)              # also its warm-up
         plain_ms = timed_once(lambda: plain(*args), dev)[1]
-        if dev.type == "cuda":
+        if dev.type == "cuda" and gate is not None:
+            gated = gate(out, ref)
+            err = gated["max_abs_err"]
+        elif dev.type == "cuda":
             equal, err = compare(out, ref)
-    t = bench(lambda: fn(*args), dev, iters=iters, warmup=warmup)
+    t = bench(lambda: fn(*args), dev, iters=iters, warmup=warmup,
+              kernel_only=kernel_only)
+    lib = dict(device_ms=None, host_us=None, kernel_only_ms=None)
     if library is not None and dev.type == "cuda":
-        library_ms = bench(lambda: library(*args), dev, iters=iters,
-                           warmup=warmup)["device_ms"]
+        lib = bench(lambda: library(*args), dev, iters=iters, warmup=warmup,
+                    kernel_only=kernel_only)
     rec = dict(probe=name, **size, **keys(t["wall_s"]),
                wall_ms=t["wall_s"] * 1e3, device_ms=t["device_ms"],
-               plain_ms=plain_ms, library_ms=library_ms,
-               **bound(ops, nbytes, peak_flops), max_abs_err=err, plain_equal=equal,
-               kernel=kernel, card=ctx.card, **(extra or {}))
+               host_us=t["host_us"], kernel_only_ms=t["kernel_only_ms"],
+               plain_ms=plain_ms, library_ms=lib["device_ms"],
+               library_host_us=lib["host_us"],
+               library_kernel_only_ms=lib["kernel_only_ms"],
+               **bound(ops, nbytes, peak_flops, nofma_flops),
+               max_abs_err=err, plain_equal=equal, gate=gated,
+               kernel=kernel, card=ctx.card,
+               **(extra(t) if callable(extra) else extra or {}))
     emit(**rec)
     ctx.records.append(rec)
-    if equal is False:
+    if equal is False or (gated is not None and not gated["ok"]):
         raise ProbeMismatch(f"{name} {size}: kernel differs from its plain "
-                            f"version (max abs err {err})")
+                            f"version (max abs err {err}, gate {gated})")
     return rec
 
 

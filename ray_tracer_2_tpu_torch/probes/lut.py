@@ -18,7 +18,8 @@ import torch
 from ray_tracer_2_tpu_torch.kernels.cuda_build import CudaFunction, \
     check_tensor
 from ray_tracer_2_tpu_torch.probes.common import CSRC, PEAK_BF16_FLOPS, \
-    PEAK_FLOPS, kernel, measure, nbytes, on_cuda, probe
+    PEAK_FLOPS, PEAK_FLOPS_NOFMA, ProbeMismatch, emit, graph_ms, kernel, \
+    measure, nbytes, on_cuda, probe
 from ray_tracer_2_tpu_torch.probes.r2 import COLS
 from ray_tracer_2_tpu_torch.probes.trav import bit_sum
 
@@ -46,6 +47,10 @@ SCALAR_TREELET_SELECT = kernel(
 MXU_LEAF_DENSE = kernel(
     "mxu_leaf_dense",
     CudaFunction(SOURCE, "rt2_probe_mxu_leaf_dense", "ppiiiipp"),
+    "scripts/probe_lut.py:276")
+MXU_LEAF_DENSE_MMA = kernel(
+    "mxu_leaf_dense_mma",
+    CudaFunction(SOURCE, "rt2_probe_mxu_leaf_dense_mma", "ppiiipp"),
     "scripts/probe_lut.py:276")
 BIG_BODY = kernel("big_body_compile",
                   CudaFunction(SOURCE, "rt2_probe_big_body", "pipippp"),
@@ -217,42 +222,98 @@ def scalar_treelet_select_plain(tab, idx0, *, steps: int = 128, C: int = 12):
 
 
 # ------------------------------------------------------- mxu_leaf_dense --
-def mxu_leaf_dense(rays, tris, *, steps: int = 64):
+#: the tensor-core form's gate against the plain version: relative
+#: tolerance of the output and of the float64 column sums on lanes finite
+#: in both (one bfloat16 ulp is 3.9e-3 to 7.8e-3 of the value: a sum taken
+#: in another order can round one step's operand the other way), and the
+#: share of lanes (rays) whose overflow agrees
+MMA_RTOL = 1e-2
+MMA_MASK_SHARE = 0.999
+
+
+def mxu_leaf_dense(rays, tris, *, steps: int = 64, form: str = "simt"):
     """``steps`` steps of acc = (dot(rays + acc, tris))[:, :16] * 0.5 in the
-    inputs' type (float32 or bfloat16; float32 sums over the 16 features in
-    order): rays (B, 16), tris (16, T). Returns (the probe's output (B, 16)
-    f32, the sum of the bit patterns of every product column of every step
-    (B,) int64)."""
+    inputs' type (float32 or bfloat16; float32 sums over the 16 features):
+    rays (B, 16), tris (16, T).
+
+    ``form="simt"``: the sums run in feature order. Returns (the probe's
+    output (B, 16) f32, the sum of the bit patterns of every product column
+    of every step (B,) int64). On the card float32 takes the register tile
+    (2 rays a thread), bfloat16 the SIMT kernel.
+
+    ``form="mma"`` (bfloat16, T a multiple of 8): on the card the products
+    run on the tensor cores, which sum in their own order. Returns (the output (B, 16) f32, the
+    float64 sum of every product column of every step (B,)); held to
+    ``mma_gate``, not bit for bit."""
+    if form not in ("simt", "mma"):
+        raise ValueError(f"mxu_leaf_dense: form {form!r}, not simt or mma")
     if not on_cuda(rays, tris):
-        return mxu_leaf_dense_plain(rays, tris, steps=steps)
+        return mxu_leaf_dense_plain(rays, tris, steps=steps, form=form)
     dev, dt, B, T = rays.device, rays.dtype, rays.shape[0], tris.shape[1]
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"mxu_leaf_dense: float32 or bfloat16, got {dt}")
     check_tensor("rays", rays, dt, (B, FEAT), dev)
     check_tensor("tris", tris, dt, (FEAT, T), dev)
-    if T < FEAT or FEAT * T * rays.element_size() + 512 > SMEM_LIMIT:
+    out = torch.empty((B, FEAT), dtype=torch.float32, device=dev)
+    if form == "mma":
+        if dt != torch.bfloat16 or T < FEAT or T % 8:
+            raise ValueError(f"mxu_leaf_dense: the tensor-core form takes "
+                             f"bfloat16 and T a multiple of 8 from {FEAT}, "
+                             f"got {dt}, T = {T}")
+        sums = torch.zeros(B, dtype=torch.float64, device=dev)
+        MXU_LEAF_DENSE_MMA.launch(rays, tris, B, T, steps, out, sums)
+        return out, sums
+    if T < FEAT or FEAT * (T + 3) * 4 + 8192 > SMEM_LIMIT:
         raise ValueError(f"mxu_leaf_dense: {T} triangles outside "
                          f"[{FEAT}, shared memory]")
-    out = torch.empty((B, FEAT), dtype=torch.float32, device=dev)
-    bits = torch.empty(B, dtype=torch.int64, device=dev)
+    bits = torch.zeros(B, dtype=torch.int64, device=dev)
     MXU_LEAF_DENSE.launch(rays, tris, B, T, int(dt == torch.bfloat16), steps,
                           out, bits)
     return out, bits
 
 
-def mxu_leaf_dense_plain(rays, tris, *, steps: int = 64):
+def mxu_leaf_dense_plain(rays, tris, *, steps: int = 64, form: str = "simt"):
+    """The plain PyTorch version (any device): sums in feature order. With
+    ``form="mma"`` the second output is the float64 column sum instead of
+    the bit checksum."""
     dt = rays.dtype
     tf = tris.float()
     acc = torch.zeros_like(rays)
-    bits = torch.zeros(rays.shape[0], dtype=torch.int64, device=rays.device)
+    check = torch.zeros(rays.shape[0], device=rays.device,
+                        dtype=torch.float64 if form == "mma" else torch.int64)
     for _ in range(steps):
         x = (rays + acc).float()
         p = x[:, :1] * tf[:1]
         for f in range(1, FEAT):
             p = p + x[:, f:f + 1] * tf[f:f + 1]
-        bits += bit_sum(p)
+        check += p.double().sum(1) if form == "mma" else bit_sum(p)
         acc = p[:, :FEAT].to(dt) * 0.5
-    return acc.float(), bits
+    return acc.float(), check
+
+
+def mma_gate(out, ref) -> dict:
+    """The tensor-core form (output, column sums) against the plain
+    version's: the largest relative error of each over the lanes (rays)
+    finite in both, and the share of lanes (rays) whose finiteness agrees;
+    ``ok`` if both errors are within ``MMA_RTOL`` and both shares at least
+    ``MMA_MASK_SHARE``."""
+    res = {}
+    for name, a, b in (("out", out[0], ref[0]), ("col_sum", out[1], ref[1])):
+        a, b = a.double(), b.double()
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        both = fa & fb
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-300))[both]
+        res[f"{name}_max_rel_err"] = float(rel.max()) if rel.numel() else 0.0
+        res[f"{name}_mask_share"] = float((fa == fb).double().mean())
+        res[f"{name}_finite_share"] = float(both.double().mean())
+        if name == "out":
+            err = (a - b).abs()[both]
+            res["max_abs_err"] = float(err.max()) if err.numel() else 0.0
+    res["rtol"], res["mask_share_needed"] = MMA_RTOL, MMA_MASK_SHARE
+    res["ok"] = all(res[f"{n}_max_rel_err"] <= MMA_RTOL
+                    and res[f"{n}_mask_share"] >= MMA_MASK_SHARE
+                    for n in ("out", "col_sum"))
+    return res
 
 
 # ----------------------------------------------------- big_body_compile --
@@ -386,27 +447,90 @@ def p_scalar_treelet_select(ctx):
             kernel="scalar_treelet_select", iters=5)
 
 
+def _chain_step_ms(ctx, dt, form: str) -> float:
+    """Device milliseconds of one dependent step of one ray tile alone on
+    the card (T = 16, one block: one warp in the tensor-core form): the
+    slope of the kernel-only time between 64 and 2112 steps."""
+    rng = ctx.rng()
+    B = 16 if form == "mma" else 1
+    rays = ctx.tensor(rng.random((B, FEAT)).astype(np.float32), dt)
+    tris = ctx.tensor(rng.random((FEAT, FEAT)).astype(np.float32), dt)
+    t = [graph_ms(lambda: mxu_leaf_dense(rays, tris, steps=n, form=form),
+                  ctx.device, launches=4, replays=3) for n in (64, 2112)]
+    return (t[1] - t[0]) / 2048
+
+
+#: steps of the overflow lines: the chain grows about fourfold a step on
+#: inputs in [0, 1) and leaves float32 soon after the probe's 64 steps. On
+#: the probe's seeded inputs a few rays are still finite at 65 steps (T =
+#: 128) and at 70 (T = 512), the border the mask share is about; at 72 none
+OVERFLOW_STEPS = (65, 70, 72)
+
+
+def _overflow_gate(ctx, rays, tris, T: int) -> None:
+    """The tensor-core form against the plain version where the chain
+    overflows: one untimed line per step count of ``OVERFLOW_STEPS`` with the
+    gate's numbers (the overflow masks must agree on ``MMA_MASK_SHARE`` of
+    the rays). Raises ``ProbeMismatch`` outside the gate."""
+    for steps in OVERFLOW_STEPS:
+        g = mma_gate(mxu_leaf_dense(rays, tris, steps=steps, form="mma"),
+                     mxu_leaf_dense_plain(rays, tris, steps=steps,
+                                          form="mma"))
+        emit("mxu_leaf_dense_overflow", dtype="bfloat16", form="mma", T=T,
+             steps=steps, gate=g, card=ctx.card)
+        if not g["ok"]:
+            raise ProbeMismatch(f"mxu_leaf_dense mma T={T} steps={steps}: "
+                                f"outside its gate {g}")
+
+
 @probe("mxu_leaf_dense")
 def p_mxu_leaf_dense(ctx):
+    """One line per form and size: float32 (register tile), bfloat16 SIMT,
+    bfloat16 on the tensor cores, each with its operation bound, the
+    chain's latency floor (``steps`` x one dependent step of one ray tile
+    alone; not under ``ctx.smoke``). Both sizes run under ``ctx.smoke`` too:
+    they are the two the tensor-core form's gate is stated for."""
     steps, B = 64, 1024
-    for dt, peak in ((torch.float32, PEAK_FLOPS),
-                     (torch.bfloat16, PEAK_BF16_FLOPS)):
-        for T in ctx.sizes((128, 512)):
+    cuda = ctx.device.type == "cuda"
+    forms = (("float32", torch.float32, "simt", PEAK_FLOPS, PEAK_FLOPS_NOFMA),
+             ("bfloat16", torch.bfloat16, "simt", PEAK_BF16_FLOPS,
+              PEAK_FLOPS_NOFMA),
+             ("bfloat16", torch.bfloat16, "mma", PEAK_BF16_FLOPS,
+              PEAK_BF16_FLOPS))
+    for name, dt, form, peak, nofma in forms:
+        step_ms = _chain_step_ms(ctx, dt, form) \
+            if cuda and not ctx.smoke else None
+        for T in (128, 512):
             rng = ctx.rng()
             rays = ctx.tensor(rng.random((B, FEAT)).astype(np.float32), dt)
             tris = ctx.tensor(rng.random((FEAT, T)).astype(np.float32), dt)
-            measure(ctx, "mxu_leaf_dense",
-                    dict(dtype=str(dt).split(".")[-1], T=T),
-                    functools.partial(mxu_leaf_dense, steps=steps),
+
+            def extra(t, T=T, step_ms=step_ms):
+                if not cuda:
+                    return {}
+                ms = t["kernel_only_ms"]
+                floor = {} if step_ms is None else dict(
+                    chain_floor_ms=steps * step_ms,
+                    chain_floor_share=steps * step_ms / ms)
+                return dict(
+                    floor, g_raytri_per_s_kernel_only=B * T * steps / ms / 1e6)
+
+            measure(ctx, "mxu_leaf_dense", dict(dtype=name, form=form, T=T),
+                    functools.partial(mxu_leaf_dense, steps=steps, form=form),
                     (rays, tris),
                     lambda t, T=T: dict(
                         us_per_step=t / steps * 1e6,
                         g_raytri_per_s=B * T * steps / t / 1e9),
                     plain=functools.partial(mxu_leaf_dense_plain,
-                                            steps=steps),
+                                            steps=steps, form=form),
                     ops=2 * B * T * FEAT * steps,
                     nbytes=nbytes(rays, tris) + B * (FEAT * 4 + 8),
-                    kernel="mxu_leaf_dense", iters=5, peak_flops=peak)
+                    kernel="mxu_leaf_dense_mma" if form == "mma"
+                    else "mxu_leaf_dense", iters=5, peak_flops=peak,
+                    nofma_flops=nofma, kernel_only=True,
+                    gate=mma_gate if form == "mma" else None, extra=extra)
+            if form == "mma" and cuda:
+                _overflow_gate(ctx, rays, tris, T)
 
 
 @probe("big_body_compile")

@@ -167,7 +167,7 @@ def p_hello(ctx):
     measure(ctx, "pallas_hello", {}, hello, (x,),
             lambda t: dict(ms=t * 1e3, ok=True), plain=hello_plain,
             library=hello_plain, ops=x.numel(), nbytes=2 * nbytes(x),
-            kernel="pallas_hello", iters=20)
+            kernel="pallas_hello", iters=50, kernel_only=True)
 
 
 @probe("pallas_onehot_loop")
@@ -217,7 +217,7 @@ def p_sublane_gather(ctx):
             lambda t: dict(ms=t * 1e3, grows_per_s=B / t / 1e9, ok=True),
             plain=sublane_gather_plain, library=sublane_gather_plain,
             ops=0, nbytes=(rows_read + B) * C * 4 + nbytes(idx),
-            kernel="pallas_sublane_gather", iters=5)
+            kernel="pallas_sublane_gather", iters=50, kernel_only=True)
 
 
 @probe("pallas_dyn_dma")
@@ -235,7 +235,8 @@ def p_dyn_dma(ctx):
             library=functools.partial(dyn_dma_plain, rows=rows),
             ops=n_bins * rows * C,
             nbytes=(int(torch.unique(bins).numel()) + n_bins) * block
-            + nbytes(bins), kernel="pallas_dyn_dma", iters=5)
+            + nbytes(bins), kernel="pallas_dyn_dma", iters=50,
+            kernel_only=True)
 
 
 # ====================================== XLA probes as PyTorch calls ======

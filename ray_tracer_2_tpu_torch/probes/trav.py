@@ -156,7 +156,7 @@ def p_launch(ctx):
     measure(ctx, "launch", {}, launch, (x,),
             lambda t: dict(ms_per_call=t * 1e3), plain=launch_plain,
             library=launch_plain, ops=x.numel(), nbytes=2 * nbytes(x),
-            kernel="launch", iters=50)
+            kernel="launch", iters=50, kernel_only=True)
 
 
 @probe("trav")

@@ -200,7 +200,7 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
                 or e.material.normal_texture is not None:
             raise NotImplementedError(
                 "textured materials wait for the texture slice "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 4)")
         records.append(e.material.resolve())
         mid = len(records) - 1
         if isinstance(e.primitive, SphereDef):
@@ -209,13 +209,13 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         if not isinstance(e.primitive, MeshFromData):
             raise NotImplementedError(
                 "meshes from files wait for the assets slice "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 3)")
         m = e.transform.to_matrix()
         g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": []})
         g["parts"].append((e.primitive.resolved(), mid))
     if len(spheres) >= SPHERE_BVH_MIN:
         raise NotImplementedError(
-            "the sphere BVH waits for its slice (ROADMAP Queue 1 item 8)")
+            "the sphere BVH waits for its slice (ROADMAP Queue 1 item 1)")
 
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",

@@ -247,6 +247,62 @@ def test_brute_kernel_matches_plain():
     assert float((err < 1e-5).float().mean()) >= 0.999
 
 
+def _brute_case_names():
+    from ray_tracer_2_tpu_torch.kernels.brute_cases import edge_cases
+    return [c.name for c in edge_cases()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _brute_case_names())
+def test_brute_kernel_edge_cases(name):
+    """The list the plain version is pinned on against JAX and numpy
+    (tests/test_torch_brute.py), on the card: kernel against plain version,
+    ``tri`` and ``mat`` exact, ``dst, u, v, det`` within 1e-5 on every
+    ray."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels.brute_cases import (
+        edge_cases, table_scene,
+    )
+    case = {c.name: c for c in edge_cases()}[name]
+    ns = table_scene(case, "cuda")
+    o = torch.from_numpy(case.origin).cuda()
+    d = torch.from_numpy(case.direction).cuda()
+    k = brute_force_intersect(ns, o, d, 0, case.count)
+    p = brute_force_intersect_plain(ns, o, d, 0, case.count)
+    assert int((p["tri"] >= 0).sum()) >= case.min_hits
+    assert bool((k["tri"] == p["tri"]).all())
+    assert bool((k["mat"] == p["mat"]).all())
+    for f in ("dst", "u", "v", "det"):
+        assert float((k[f] - p[f]).abs().max()) < 1e-5, f
+
+
+@pytest.mark.cuda
+def test_brute_kernel_partial_block_and_chunks():
+    """A ray count that fills no block (1000) against a table of three
+    staged chunks (600): ``tri`` and ``mat`` exact, ``dst`` within 1e-5."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table
+    from ray_tracer_2_tpu_torch.kernels.brute_cases import (
+        edge_cases, table_scene,
+    )
+    case = {c.name: c for c in edge_cases()}["soup_600"]
+    ns = table_scene(case, "cuda")
+    table = pack_brute_table(ns, 0, 600)
+    rng = np.random.default_rng(3)
+    rays = np.zeros((1000, 8), np.float32)
+    rays[:, 0:3] = rng.uniform(-1.5, 1.5, (1000, 3))
+    d = rng.normal(size=(1000, 3))
+    rays[:, 3:6] = d / np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(rays).cuda()
+    out = CUDA_BRUTE(rays, table, 600)
+    p = brute_force_intersect_plain(ns, rays[:, 0:3].contiguous(),
+                                    rays[:, 3:6].contiguous(), 0, 600)
+    assert int((p["tri"] >= 0).sum()) > 100
+    assert bool((out[:, 5].long() == p["tri"]).all())
+    assert bool((out[:, 4].long() == p["mat"]).all())
+    assert float((out[:, 0] - p["dst"]).abs()[p["tri"] >= 0].max()) < 1e-5
+
+
 # Edges of the persistent kernels' pixel cursor: fewer pixels than a warp,
 # a pixel total that is not a multiple of 32, a row window, several samples
 # with antialias, no bounce.
@@ -335,8 +391,14 @@ def test_probe_kernel_matches_plain(name):
     ctx = common.Ctx(device=dev, smoke=True, card=common.card_name(dev))
     assert common.run(ctx, [name])
     assert ctx.records
-    assert all(r["plain_equal"] is True and r["max_abs_err"] == 0.0
-               for r in ctx.records)
+    for r in ctx.records:
+        if r["gate"] is not None:   # mxu_leaf_dense on the tensor cores
+            assert r["gate"]["ok"] is True and r["form"] == "mma"
+        else:
+            assert r["plain_equal"] is True and r["max_abs_err"] == 0.0
+    if name == "mxu_leaf_dense":    # three forms at both gated sizes
+        assert [(r["form"], r["T"]) for r in ctx.records] == [
+            (f, T) for f in ("simt", "simt", "mma") for T in (128, 512)]
 
 
 def _probe_edge_cases():
@@ -391,11 +453,21 @@ def _probe_edge_cases():
         (lut.mxu_leaf_dense, (t(rng.random((37, 16)).astype(np.float32)),
                               t(rng.random((16, 40)).astype(np.float32))),
          dict(steps=7)),
+        (lut.mxu_leaf_dense, (t(rng.random((37, 16)).astype(np.float32)),
+                              t(rng.random((16, 41)).astype(np.float32))),
+         dict(steps=7)),
+        (lut.mxu_leaf_dense, (t(rng.random((9, 16)).astype(np.float32)),
+                              t(rng.random((16, 600)).astype(np.float32))),
+         dict(steps=5)),
+        (lut.mxu_leaf_dense, (t(rng.random((37, 16)).astype(np.float32),
+                                torch.bfloat16),
+                              t(rng.random((16, 45)).astype(np.float32),
+                                torch.bfloat16)), dict(steps=7)),
     ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(11))
+@pytest.mark.parametrize("case", range(14))
 def test_probe_kernel_edges(case):
     """Probe kernels against their plain versions off the scripts' sizes:
     every output bit-equal."""
@@ -415,3 +487,27 @@ def test_probe_wrappers_reject_cpu_tensors():
     for wrapper, _ in load_all().KERNELS.values():
         with pytest.raises(ValueError, match="CUDA tensors"):
             wrapper.launch(torch.zeros(4), 4, torch.zeros(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(37, 40), (16, 16), (100, 136), (64, 512),
+                                 (20, 264)])
+def test_mxu_leaf_dense_tensor_core_form_edges(B, T):
+    """The tensor-core form off the script's sizes (a ray tile that is not
+    full, no column tile besides the chain's, a last warp with fewer
+    column tiles than it holds, both tile widths) inside its gate against
+    the plain version."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.probes import lut
+    rng = np.random.default_rng(22)
+    rays = torch.from_numpy(rng.random((B, 16)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    tris = torch.from_numpy(rng.random((16, T)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    got = lut.mxu_leaf_dense(rays.cuda(), tris.cuda(), steps=12, form="mma")
+    want = lut.mxu_leaf_dense(rays, tris, steps=12, form="mma")
+    g = lut.mma_gate(tuple(x.cpu() for x in got), want)
+    assert g["ok"] and g["out_finite_share"] == 1.0, g
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lut.mxu_leaf_dense(rays.cuda(), tris[:, :T - 1].contiguous().cuda(),
+                           form="mma")

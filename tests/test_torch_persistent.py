@@ -193,6 +193,17 @@ def test_argtypes_match_the_entry_point(cls, source):
     assert params[-2].endswith("* counts")
 
 
+def test_brute_argtypes_match_the_entry_point():
+    """The standalone brute-force kernel's entry point: three table and
+    record pointers, two int counts, the stream."""
+    from ray_tracer_2_tpu_torch.kernels.brute import CudaBrute
+    params = _c_params(CSRC / "brute.cu", CudaBrute.symbol)
+    assert len(params) == len(CudaBrute.argtypes)
+    for p, t in zip(params, CudaBrute.argtypes):
+        assert t is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
+    assert params[-1] == "void* stream"
+
+
 @pytest.mark.parametrize("cls", [megakernel.CudaMegakernel,
                                  spheres.CudaSpheres])
 def test_device_counts_accumulate_and_reset(cls):
@@ -228,3 +239,67 @@ def test_renderer_defaults_to_the_card():
     assert r.device.type == "cuda"
     assert r.framebuffer is None and r.last_segments is None
     assert Renderer(device="cpu").device.type == "cpu"
+
+
+# ------------------------------------------- the staged tables' budget --
+def _groups_scene(n_groups: int):
+    """``n_groups`` distinct brute-force groups of 256 triangles each."""
+    from ray_tracer_2_tpu_torch.math.transform import Transform
+    from ray_tracer_2_tpu_torch.scene.definition import (
+        MeshFromData, SceneDefinition,
+    )
+    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+    s = SceneDefinition()
+    for i in range(n_groups):
+        s.add_mesh(Transform(pos=[1.5 * i, 0.0, 0.0]),
+                   MeshFromData(scenes.latlon_soup(8, 16, 0.5 + 0.01 * i)),
+                   MaterialDefinition.new())
+    return instantiate_scene(s)
+
+
+def test_staged_row_matches_the_kernel_source():
+    """A staged brute-force triangle is ``kRowWords`` 16-byte words, and
+    the budget the wrapper polices is the one the C entry point does."""
+    words = _constants(CSRC / "brute.cuh", "k")["RowWords"]
+    assert 4 * words == megakernel.BRUTE_STAGED == 16
+    m = re.search(r"constexpr int kDynSmemBytes = (\d+) \* 1024;",
+                  (CSRC / "megakernel.cu").read_text())
+    assert int(m.group(1)) * 1024 == megakernel.SMEM_BYTES
+    assert megakernel.SMEM_BYTES <= 227 * 1024 - 2048
+
+
+@pytest.mark.parametrize("name,args", [
+    ("wide_bvh_scene", ()), ("main_path_scene", (12, 12)),
+    ("room2_scene", (12, 12)), ("instances_scene", ()), ("balls", ()),
+    ("metal", ()), ("room", ())])
+def test_smem_budget_admits_the_scenes_that_render(name, args):
+    """Every scene of ``scenes.py`` the megakernel takes still fits its
+    shared-memory budget with triangles staged at 64 bytes."""
+    scene = instantiate_scene(getattr(scenes, name)(*args))
+    assert megakernel.ineligibility(scene) is None
+    assert megakernel.smem_bytes(scene) <= megakernel.SMEM_BYTES
+    n_brute = sum(c for _, c in megakernel._brute_ranges(scene))
+    assert megakernel.smem_bytes(scene) == \
+        128 * scene.n_instances + 64 * n_brute
+
+
+def test_smem_budget_keeps_what_fit_before_and_raises_past_it():
+    """Four groups of 256 triangles fit the earlier 45 KB at 44 bytes a
+    triangle and fit the 66 KB at 64; a fifth group is past the limit, and
+    the message names the budget and the ROADMAP item that lifts it."""
+    four, five = _groups_scene(4), _groups_scene(5)
+    assert 4 * (32 * 4 + 11 * 1024) <= 45 * 1024      # the earlier budget
+    assert megakernel.smem_bytes(four) == 128 * 4 + 64 * 1024
+    assert megakernel.ineligibility(four) is None
+    assert megakernel.smem_bytes(five) == 128 * 5 + 64 * 1280 \
+        > megakernel.SMEM_BYTES
+    reason = megakernel.ineligibility(five)
+    assert "82560 bytes" in reason and "67584-byte" in reason
+    assert "ROADMAP Queue 1 item 1" in reason
+    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+        megakernel.render_plain(five, 0, width=4, height=4, bounces=0,
+                                rays_per_pixel=1, skybox=True)
+    # any table that fit 45 KB at 44 bytes a triangle fits 66 KB at 64
+    for inst in range(1, 300, 7):
+        tris = (45 * 1024 - 128 * inst) // 44
+        assert 128 * inst + 64 * tris <= megakernel.SMEM_BYTES

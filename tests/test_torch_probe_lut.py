@@ -216,3 +216,204 @@ def test_mxu_leaf_dense_against_numpy(dtype):
     got, got_bits = mxu_leaf_dense(rays, tris, steps=steps)
     assert np.array_equal(got.numpy(), acc)
     assert np.array_equal(got_bits.numpy(), bits)
+
+
+# --------------------------------------------- the tensor-core form's gate --
+# On the card the bfloat16 products can run on the tensor cores
+# (``form="mma"``), which add the 16 terms of a product in the unit's own
+# order, so that form is held to ``mma_gate``, not bit for bit. These tests
+# show, on the CPU, that the gate can be met and is not loose: a float32
+# accumulation of the same exact bf16 x bf16 products in another order
+# (a seeded random order per step, or pairwise) stands for the class the
+# tensor core belongs to.
+from ray_tracer_2_tpu_torch.probes.lut import (  # noqa: E402
+    MMA_MASK_SHARE, MMA_RTOL, mma_gate, mxu_leaf_dense_plain,
+)
+
+
+def _reordered(rays, tris, steps, order):
+    """``mxu_leaf_dense_plain(form="mma")`` with each product's 16 terms
+    added in float32 in another order: ``order`` = "pairwise" or a numpy
+    Generator (a fresh permutation of the features every step)."""
+    tf = tris.float()
+    acc = torch.zeros_like(rays)
+    sums = torch.zeros(rays.shape[0], dtype=torch.float64)
+    for _ in range(steps):
+        x = (rays + acc).float()
+        terms = [x[:, f:f + 1] * tf[f:f + 1] for f in range(16)]
+        if order == "pairwise":
+            while len(terms) > 1:
+                terms = [a + b for a, b in zip(terms[::2], terms[1::2])]
+            p = terms[0]
+        else:
+            perm = order.permutation(16)
+            p = terms[perm[0]]
+            for f in perm[1:]:
+                p = p + terms[f]
+        sums += p.double().sum(1)
+        acc = p[:, :16].to(rays.dtype) * 0.5
+    return acc.float(), sums
+
+
+def _bf16_inputs(T, B=1024, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.random((B, 16)).astype(np.float32))
+            .to(torch.bfloat16),
+            torch.from_numpy(rng.random((16, T)).astype(np.float32))
+            .to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("order", ["pairwise", "random"])
+@pytest.mark.parametrize("T", [128, 512])
+def test_mma_gate_holds_an_order_free_accumulation(T, order):
+    """At the probe's own size and 64 steps, a float32 sum of the exact
+    bf16 x bf16 products in another order passes the gate the card holds
+    the tensor-core form to, with room: the order moves a product by at
+    most 2e-7 of its value (a sum of 16-bit products is often exact in 24
+    bits), which never tipped a bf16 rounding of the chain here, so the
+    outputs are equal and the column sums agree to 1e-6. The gate's 1e-2
+    is not loose for all that: an output is a bfloat16 value, so the
+    smallest difference it can show is one rounding, 3.9e-3 to 7.8e-3 of
+    the value; any tolerance below that demands bit-equality, which a unit
+    that adds in its own order cannot promise, and 1e-2 is the first
+    decimal step that admits one rounding and not two."""
+    rays, tris = _bf16_inputs(T)
+    ref = mxu_leaf_dense_plain(rays, tris, steps=64, form="mma")
+    got = _reordered(rays, tris, 64, order if order == "pairwise"
+                     else np.random.default_rng(5))
+    g = mma_gate(got, ref)
+    assert g["ok"], g
+    assert g["rtol"] == MMA_RTOL == 1e-2
+    assert g["out_mask_share"] == g["col_sum_mask_share"] == 1.0
+    assert MMA_MASK_SHARE == 0.999
+    assert g["out_max_rel_err"] == 0.0 or \
+        2.0 ** -9 <= g["out_max_rel_err"] <= 2.0 ** -7
+    assert 0.0 < g["col_sum_max_rel_err"] < 1e-6     # the order does matter
+    one_ulp = (ref[0] * (1 + 2.0 ** -8), ref[1])     # one rounding off: in
+    assert mma_gate(one_ulp, ref)["ok"]
+    two_ulp = (ref[0] * (1 + 2.0 ** -6), ref[1])     # two and more: out
+    assert not mma_gate(two_ulp, ref)["ok"]
+
+
+@pytest.mark.parametrize("T,steps,border", [(128, 65, True), (512, 70, True),
+                                            (128, 72, False)])
+def test_mma_gate_where_the_chain_overflows(T, steps, border):
+    """The step counts of the probe's overflow lines (``OVERFLOW_STEPS``):
+    at the border some lanes are still finite, at 72 none. A float32 sum in
+    another order overflows on the same rays (mask share 1.0 here; the gate
+    asks 0.999, one ray of 1024), and the finite ones stay inside the
+    tolerance."""
+    from ray_tracer_2_tpu_torch.probes.lut import OVERFLOW_STEPS
+    assert steps in OVERFLOW_STEPS
+    rays, tris = _bf16_inputs(T)
+    ref = mxu_leaf_dense_plain(rays, tris, steps=steps, form="mma")
+    for order in ("pairwise", np.random.default_rng(7)):
+        g = mma_gate(_reordered(rays, tris, steps, order), ref)
+        assert g["ok"], g
+        assert g["out_mask_share"] == g["col_sum_mask_share"] == 1.0
+        assert (0.0 < g["out_finite_share"] < 1.0) if border \
+            else g["out_finite_share"] == 0.0
+    flipped = (ref[0].clone(), ref[1].clone())      # two rays' overflow lost
+    flipped[1][:2] = torch.where(torch.isfinite(flipped[1][:2]),
+                                 float("inf"), 1.0).double()
+    assert not mma_gate(flipped, ref)["ok"]
+
+
+def test_mma_gate_refuses_a_wrong_product():
+    """One feature dropped from the sum, or a whole ray's overflow lost, is
+    outside the gate."""
+    rays, tris = _bf16_inputs(128, B=64)
+    ref = mxu_leaf_dense_plain(rays, tris, steps=40, form="mma")
+    wrong = tris.clone()
+    wrong[15] = 0
+    assert not mma_gate(mxu_leaf_dense_plain(rays, wrong, steps=40,
+                                             form="mma"), ref)["ok"]
+    lost = (ref[0].clone(), ref[1].clone())
+    lost[0][0] = float("inf")
+    assert not mma_gate(lost, ref)["ok"]
+    assert mma_gate(ref, ref)["ok"]
+
+
+def test_mma_form_against_the_tpu_probe_at_40_steps(monkeypatch):
+    """The script's own kernel cut to 40 steps (every lane finite, as in
+    ``test_mxu_leaf_dense_matches_the_tpu_probe``) against the plain
+    version and against the reordered sums, through the card's gate on the
+    output: the class the tensor-core form belongs to stays inside it."""
+    fori_loop = jax.lax.fori_loop
+    monkeypatch.setattr(
+        jax.lax, "fori_loop",
+        lambda lo, hi, body, init, **kw: fori_loop(0, 40, body, init, **kw))
+    calls = [c for c in run_probe(monkeypatch, "mxu_leaf_dense")
+             if c[0][0].dtype == torch.bfloat16]
+    assert [c[0][1].shape[1] for c in calls] == [128, 512]
+    for (rays, tris), out in calls:
+        want = torch.from_numpy(np.asarray(out, np.float32))
+        for got in (mxu_leaf_dense_plain(rays, tris, steps=40, form="mma"),
+                    _reordered(rays, tris, 40, "pairwise"),
+                    _reordered(rays, tris, 40, np.random.default_rng(6))):
+            g = mma_gate((got[0], got[1]), (want, got[1]))
+            assert g["ok"] and g["out_finite_share"] == 1.0, g
+
+
+def test_mma_column_sum_against_numpy():
+    """``form="mma"`` of the plain version: the output of the SIMT form and
+    the float64 sum of every float32 product column of every step."""
+    rng = np.random.default_rng(13)
+    B, T, steps = 24, 40, 9
+    rays = torch.from_numpy(rng.random((B, 16)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    tris = torch.from_numpy(rng.random((16, T)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    r, t = rays.float().numpy(), tris.float().numpy()
+    acc = np.zeros((B, 16), np.float32)
+    sums = np.zeros(B, np.float64)
+    for _ in range(steps):
+        x = torch.from_numpy(r + acc).to(torch.bfloat16).float().numpy()
+        p = x[:, :1] * t[:1]
+        for f in range(1, 16):
+            p = p + x[:, f:f + 1] * t[f:f + 1]
+        sums += p.astype(np.float64).sum(1)
+        acc = torch.from_numpy(p[:, :16]).to(torch.bfloat16).float().numpy() \
+            * np.float32(0.5)
+    got, got_sums = mxu_leaf_dense(rays, tris, steps=steps, form="mma")
+    assert np.array_equal(got.numpy(), acc)
+    assert got_sums.dtype == torch.float64
+    np.testing.assert_allclose(got_sums.numpy(), sums, rtol=1e-12)
+    assert np.array_equal(mxu_leaf_dense(rays, tris, steps=steps)[0].numpy(),
+                          acc)
+
+
+_LUT_KERNELS = ["lane_gather_chain", "sublane_gather_samey", "lut1024_chain",
+                "lut_row_fetch", "scalar_treelet_select", "mxu_leaf_dense",
+                "mxu_leaf_dense_mma", "big_body_compile"]
+
+
+@pytest.mark.parametrize("name", _LUT_KERNELS)
+def test_signature_matches_the_entry_point(name):
+    """One ctypes type per parameter of the kernel's ``extern "C"`` entry
+    point in ``csrc/probe_lut.cu``: pointers (the stream last) as
+    ``c_void_p``, ints as ``c_int``."""
+    import ctypes
+    import re
+
+    from ray_tracer_2_tpu_torch.probes import lut
+    from ray_tracer_2_tpu_torch.probes.common import KERNELS
+    assert [k for k, (w, _) in KERNELS.items() if w.source == lut.SOURCE] \
+        == _LUT_KERNELS
+    wrapper = KERNELS[name][0]
+    m = re.search(rf'extern "C" int {wrapper.symbol}\((.*?)\)\s*{{',
+                  lut.SOURCE.read_text(), re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert len(params) == len(wrapper.argtypes)
+    for p, t in zip(params, wrapper.argtypes):
+        if "*" in p:
+            assert t is ctypes.c_void_p, p
+        else:
+            assert p.startswith("int ") and t is ctypes.c_int, p
+    assert params[-1] == "void* stream"
+
+
+def test_mxu_leaf_dense_refuses_unknown_forms():
+    rays, tris = _bf16_inputs(16, B=4)
+    with pytest.raises(ValueError, match="form"):
+        mxu_leaf_dense(rays, tris, form="wgmma")

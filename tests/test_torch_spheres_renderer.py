@@ -112,7 +112,7 @@ def test_routing(monkeypatch):
 def test_antialias_on_a_small_scene_raises():
     """random_balls with antialias goes to the megakernel, which takes at
     most 32 dense spheres."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         Renderer(device="cpu").render(_pair("random_balls")[1],
                           dataclasses.replace(PARAMS, antialias=True))
 
