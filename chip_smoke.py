@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from the sources in this checkout (the
 three render kernels and the four probe sources, one nvcc each, side by
 side) and holds each against its plain PyTorch
-version on the card. Then it drives three paths through
+version on the card. Then it drives four paths through
 ``Renderer.render`` at 1920x1080, 5 bounces, and checks that every frame
 went through the path's kernel and no other:
 
@@ -14,6 +14,9 @@ went through the path's kernel and no other:
   80,000-triangle headline scene;
 * the small-scene path — ``render_spheres`` -> ``csrc/spheres.cu`` — on
   ``random_balls`` (485 spheres, glass, specular);
+* the sphere-scene path — the same scene with antialias, which the
+  small-scene path does not take: ``render_persistent`` ->
+  ``csrc/megakernel.cu``, its dense sphere loop in the shared-term form;
 * the room2 path — ``render_persistent`` -> ``csrc/megakernel.cu``, whose
   segment prepass runs the brute-force loop of ``csrc/brute.cuh`` (the
   loop of ``csrc/brute.cu``; the kernel counts its calls on the device) —
@@ -22,7 +25,11 @@ went through the path's kernel and no other:
 
 The megakernel is also held against its plain version on
 ``instances_scene``, where four instances of two shared tables take 38%
-of the primary rays.
+of the primary rays, and on the sphere-heavy scenes: ``random_balls`` with
+antialias through the dense fast loop and through the sphere BVH,
+``random_balls(half=24)`` (2,305 spheres: the sphere BVH by its size) and
+``groups_scene(5)`` (tables past the shared-memory budget, read from global
+memory).
 
 Both render kernels are persistent: lanes refill from a pixel cursor and
 count their own work on the device. Each comparison also holds the
@@ -85,7 +92,8 @@ NEED_FRAC = 0.999
 OPS_BOX = 34            # megakernel.cu child_eval, per child box
 OPS_LEAF = 8 * 47       # megakernel.cu traverse, per leaf of 8 triangles
 OPS_SPHERE = 35         # the exact quadratic (both kernels), per sphere
-OPS_SPHERE_FAST = 30    # spheres.cu shared-term formula, per sphere
+OPS_SPHERE_FAST = 30    # the shared-term formula (both kernels), per sphere
+OPS_SPHERE_LEAF = 8 * 33  # megakernel.cu traverse, per leaf of 8 spheres
 OPS_TRI = 49            # spheres.cu triangle test, per triangle
 OPS_BRUTE = 47          # brute.cuh test_row, per ray-triangle pair (what
                         # depends on the triangle alone is staged once)
@@ -140,13 +148,14 @@ def one_thread_per_pixel_occupancy(pixel_segments) -> float:
     return float(segs.sum()) / (32.0 * float(warps.amax(dim=1).sum()))
 
 
-def compare(scene, width, height, bounces, kernel, plain):
-    """Kernel vs plain version on the same scene and frame; the kernel is
-    timed over repeated launches after the compared one, the plain version
-    on the compared call. The kernel's device counts are those of the
-    compared launch."""
+def compare(scene, width, height, bounces, kernel, plain, **options):
+    """Kernel vs plain version on the same scene and frame (``options``:
+    further render options, e.g. antialias); the kernel is timed over
+    repeated launches after the compared one, the plain version on the
+    compared call. The kernel's device counts are those of the compared
+    launch."""
     kw = dict(width=width, height=height, bounces=bounces, rays_per_pixel=1,
-              skybox=True)
+              skybox=True, **options)
     kernel.reset_counts()
     ki, ks = kernel(scene, 1, **kw)
     kc = kernel.read_counts()
@@ -173,12 +182,14 @@ def compare(scene, width, height, bounces, kernel, plain):
 
 
 def check_cases(cases, launch, plain, **tags):
-    """``compare`` on each (scene name, scene, width, height, bounces) case,
-    held to exact segments, NEED_FRAC of pixels within PIXEL_TOL and >= 10%
-    of pixels lit. Returns the results in order."""
+    """``compare`` on each (scene name, scene, width, height, bounces[,
+    render options]) case, held to exact segments, NEED_FRAC of pixels
+    within PIXEL_TOL and >= 10% of pixels lit. Returns the results in
+    order."""
     results = []
-    for name, scene, w, h, b in cases:
-        r = compare(scene, w, h, b, launch, plain)
+    for name, scene, w, h, b, *options in cases:
+        r = compare(scene, w, h, b, launch, plain,
+                    **(options[0] if options else {}))
         emit(phase="kernel_vs_plain", scene=name, need_frac=NEED_FRAC,
              **tags, **r)
         where = f"{name} at bounces={b} ({w}x{h})"
@@ -201,15 +212,28 @@ def check_cases(cases, launch, plain, **tags):
 
 def megakernel_bound(scene, r) -> dict:
     """Bound of the megakernel on a compared cell: its counted child boxes,
-    leaves and segments (each segment tests every sphere and brute-force
-    triangle and transforms the ray into every instance), against its
-    tables read once and the image written once."""
-    from ray_tracer_2_tpu_torch.kernels.megakernel import brute_instances
+    leaves and segments (each segment tests every dense sphere, by the
+    formula the scene's sphere count picks, and every brute-force triangle,
+    and transforms the ray into every instance), against its tables read
+    once and the image written once. A leaf counts as 8 triangles, or, in a
+    scene whose only tree is the sphere BVH, as 8 spheres. The kernel's
+    counts do not tell the two kinds of leaf apart, so a scene with both
+    kinds of tree has no bound here and raises."""
+    from ray_tracer_2_tpu_torch.kernels.intersect import SPHERE_FAST_MIN
+    from ray_tracer_2_tpu_torch.kernels.megakernel import (
+        brute_instances, bvh_instances, dense_spheres,
+    )
     from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
+    if scene.sphere_bvh_root >= 0 and bvh_instances(scene):
+        raise ValueError("sphere and triangle leaves are counted together: "
+                         "no bound for a scene with both kinds of tree")
     brute_tris = sum(scene.inst_spans[i][2] for i in brute_instances(scene))
-    per_seg = (scene.n_spheres * OPS_SPHERE + brute_tris * OPS_BRUTE
+    dense = dense_spheres(scene)
+    per_seg = (dense * (OPS_SPHERE_FAST if dense >= SPHERE_FAST_MIN
+                        else OPS_SPHERE) + brute_tris * OPS_BRUTE
                + scene.n_instances * OPS_INSTANCE + OPS_SEGMENT)
-    ops = (r["boxes_kernel"] * OPS_BOX + r["leaves_kernel"] * OPS_LEAF
+    ops_leaf = OPS_SPHERE_LEAF if scene.sphere_bvh_root >= 0 else OPS_LEAF
+    ops = (r["boxes_kernel"] * OPS_BOX + r["leaves_kernel"] * ops_leaf
            + r["segments_kernel"] * per_seg)
     return bound(ops, nbytes(scene.wide_rows, scene.tri_attr, scene.mat_rows)
                  + r["width"] * r["height"] * 16)
@@ -426,7 +450,7 @@ def main() -> int:
     from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all, \
         ptxas_lines
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
-        CUDA_MEGAKERNEL, brute_instances, render_plain,
+        CUDA_MEGAKERNEL, brute_instances, kernel_tables, render_plain,
     )
     from ray_tracer_2_tpu_torch.kernels.spheres import (
         CUDA_SPHERES, render_spheres_plain,
@@ -490,6 +514,39 @@ def main() -> int:
          ("instances_scene", insts, W, H, BOUNCES)],
         CUDA_MEGAKERNEL, render_plain, kernel="megakernel")[3]
     rballs = instantiate_scene(scenes.random_balls()).to("cuda")
+    # sphere-heavy scenes through the megakernel: the dense fast loop, the
+    # sphere BVH forced and by the scene's size, tables in global memory
+    rballs_bvh = instantiate_scene(scenes.random_balls(),
+                                   sphere_bvh=True).to("cuda")
+    rballs_big = instantiate_scene(scenes.random_balls(half=24)).to("cuda")
+    groups = instantiate_scene(scenes.groups_scene(5)).to("cuda")
+    forms = {name: (kernel_tables(sc)["spheres_mode"],
+                    kernel_tables(sc)["staged"])
+             for name, sc in (("dense", rballs), ("bvh", rballs_bvh),
+                              ("big", rballs_big), ("groups", groups))}
+    check(forms == dict(dense=(1, True), bvh=(2, True), big=(2, True),
+                        groups=(0, False)),
+          f"sphere cells take their kernel forms: {forms}")
+    aa = dict(antialias=True)
+    balls_cmp = check_cases(
+        [("random_balls + antialias", rballs, SMALL_W, SMALL_H, 0, aa),
+         ("random_balls + antialias", rballs, SMALL_W, SMALL_H, BOUNCES, aa),
+         ("random_balls + antialias, sphere BVH", rballs_bvh, SMALL_W,
+          SMALL_H, 0, aa),
+         ("random_balls + antialias, sphere BVH", rballs_bvh, SMALL_W,
+          SMALL_H, BOUNCES, aa),
+         (f"random_balls(half=24), {rballs_big.n_spheres} spheres",
+          rballs_big, SMALL_W, SMALL_H, BOUNCES),
+         ("groups_scene(5), tables in global memory", groups, SMALL_W,
+          SMALL_H, BOUNCES),
+         ("random_balls + antialias, sphere BVH", rballs_bvh, W, H, BOUNCES,
+          aa),
+         ("random_balls + antialias", rballs, W, H, BOUNCES, aa)],
+        CUDA_MEGAKERNEL, render_plain, kernel="megakernel")
+    bvh_cmp, dense_cmp = balls_cmp[-2:]
+    check(bvh_cmp["rows_kernel"] >= bvh_cmp["segments_kernel"],
+          "the sphere BVH's root row is evaluated in every segment")
+    check(dense_cmp["rows_kernel"] == 0, "no tree in the dense sphere cell")
     room = instantiate_scene(scenes.room()).to("cuda")
     sph_cmp = check_cases(
         [("random_balls", rballs, SMALL_W, SMALL_H, 0),
@@ -536,6 +593,26 @@ def main() -> int:
          width=W, height=H, bounces=BOUNCES, rpp=1, frames=FRAMES,
          launches=sph_launches, segments=sum(segs), timed_frames="2-5",
          timed_segments=sum(segs[2:]),
+         ms_per_frame=dt * 1e3 / (FRAMES - 2),
+         mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
+
+    # ---- 5b. the sphere-scene path: Renderer -> megakernel, dense loop ----
+    zero_counts()
+    dt, segs = drive(Renderer(device="cuda"), rballs,
+                     dataclasses.replace(params, antialias=True))
+    ball_launches = CUDA_MEGAKERNEL.launches
+    check(ball_launches == FRAMES, f"megakernel launched {ball_launches} "
+                                   f"times in {FRAMES} sphere-scene frames")
+    check(CUDA_SPHERES.launches == 0, "no small-scene launch on the "
+                                      "sphere-scene path")
+    check(CUDA_MEGAKERNEL.prepass_counts() == (0, 0),
+          "no brute-force prepass on the sphere-scene path")
+    check(CUDA_MEGAKERNEL.read_counts()["rows"] == 0,
+          "the sphere-scene path walks no tree")
+    emit(phase="sphere_scene_path", scene="random_balls (485 spheres) with "
+         "antialias", width=W, height=H, bounces=BOUNCES, rpp=1,
+         frames=FRAMES, launches=ball_launches, segments=sum(segs),
+         timed_frames="2-5", timed_segments=sum(segs[2:]),
          ms_per_frame=dt * 1e3 / (FRAMES - 2),
          mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
@@ -604,6 +681,19 @@ def main() -> int:
     # triangle table, so library_ms is null
     main_b = megakernel_bound(main_scene, main_cmp)
     room2_b = megakernel_bound(room2, room2_cmp)
+
+    def sphere_cell(scene, r, **more):
+        return dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                    max_abs_err=r["max_abs_err"],
+                    lane_occupancy=r["lane_occupancy"],
+                    segments=r["segments_kernel"],
+                    mrays_per_s=r["segments_kernel"] / r["kernel_ms"] / 1e3,
+                    rows_per_segment=r["rows_kernel"] / r["segments_kernel"],
+                    leaves_per_segment=r["leaves_kernel"]
+                    / r["segments_kernel"],
+                    boxes_per_segment=r["boxes_kernel"]
+                    / r["segments_kernel"],
+                    **megakernel_bound(scene, r), **more)
     sph_b = spheres_bound(rballs, sph_cmp)
     emit(kernels=[
         dict(name="megakernel", route="cuda",
@@ -621,7 +711,11 @@ def main() -> int:
                         plain_ms=room2_cmp["plain_ms"],
                         max_abs_err=room2_cmp["max_abs_err"],
                         lane_occupancy=room2_cmp["lane_occupancy"],
-                        **room2_b)),
+                        **room2_b),
+             random_balls_dense=sphere_cell(
+                 rballs, dense_cmp,
+                 launches_per_frame=ball_launches / FRAMES),
+             random_balls_sphere_bvh=sphere_cell(rballs_bvh, bvh_cmp)),
         dict(name="spheres", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/spheres.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_spheres.py:149",

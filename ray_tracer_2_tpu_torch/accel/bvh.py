@@ -64,6 +64,21 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     tri_min = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
     tri_max = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
     centroid = ((v0 + v1 + v2) * (1.0 / 3.0)).astype(np.float32)
+    return build_bvh_bounds(tri_min, tri_max, centroid, max_leaf)
+
+
+def build_bvh_bounds(tri_min: np.ndarray, tri_max: np.ndarray,
+                     centroid: np.ndarray, max_leaf: int) -> BVH:
+    """Build over the boxes and centroids of any primitives (reference
+    ``build_bvh_bounds``): the sphere BVH is built from the spheres' boxes
+    with the triangle machinery. ``tri_order`` is the permutation of the
+    primitives into leaf order."""
+    n = len(tri_min)
+    if n == 0:
+        z3 = np.zeros((1, 3), np.float32)
+        zi = np.zeros(1, np.int32)
+        return BVH(z3, z3, zi, zi.copy(), zi.copy(), zi.copy(), zi.copy(),
+                   np.zeros(0, np.int64))
     order = np.arange(n, dtype=np.int64)
 
     node_min: list = [tri_min.min(axis=0)]

@@ -1,9 +1,11 @@
 """COMPACT 32-ary (wide) BVH rows — one CANONICAL table, contiguous children.
 
-The triangle-row packer of ``ray_tracer_2_tpu/accel/wide.py``, copied so the
-port never imports the JAX package (the sphere-BVH packer and the scalar
-test traversal wait for their slices). ``tests/test_torch_scene.py`` pins
-that both packages pack byte-identical rows. The reference module's
+The triangle-row and sphere-row packers of
+``ray_tracer_2_tpu/accel/wide.py``, copied so the port never imports the JAX
+package (its scalar test traversal is not copied: the port's tests walk the
+rows with the plain megakernel). ``tests/test_torch_scene.py`` and
+``tests/test_torch_sphere_bvh.py`` pin that both packages pack
+byte-identical rows. The reference module's
 docstring explains the layout and why it was chosen; in short:
 
   wide row  (COL_COUNT == 0)
@@ -17,6 +19,12 @@ docstring explains the layout and why it was chosen; in short:
     15/16   COL_COUNT / COL_FIRST
     17..113 12 components x 8 triangles, blocked:
             v0x*8 v0y*8 v0z*8 e1x*8 e1y*8 e1z*8 e2x*8 e2y*8 e2z*8 nx*8 ny*8 nz*8
+  sphere leaf row  (COL_COUNT > 0, below the sphere BVH's root)
+    0..8    the spheres' original ids as floats (exact below 2^24)
+    15/16   COL_COUNT / COL_FIRST
+    17..49  4 components x 8 spheres, blocked: cx*8 cy*8 cz*8 r2*8; an
+            empty slot carries r2 = -1, so its discriminant
+            b^2 - 4a(|oc|^2 + 1) is negative and it never hits
 """
 from __future__ import annotations
 
@@ -41,6 +49,10 @@ MAX_ARITY = 32
 COL_MATCULL = 0
 COL_LEAF_GEO = 17
 N_LEAF_GEO_COLS = 96
+
+# sphere leaf rows (layout in the module docstring)
+COL_SPH_ID = 0
+SPH_CHUNK = 8
 
 
 _F16_MIN_NORMAL = np.float16(2.0 ** -14)
@@ -227,3 +239,35 @@ def _pack_rows(bvh: BVH, leaf_row, row_offset: int):
     # globalize base ids
     rows[:, COL_BASE] += np.where(rows[:, COL_COUNT] == 0.0, row_offset, 0.0)
     return rows, n_rows, wb.depth
+
+
+def pack_sphere_wide_rows(bvh: BVH, pos, radius, row_offset: int):
+    """Wide-row table of a sphere BVH, in world space (reference
+    ``pack_sphere_wide_rows``). ``pos``/``radius`` are LEAF-ORDERED (permuted
+    by bvh.tri_order); columns 0..8 of a leaf carry the ORIGINAL sphere ids,
+    so the traversal can fetch centre, radius and material of its winner
+    from the dense tables. Returns (rows (R, 128) f32, n_rows,
+    wide_depth)."""
+    orig_ids = np.asarray(bvh.tri_order, np.float32)  # leaf slot -> id
+    n = len(pos)
+
+    def leaf_row(nd: int) -> np.ndarray:
+        r = np.zeros(ROW_WIDTH, np.float32)
+        first, k = int(bvh.node_first[nd]), int(bvh.node_count[nd])
+        r[COL_COUNT] = k
+        r[COL_FIRST] = first
+        for j in range(SPH_CHUNK):
+            s = min(first + j, max(n - 1, 0))
+            valid = j < k
+            r[COL_SPH_ID + j] = orig_ids[s] if valid else 0.0
+            c = np.asarray(pos[s], np.float32)
+            rad = np.float32(radius[s])
+            r[COL_LEAF_GEO + j] = c[0]
+            r[COL_LEAF_GEO + 8 + j] = c[1]
+            r[COL_LEAF_GEO + 16 + j] = c[2]
+            # r2 with the float32 multiply of the dense test; an empty slot
+            # gets -1 and can never reach disc >= 0
+            r[COL_LEAF_GEO + 24 + j] = (rad * rad) if valid else -1.0
+        return r
+
+    return _pack_rows(bvh, leaf_row, row_offset)

@@ -23,10 +23,15 @@
 // (csrc/claim.cuh persistent_blocks), each lane holds one path and traces
 // one segment per turn of the warp's loop, and a lane whose pixel is done
 // claims the next, so warps stay full until the frame is handed out. The
-// per-scene tables (camera, spheres, the instance table and the
-// brute-force triangles as hoisted rows of 64 bytes, csrc/brute.cuh, at
-// most 66 KB) are staged in shared memory once per block; child boxes and
-// staged triangle rows are read as 16-byte loads. The kernel counts its
+// per-scene tables that every segment reads whole (the dense spheres, the
+// instance table and the brute-force triangles as hoisted rows of 64
+// bytes, csrc/brute.cuh) are staged in shared memory once per block when
+// together they fit 36 KB, and read from global memory (through L1)
+// otherwise, the triangle rows then staged once per scene by the host;
+// child boxes and staged triangle rows are read as 16-byte loads. From 64
+// dense spheres the prepass takes the shared-term formula (one division a
+// ray, csrc/spheres.cu's); a scene with a sphere BVH has no dense prepass
+// and walks that tree last, with the same row walk. The kernel counts its
 // own work (interior-row, leaf and child-box visits, lane-loop turns and
 // active lanes), and the plain version counts the same visits.
 // It is written to match the plain PyTorch version
@@ -40,9 +45,13 @@
 //   for each of rpp samples: camera ray, then up to bounces+1 segments of
 //   {dense sphere prepass; each brute-force group in instance order, its
 //   model-space hit merged by world distance; each wide-BVH instance in
-//   order, its traversal pruned at the best world distance so far; shade
-//   (glass or diffuse/specular) with the hit instance's transform}; every
-//   merge is a strict `<`, so an equal distance keeps the earlier hit.
+//   order, its traversal pruned at the best world distance so far; the
+//   sphere BVH, where the scene has one instead of the dense prepass, in
+//   world space, pruned likewise; shade (glass or diffuse/specular) with
+//   the hit instance's transform}; every merge is a strict `<`, so an equal
+//   distance keeps the earlier hit, except that a sphere of the sphere BVH
+//   takes an equal distance (it would have been tested first), the lowest
+//   sphere id among equal spheres.
 //   out[pixel] = sum / rpp; every started segment counts once.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +64,8 @@ namespace {
 constexpr float kInf = 1.7014118e38f;  // 2^127, the reference's INF
 constexpr int kRow = 128;              // floats per wide / attr row
 constexpr int kMaxStack = 16;          // resume-stack capacity (>= depth+2)
-constexpr int kMaxSpheres = 32;        // dense prepass capacity
+constexpr int kMaxSpheres = 2047;      // dense prepass capacity
+constexpr int kSphSent = 0x3FFFFFFF;   // sphere-BVH id of "no sphere yet"
 constexpr int kArity = 32;             // children per wide row
 constexpr int kThreads = 128;
 
@@ -67,6 +77,7 @@ constexpr int kColCount = 15;
 constexpr int kColFirst = 16;
 constexpr int kColAabb = 16;
 constexpr int kColGeo = 17;
+constexpr int kColSphId = 0;  // sphere leaf rows: the 8 original ids
 
 // scal layout: cam[:3,:4] row-major, view_params, defocus, diverge
 constexpr int kScCam = 0;
@@ -74,7 +85,13 @@ constexpr int kScView = 12;
 constexpr int kScDefocus = 15;
 constexpr int kScDiverge = 16;
 constexpr int kScal = 17;
-constexpr int kSphStride = 5;  // cx cy cz radius mat
+// sphere table rows: cx cy cz radius mat; where the dense prepass takes the
+// shared-term formula (kSphFast) the fourth is |c|^2 - r^2 instead
+constexpr int kSphStride = 5;
+// how a scene's spheres are tested (kernels/megakernel.py kernel_tables)
+constexpr int kSphExact = 0;  // dense, the reference-order quadratic
+constexpr int kSphFast = 1;   // dense, shared terms (>= 64 spheres)
+constexpr int kSphBvh = 2;    // the sphere BVH, after the instances
 // instance table rows (kernels/megakernel.py kernel_tables): w2m[:3,:4],
 // m2w[:3,:4], root row, first triangle, triangle count, material-id delta,
 // brute-force flag, first row in the staged brute table
@@ -88,15 +105,16 @@ constexpr int kInDelta = 27;
 constexpr int kInBrute = 28;
 constexpr int kInSlot = 29;
 constexpr int kBruteCols = 16;  // packed brute table (kernels/brute.py)
-// instance and brute tables share the block's dynamic shared memory
-// (kernels/megakernel.py SMEM_BYTES): 66 KB, so that every scene that fit
-// the earlier 45 KB at 44 bytes a staged triangle still fits at 64. Above
-// 48 KB the launch opts in (cudaFuncSetAttribute); the 7 resident blocks
-// the general forms are held to fit while a scene's tables stay under
-// 31 KB (7 x (31 + 1 + 1) KB <= 227 KB), fewer above, as
-// csrc/claim.cuh persistent_blocks then counts.
-constexpr int kDynSmemBytes = 66 * 1024;
-constexpr int kOptInSmemBytes = 48 * 1024;
+// instance, brute and dense sphere tables share the block's dynamic shared
+// memory while together they fit kDynSmemBytes (kernels/megakernel.py
+// SMEM_BYTES); a scene past it is read from global memory. What shared
+// memory a block takes, the SM cannot give to other blocks: of the 7
+// resident blocks the general forms are held to, 6 fit at 36 KB of tables
+// (with the 1 KB the system keeps per block, 6 x 37.1 KB of the SM's 228
+// KB), 5 at 39 KB, 3 at 64 KB. Measured
+// (PERF.md, section 6): staged tables are 1-12% faster than global ones up
+// to 32 KB, tie at 39 KB and are 19% and 36% slower at 48 and 64 KB.
+constexpr int kDynSmemBytes = 36 * 1024;
 constexpr float kFlagGlass = 1.0f;  // material flag of glass
 
 // What the kernel counts, accumulated across launches in int64 words
@@ -120,16 +138,35 @@ struct Params {
   const float* spheres;
   const float* scal;
   const float* inst;
+  // the packed brute-force rows, which each block stages; where the tables
+  // are read from global memory, the rows the host staged instead
   const float* brute;
   float* out;
   // per launch, zeroed by the wrapper (csrc/claim.cuh kScratch*): segments,
   // the pixel cursor, "this launch ran the brute-force prepass"
   unsigned long long* scratch;
   unsigned long long* counts;  // kCounts words, accumulated
-  int n_spheres, n_inst, n_brute, width, height, row_start, total;
+  // sph: the number of dense spheres or, in the sphere-BVH forms (kSphBvh),
+  // which run no loop over the spheres, the BVH's root row in wide_rows.
+  // Read it through dense_spheres<kSph>() or sphere_root<kSph>() only: each
+  // compiles in the forms where the word has that meaning and in no other.
+  // (A field more in this struct, even one its form never reads, cost the
+  // main path 4%: PERF.md, section 6.)
+  int sph, n_inst, n_brute, width, height, row_start, total;
   int bounces, rpp, skybox, antialias;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
 };
+
+template <int kSph>
+__device__ __forceinline__ int dense_spheres(const Params& p) {
+  static_assert(kSph != kSphBvh, "a sphere-BVH form has no dense spheres");
+  return p.sph;
+}
+template <int kSph>
+__device__ __forceinline__ int sphere_root(const Params& p) {
+  static_assert(kSph == kSphBvh, "only a sphere-BVH form has a sphere root");
+  return p.sph;
+}
 
 // Visits of one segment's traversals (folded into 64-bit sums per lane)
 struct Visits {
@@ -295,6 +332,11 @@ struct Hit {
 // `limit` (megakernel.py wide_enter + traversal_step): enter the nearest hit
 // child, push the other hits as (base, mask, least entry distance), pop the
 // deepest entry still closer than the best hit, lowest child index first.
+// With kSpheres the tree is the sphere BVH and the ray the world-space one:
+// a leaf holds 8 spheres (megakernel.py traversal_step :481-521), h.tri is
+// the winning sphere's id (kSphSent: none) and a sphere wins over the hit
+// so far in (distance, id) order.
+template <bool kSpheres>
 __device__ void traverse(const float* __restrict__ wide_rows, int root,
                          const float om[3], const float dm[3], float limit,
                          Hit& h, Visits& vis) {
@@ -303,7 +345,7 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
   float sd[kMaxStack];
   int sp = 0;
   h.dst = limit;
-  h.tri = -1;
+  h.tri = kSpheres ? kSphSent : -1;
   h.u = h.v = h.det = 0.0f;
   h.mat = 0;
   int cur = root;
@@ -312,41 +354,65 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
     const float* row = wide_rows + (size_t)cur * kRow;
     bool finished;
     if (!root_visit && __ldg(row + kColCount) > 0.5f) {
-      // leaf: 8 triangles, blocked geometry with precomputed edges/normal
       ++vis.leaves;
       const float* g = row + kColGeo;
-      int first = (int)__ldg(row + kColFirst);
-      for (int j = 0; j < 8; ++j) {
-        float v0x = __ldg(g + j), v0y = __ldg(g + 8 + j),
-              v0z = __ldg(g + 16 + j);
-        float e1x = __ldg(g + 24 + j), e1y = __ldg(g + 32 + j),
-              e1z = __ldg(g + 40 + j);
-        float e2x = __ldg(g + 48 + j), e2y = __ldg(g + 56 + j),
-              e2z = __ldg(g + 64 + j);
-        float nx = __ldg(g + 72 + j), ny = __ldg(g + 80 + j),
-              nz = __ldg(g + 88 + j);
-        float det = -((dm[0] * nx + dm[1] * ny) + dm[2] * nz);
-        int mc = (int)__ldg(row + kColMatCull + j);
-        bool cull = (mc & 1) == 1;
-        bool keep = cull ? (det >= 1e-8f) : (fabsf(det) >= 1e-8f);
-        if (!keep) continue;
-        float inv_det = 1.0f / det;
-        float aox = om[0] - v0x, aoy = om[1] - v0y, aoz = om[2] - v0z;
-        float daox = aoy * dm[2] - aoz * dm[1];
-        float daoy = aoz * dm[0] - aox * dm[2];
-        float daoz = aox * dm[1] - aoy * dm[0];
-        float dst = ((aox * nx + aoy * ny) + aoz * nz) * inv_det;
-        float u = ((e2x * daox + e2y * daoy) + e2z * daoz) * inv_det;
-        float v = -((e1x * daox + e1y * daoy) + e1z * daoz) * inv_det;
-        float w = (1.0f - u) - v;
-        if (dst > 1e-5f && u >= 0.0f && v >= 0.0f && w >= 0.0f &&
-            dst < h.dst) {
-          h.dst = dst;
-          h.u = u;
-          h.v = v;
-          h.det = det;
-          h.tri = first + j;
-          h.mat = mc >> 1;
+      if constexpr (kSpheres) {
+        // leaf: 8 spheres, blocked cx cy cz r^2; an empty slot has
+        // r^2 = -1 and cannot hit. The dense test's arithmetic.
+        float a_q = (dm[0] * dm[0] + dm[1] * dm[1]) + dm[2] * dm[2];
+        for (int j = 0; j < 8; ++j) {
+          float ocx = om[0] - __ldg(g + j), ocy = om[1] - __ldg(g + 8 + j),
+                ocz = om[2] - __ldg(g + 16 + j);
+          float b_q = 2.0f * ((ocx * dm[0] + ocy * dm[1]) + ocz * dm[2]);
+          float c_q = ((ocx * ocx + ocy * ocy) + ocz * ocz) -
+                      __ldg(g + 24 + j);
+          float disc = b_q * b_q - (4.0f * a_q) * c_q;
+          float sq = sqrtf(nan_max(disc, 0.0f));
+          float dn = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f);
+          float df = (-b_q + sq) / (2.0f * a_q);
+          float dst = dn == 0.0f ? df : dn;
+          float sid = __ldg(row + kColSphId + j);
+          if (disc >= 0.0f && df >= 0.001f &&
+              (dst < h.dst || (dst == h.dst && sid < (float)h.tri))) {
+            h.dst = dst;
+            h.tri = (int)sid;
+          }
+        }
+      } else {
+        // leaf: 8 triangles, blocked geometry with precomputed edges/normal
+        int first = (int)__ldg(row + kColFirst);
+        for (int j = 0; j < 8; ++j) {
+          float v0x = __ldg(g + j), v0y = __ldg(g + 8 + j),
+                v0z = __ldg(g + 16 + j);
+          float e1x = __ldg(g + 24 + j), e1y = __ldg(g + 32 + j),
+                e1z = __ldg(g + 40 + j);
+          float e2x = __ldg(g + 48 + j), e2y = __ldg(g + 56 + j),
+                e2z = __ldg(g + 64 + j);
+          float nx = __ldg(g + 72 + j), ny = __ldg(g + 80 + j),
+                nz = __ldg(g + 88 + j);
+          float det = -((dm[0] * nx + dm[1] * ny) + dm[2] * nz);
+          int mc = (int)__ldg(row + kColMatCull + j);
+          bool cull = (mc & 1) == 1;
+          bool keep = cull ? (det >= 1e-8f) : (fabsf(det) >= 1e-8f);
+          if (!keep) continue;
+          float inv_det = 1.0f / det;
+          float aox = om[0] - v0x, aoy = om[1] - v0y, aoz = om[2] - v0z;
+          float daox = aoy * dm[2] - aoz * dm[1];
+          float daoy = aoz * dm[0] - aox * dm[2];
+          float daoz = aox * dm[1] - aoy * dm[0];
+          float dst = ((aox * nx + aoy * ny) + aoz * nz) * inv_det;
+          float u = ((e2x * daox + e2y * daoy) + e2z * daoz) * inv_det;
+          float v = -((e1x * daox + e1y * daoy) + e1z * daoz) * inv_det;
+          float w = (1.0f - u) - v;
+          if (dst > 1e-5f && u >= 0.0f && v >= 0.0f && w >= 0.0f &&
+              dst < h.dst) {
+            h.dst = dst;
+            h.u = u;
+            h.v = v;
+            h.det = det;
+            h.tri = first + j;
+            h.mat = mc >> 1;
+          }
         }
       }
       finished = true;
@@ -531,11 +597,30 @@ __device__ __forceinline__ void start_sample(const Params& p,
   ++q.sample;
 }
 
+// Make the sphere of table row `sp` (centre first), hit at `dst`, the
+// segment's hit, with its outward or flipped-inside normal.
+__device__ __forceinline__ void sphere_hit(const float* sp, int mat,
+                                           const float o[3],
+                                           const float d[3], float dst,
+                                           bool inside, SegHit& h,
+                                           float normal[3]) {
+  h.dst = dst;
+  h.kind = -2;
+  h.mat = mat;
+  h.flag = inside ? 1 : 0;
+  for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * dst;
+  float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1], h.point[2] - sp[2]};
+  normalize3(n);
+  for (int r = 0; r < 3; ++r) normal[r] = inside ? -n[r] : n[r];
+}
+
 // One segment of the lane's path: {dense sphere prepass; each brute-force
-// group; each wide-BVH instance; shade; Russian roulette}. Updates the
-// ray, transmission, incoming light and seed; returns whether the path
-// goes on. `tests` counts the brute-force closest-hit calls.
-template <bool kGeneral, bool kGlass>
+// group; each wide-BVH instance; the sphere BVH; shade; Russian roulette}.
+// Updates the ray, transmission, incoming light and seed; returns whether
+// the path goes on. `tests` counts the brute-force closest-hit calls.
+// `s_sph`, `s_inst` and `s_brute` are the tables every segment reads
+// whole, in shared or in global memory.
+template <bool kGeneral, bool kGlass, int kSph>
 __device__ __forceinline__ bool trace_segment(
     const Params& p, const float* s_sph, const float* s_inst,
     const float4* s_brute, Path& q, unsigned long long& tests,
@@ -554,42 +639,79 @@ __device__ __forceinline__ bool trace_segment(
   for (int r = 0; r < 3; ++r) h.point[r] = 0.0f;
   float normal[3] = {0.0f, 0.0f, 0.0f};
 
-  // ---- dense sphere prepass (intersect.ray_sphere, first index on equal
-  // distance like argmin)
-  int sidx = 0;
-  bool s_in = false, s_hit = false;
-  float sph_dst = kInf;
-  float a_q = dot3(d, d);
-  for (int si = 0; si < p.n_spheres; ++si) {
-    const float* sp = s_sph + si * kSphStride;
-    float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
-    float b_q = 2.0f * dot3(oc, d);
-    float c_q = dot3(oc, oc) - sp[3] * sp[3];
-    float disc = b_q * b_q - (4.0f * a_q) * c_q;
-    float sq = sqrtf(nan_max(disc, 0.0f));
-    float dn = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f);
-    float df = (-b_q + sq) / (2.0f * a_q);
-    bool is_in = dn == 0.0f;
-    bool hit = (disc >= 0.0f) && (df >= 0.001f);
-    float ds = hit ? (is_in ? df : dn) : kInf;
-    if (ds < sph_dst) {
-      sph_dst = ds;
-      sidx = si;
-      s_in = is_in;
-      s_hit = hit;
+  // ---- dense sphere prepass (intersect.closest_sphere): the first index on
+  // an equal distance like argmin. The exact branch is the main path's and
+  // is kept as it was measured: rewritten to share the fast branch's
+  // epilogue it cost that path 6% (PERF.md, section 6).
+  if constexpr (kSph == kSphExact) {
+    // intersect.ray_sphere: the reference-order quadratic
+    int sidx = 0;
+    bool s_in = false, s_hit = false;
+    float sph_dst = kInf;
+    float a_q = dot3(d, d);
+    for (int si = 0; si < dense_spheres<kSph>(p); ++si) {
+      const float* sp = s_sph + si * kSphStride;
+      float oc[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
+      float b_q = 2.0f * dot3(oc, d);
+      float c_q = dot3(oc, oc) - sp[3] * sp[3];
+      float disc = b_q * b_q - (4.0f * a_q) * c_q;
+      float sq = sqrtf(nan_max(disc, 0.0f));
+      float dn = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f);
+      float df = (-b_q + sq) / (2.0f * a_q);
+      bool is_in = dn == 0.0f;
+      bool hit = (disc >= 0.0f) && (df >= 0.001f);
+      float ds = hit ? (is_in ? df : dn) : kInf;
+      if (ds < sph_dst) {
+        sph_dst = ds;
+        sidx = si;
+        s_in = is_in;
+        s_hit = hit;
+      }
     }
-  }
-  if (s_hit) {
-    const float* sp = s_sph + sidx * kSphStride;
-    h.dst = sph_dst;
-    h.kind = -2;
-    h.mat = (int)sp[4];
-    h.flag = s_in ? 1 : 0;
-    for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * sph_dst;
-    float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1],
-                  h.point[2] - sp[2]};
-    normalize3(n);
-    for (int r = 0; r < 3; ++r) normal[r] = s_in ? -n[r] : n[r];
+    if (s_hit) {
+      const float* sp = s_sph + sidx * kSphStride;
+      h.dst = sph_dst;
+      h.kind = -2;
+      h.mat = (int)sp[4];
+      h.flag = s_in ? 1 : 0;
+      for (int r = 0; r < 3; ++r) h.point[r] = o[r] + d[r] * sph_dst;
+      float n[3] = {h.point[0] - sp[0], h.point[1] - sp[1],
+                    h.point[2] - sp[2]};
+      normalize3(n);
+      for (int r = 0; r < 3; ++r) normal[r] = s_in ? -n[r] : n[r];
+    }
+  } else if constexpr (kSph == kSphFast) {
+    // intersect.ray_sphere_fast: shared terms, one 1/a a ray; the winner is
+    // a hit where its distance is under INF
+    int sidx = -1;
+    bool s_in = false;
+    float sph_dst = kInf;
+    float a_q = dot3(d, d);
+    float inv_a = 1.0f / a_q;
+    float oo = dot3(o, o), od = dot3(o, d);
+    for (int si = 0; si < dense_spheres<kSph>(p); ++si) {
+      const float* sp = s_sph + si * kSphStride;
+      float cd = (sp[0] * d[0] + sp[1] * d[1]) + sp[2] * d[2];
+      float co = (sp[0] * o[0] + sp[1] * o[1]) + sp[2] * o[2];
+      float hq = od - cd;
+      float c_q = (oo - 2.0f * co) + sp[3];
+      float disc = hq * hq - a_q * c_q;
+      float sq = sqrtf(nan_max(disc, 0.0f));
+      float dn = nan_max((-hq - sq) * inv_a, 0.0f);
+      float df = (-hq + sq) * inv_a;
+      bool is_in = dn == 0.0f;
+      bool hit = (disc >= 0.0f) && (df >= 0.001f);
+      float ds = hit ? (is_in ? df : dn) : kInf;
+      if (ds < sph_dst) {
+        sph_dst = ds;
+        sidx = si;
+        s_in = is_in;
+      }
+    }
+    if (sidx >= 0) {
+      const float* sp = s_sph + sidx * kSphStride;
+      sphere_hit(sp, (int)sp[4], o, d, sph_dst, s_in, h, normal);
+    }
   }
 
   // ---- brute-force groups, in instance order (segment_prepass
@@ -622,10 +744,30 @@ __device__ __forceinline__ bool trace_segment(
     float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
     float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
     Hit th;
-    traverse(p.wide_rows, (int)in[kInRoot], om, dm, limit, th, vis);
+    traverse<false>(p.wide_rows, (int)in[kInRoot], om, dm, limit, th, vis);
     if (th.tri >= 0)
       merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det, th.tri,
                      th.mat, h);
+  }
+
+  // ---- the sphere BVH, in world space, entered with the best world
+  // distance so far (_advance_impl :714-733). The winner's centre, radius
+  // and material come from the sphere table, its inside flag from the
+  // dense quadratic (_sphere_merge :592-626).
+  if constexpr (kSph == kSphBvh) {
+    Hit sh;
+    traverse<true>(p.wide_rows, sphere_root<kSph>(p), o, d, h.dst, sh, vis);
+    if (sh.tri != kSphSent) {
+      const float* sp = p.spheres + (size_t)sh.tri * kSphStride;
+      float c[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3)};
+      float oc[3] = {o[0] - c[0], o[1] - c[1], o[2] - c[2]};
+      float a_q = dot3(d, d);
+      float b_q = 2.0f * dot3(oc, d);
+      float disc = b_q * b_q - (4.0f * a_q) * (dot3(oc, oc) - c[3] * c[3]);
+      float sq = sqrtf(nan_max(disc, 0.0f));
+      bool inside = nan_max((-b_q - sq) / (2.0f * a_q), 0.0f) == 0.0f;
+      sphere_hit(c, (int)__ldg(sp + 4), o, d, sh.dst, inside, h, normal);
+    }
   }
 
   // ---- resolve + shade (megakernel.py resolve_and_shade :739;
@@ -746,23 +888,42 @@ __device__ __forceinline__ bool trace_segment(
 // kGeneral is false for exactly one instance, traversed in its wide BVH
 // (the main path), which then compiles without the brute-force prepass and
 // the instance loop; kGlass is false when no material is glass, which
-// compiles out the glass branch.
-template <bool kGeneral, bool kGlass>
+// compiles out the glass branch; kSph says how spheres are tested (kSph*);
+// kStaged is false when the scene's tables pass kDynSmemBytes and are read
+// from global memory instead of being staged.
+template <bool kGeneral, bool kGlass, int kSph, bool kStaged>
 __device__ __forceinline__ void render_kernel(const Params& p) {
   __shared__ float s_scal[kScal];
-  __shared__ float s_sph[kMaxSpheres * kSphStride];
   __shared__ unsigned long long s_warp[kThreads / 32];
   extern __shared__ __align__(16) float s_dyn[];
-  float* s_inst = s_dyn;
-  float4* s_brute = reinterpret_cast<float4*>(s_dyn + p.n_inst * kInstCols);
+  // dynamic shared memory: instance rows, staged triangles, dense spheres
+  const float* s_inst = p.inst;
+  const float4* s_brute = reinterpret_cast<const float4*>(p.brute);
+  const float* s_sph = p.spheres;
   for (int i = threadIdx.x; i < kScal; i += blockDim.x) s_scal[i] = p.scal[i];
-  for (int i = threadIdx.x; i < p.n_spheres * kSphStride; i += blockDim.x)
-    s_sph[i] = p.spheres[i];
-  for (int i = threadIdx.x; i < p.n_inst * kInstCols; i += blockDim.x)
-    s_inst[i] = p.inst[i];
-  for (int i = threadIdx.x; kGeneral && i < p.n_brute; i += blockDim.x)
-    rt2_brute::stage_row(p.brute + (size_t)i * kBruteCols,
-                         s_brute + i * rt2_brute::kRowWords);
+  if (kStaged) {
+    // the main path's form has one instance and no brute-force triangle:
+    // its tables lie at offsets known when it is compiled
+    const int n_inst = kGeneral ? p.n_inst : 1;
+    const int n_brute = kGeneral ? p.n_brute : 0;
+    float* d_inst = s_dyn;
+    float4* d_brute = reinterpret_cast<float4*>(s_dyn + n_inst * kInstCols);
+    float* d_sph =
+        reinterpret_cast<float*>(d_brute + n_brute * rt2_brute::kRowWords);
+    for (int i = threadIdx.x; i < n_inst * kInstCols; i += blockDim.x)
+      d_inst[i] = p.inst[i];
+    for (int i = threadIdx.x; kGeneral && i < n_brute; i += blockDim.x)
+      rt2_brute::stage_row(p.brute + (size_t)i * kBruteCols,
+                           d_brute + i * rt2_brute::kRowWords);
+    if constexpr (kSph != kSphBvh) {
+      for (int i = threadIdx.x; i < dense_spheres<kSph>(p) * kSphStride;
+           i += blockDim.x)
+        d_sph[i] = p.spheres[i];
+    }
+    s_inst = d_inst;
+    s_brute = d_brute;
+    s_sph = d_sph;
+  }
   __syncthreads();
 
   unsigned* cursor =
@@ -808,8 +969,8 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
     if (has_path) {
       ++segs;
       Visits vis = {0u, 0u, 0u};
-      bool goes_on = trace_segment<kGeneral, kGlass>(p, s_sph, s_inst,
-                                                     s_brute, q, tests, vis);
+      bool goes_on = trace_segment<kGeneral, kGlass, kSph>(
+          p, s_sph, s_inst, s_brute, q, tests, vis);
       rows += vis.rows;
       leaves += vis.leaves;
       boxes += vis.boxes;
@@ -844,28 +1005,42 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
 // and instances_scene. The main path's forms measured slower held to 7 or
 // 8 blocks, and with a minimum of 1 ptxas gave them 102 registers (4
 // blocks) instead of 96 (5 blocks), so they carry no minimum (PERF.md,
-// section 5).
+// section 5). The general forms beyond the exact dense prepass on staged
+// tables (the fast prepass, the sphere BVH, tables in global memory) are
+// compiled with the glass branch only: nine kernels in all.
 constexpr int kGeneralMinBlocks = 7;
 
 template <bool kGlass>
 __global__ void __launch_bounds__(kThreads) render_single(Params p) {
-  render_kernel<false, kGlass>(p);
+  render_kernel<false, kGlass, kSphExact, true>(p);
 }
 
-template <bool kGlass>
+template <bool kGlass, int kSph, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
 render_general(Params p) {
-  render_kernel<true, kGlass>(p);
+  render_kernel<true, kGlass, kSph, kStaged>(p);
 }
 
-template <bool kGeneral, bool kGlass>
-cudaError_t launch(size_t smem, cudaStream_t stream, const Params& p) {
-  auto kernel = kGeneral ? render_general<kGlass> : render_single<kGlass>;
-  if (smem > (size_t)kOptInSmemBytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+using Kernel = void (*)(Params);
+
+// The compiled form for a scene class; nullptr for a class without one.
+Kernel pick_kernel(bool general, bool glass, int sph, bool staged) {
+  if (sph == kSphExact && staged) {
+    if (!general) return glass ? render_single<true> : render_single<false>;
+    return glass ? render_general<true, kSphExact, true>
+                 : render_general<false, kSphExact, true>;
   }
+  if (!general || !glass) return nullptr;
+  if (staged)
+    return sph == kSphFast ? render_general<true, kSphFast, true>
+                           : render_general<true, kSphBvh, true>;
+  return sph == kSphExact  ? render_general<true, kSphExact, false>
+         : sph == kSphFast ? render_general<true, kSphFast, false>
+                           : render_general<true, kSphBvh, false>;
+}
+
+cudaError_t launch(Kernel kernel, size_t smem, cudaStream_t stream,
+                   const Params& p) {
   int blocks = rt2_claim::persistent_blocks(kernel, kThreads, smem, p.total);
   kernel<<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -873,31 +1048,52 @@ cudaError_t launch(size_t smem, cudaStream_t stream, const Params& p) {
 
 }  // namespace
 
-// Launch on `stream`; allocates nothing and does not synchronise. `general`
-// and `glass` pick the compiled form (render_kernel, launched through
-// render_single or render_general); `general` == 0 needs
-// exactly one instance, a wide-BVH one, and `glass` == 0 no glass
-// material. `scratch` holds rt2_claim::kScratchWords zeroed int64 words
-// (the segment count lands in word 0), `counts` kCounts words that the
-// launch adds to. `wide_rows` and `brute` must be 16-byte aligned. Returns
+// Launch on `stream`; allocates nothing and does not synchronise. `general`,
+// `glass`, `spheres_mode` and `staged` pick the compiled form (render_kernel
+// through render_single or render_general; pick_kernel): `general` == 0
+// needs exactly one instance, a wide-BVH one, `glass` == 0 no glass
+// material, both need `spheres_mode` == 0 and `staged` == 1.
+// `spheres_mode` is kSphExact, kSphFast (the fourth column of `spheres`
+// then holds |c|^2 - r^2) or kSphBvh (`sphere_root` is then the sphere
+// BVH's root row in `wide_rows`, and `spheres` holds radii). With `staged`
+// == 1 the tables must fit kDynSmemBytes and `brute` holds the packed
+// brute-force rows (kernels/brute.py pack_brute_table), which each block
+// stages; with `staged` == 0 the tables are read from global memory and
+// `brute` holds the rows as stage_row makes them (n_brute rows of 16
+// floats, kernels/brute.py stage_brute_rows). `scratch` holds
+// rt2_claim::kScratchWords zeroed int64 words (the segment count lands in
+// word 0), `counts` kCounts words that the launch adds to. `wide_rows`
+// and `brute` must be 16-byte aligned. Returns
 // cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_persistent(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
-    int antialias, int general, int glass, unsigned int frame_seed,
+    int antialias, int general, int glass,
+    int spheres_mode, int staged, int sphere_root, unsigned int frame_seed,
     float* out, unsigned long long* scratch, unsigned long long* counts,
     void* stream) {
-  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_inst < 0 ||
+  if (n_spheres < 0 || n_inst < 0 ||
       n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
       (((uintptr_t)wide_rows | (uintptr_t)brute) & 15u) != 0u)
     return (int)cudaErrorInvalidValue;
+  if (spheres_mode == kSphBvh ? (sphere_root < 0 || n_spheres < 1)
+                              : n_spheres > kMaxSpheres)
+    return (int)cudaErrorInvalidValue;
   if (!general && (n_inst != 1 || n_brute != 0))
     return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(float) * ((size_t)n_inst * kInstCols +
-                                 (size_t)n_brute * 4 * rt2_brute::kRowWords);
-  if (smem > (size_t)kDynSmemBytes) return (int)cudaErrorInvalidValue;
+  Kernel kernel = pick_kernel(general != 0, glass != 0, spheres_mode,
+                              staged != 0);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if (staged) {
+    smem = sizeof(float) *
+           ((size_t)n_inst * kInstCols +
+            (size_t)n_brute * 4 * rt2_brute::kRowWords +
+            (spheres_mode == kSphBvh ? 0 : (size_t)n_spheres * kSphStride));
+    if (smem > (size_t)kDynSmemBytes) return (int)cudaErrorInvalidValue;
+  }
   Params p;
   p.wide_rows = wide_rows;
   p.tri_attr = tri_attr;
@@ -909,7 +1105,7 @@ extern "C" int rt2_render_persistent(
   p.out = out;
   p.scratch = scratch;
   p.counts = counts;
-  p.n_spheres = n_spheres;
+  p.sph = spheres_mode == kSphBvh ? sphere_root : n_spheres;
   p.n_inst = n_inst;
   p.n_brute = n_brute;
   p.width = width;
@@ -921,10 +1117,5 @@ extern "C" int rt2_render_persistent(
   p.skybox = skybox;
   p.antialias = antialias;
   p.frame_seed = frame_seed;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (general)
-    return (int)(glass ? launch<true, true>(smem, st, p)
-                       : launch<true, false>(smem, st, p));
-  return (int)(glass ? launch<false, true>(smem, st, p)
-                     : launch<false, false>(smem, st, p));
+  return (int)launch(kernel, smem, (cudaStream_t)stream, p);
 }

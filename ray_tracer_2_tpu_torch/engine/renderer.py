@@ -8,11 +8,14 @@ that buffer on one device; the blend updates it in place.
 Routing (reference ``render_sample`` and ``Renderer._use_pallas_spheres``):
 a small scene (``kernels/spheres.eligible``: spheres plus at most 64
 untextured triangles) renders through ``render_spheres``, unless it asks
-for antialias, which that path does not take; every other frame goes
-through ``render_persistent``, which raises for a scene outside the ported
-megakernel (e.g. more than 32 spheres). The reference also capped the
+for antialias, which that path does not take, or was instantiated with the
+sphere BVH, which only the megakernel walks; every other frame goes
+through ``render_persistent`` (the megakernel), which raises only for a
+scene outside the ported slices (textures). The reference also capped the
 small path at 128 spheres, a choice between two TPU implementations; the
-port has no other path for large sphere scenes, so it has no such cap.
+port has no such cap. Both kernels now take every small scene, and what
+each measured on the H100 is in PERF.md, section 6; the routing waits for a
+benchmark to be changed against (ROADMAP, perf_opt queue).
 """
 from __future__ import annotations
 
@@ -39,10 +42,12 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 def small_scene(scene: TorchScene) -> bool:
     """Whether ``scene`` takes the small-scene path; decided once per scene
-    (kept in ``scene.derived``)."""
+    (kept in ``scene.derived``). A scene instantiated with a sphere BVH does
+    not: only the megakernel walks it."""
     route = scene.derived.get("small_scene")
     if route is None:
-        route = scene.derived["small_scene"] = spheres.eligible(scene)
+        route = scene.derived["small_scene"] = \
+            scene.sphere_bvh_root < 0 and spheres.eligible(scene)
     return route
 
 
@@ -94,14 +99,14 @@ class Renderer:
                 f"{self.device}; move it once with scene.to(device)")
         if params.debug_mode != DebugMode.OFF:
             raise NotImplementedError(
-                "debug modes wait for their slice (ROADMAP Queue 1 item 5)")
+                "debug modes wait for their slice (ROADMAP Queue 1 item 4)")
         if params.nee:
             raise NotImplementedError(
                 "next-event estimation waits for its slice "
-                "(ROADMAP Queue 1 item 2)")
+                "(ROADMAP Queue 1 item 1)")
         if params.normal_maps:
             raise NotImplementedError(
-                "normal maps wait for their slice (ROADMAP Queue 1 item 4)")
+                "normal maps wait for their slice (ROADMAP Queue 1 item 3)")
         self.ensure_framebuffer(params.width, params.height)
         self.framebuffer, self.last_segments = render_frame(
             scene, self.framebuffer, int(params.frames),

@@ -2,7 +2,7 @@
 brute-force kernel, for comparing source trees in one run on one card.
 
     python3 -m ray_tracer_2_tpu_torch.kernel_times [TREE ...] \\
-        [--order ABBA] [--reps 20] [--out FILE]
+        [--order ABBA] [--reps 20] [--only REGEX] [--out FILE]
 
 Each TREE is the root of a checkout of this repository (default: the one
 this module lies in); the first is A, the second B. ``--order`` lists the
@@ -22,6 +22,23 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
   path, the image and the segment count stay what they were and only the
   prepass loop's work doubles: the time added is what the loop costs in a
   frame;
+* sphere-heavy scenes at bounces 5 (a scene name is a scene of
+  ``scenes.py`` or of ``_SCENES`` below, then ``+flags``: ``+aa``
+  antialias, ``+bvh`` the sphere BVH forced, ``+global`` the megakernel's
+  tables decided with a shared-memory budget of nothing, so that they are
+  read from global memory): ``random_balls`` (485 spheres) through the megakernel
+  with the dense loop and with the sphere BVH; ``random_balls22`` (about
+  1,940 spheres, the most the dense paths take with room to spare) through
+  the small-scene kernel, the megakernel's dense loop (staged and from
+  global memory) and the sphere BVH; ``random_balls24`` (2,305 spheres: the
+  sphere BVH by its size);
+* the routing caps: ``random_balls`` without antialias and meshes of 16,
+  32 and 64 triangles (``tris16``, ``tris32``, ``tris64``: the most the
+  small-scene kernel takes) through both render kernels, and a 72-triangle
+  mesh (``tris72``) through the megakernel;
+* tables past the shared-memory budget: ``groups5`` (five 256-triangle
+  brute-force groups, read from global memory) against ``groups4``
+  (staged), and ``groups4+global``;
 * the standalone brute-force kernel on 2,073,600 seeded rays x 256
   triangles (kernel ``brute``), and on the first 256, 512 and all 600
   triangles of a 600-triangle table (three staged chunks): what staging a
@@ -35,8 +52,11 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
 
 Where the tree's kernels count their lane loop (``turns``,
 ``active_lanes``), each cell also gives lane occupancy, over the timed
-launches. Every result is one JSON line on standard output (and in
-``--out``); the last lines are a summary per cell. Needs one CUDA card.
+launches. A cell that a tree cannot run (an older tree without the scene,
+the option or the path) is reported as skipped with the reason.
+``--only`` keeps the cells whose "kernel scene" matches. Every result is
+one JSON line on standard output (and in ``--out``); the last lines are a
+summary per cell. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -64,6 +84,57 @@ def _cells():
     for name in ("random_balls", "room"):
         for b in BOUNCES:
             yield "spheres", name, b
+    for name in ("random_balls+aa", "random_balls+aa+bvh", "random_balls",
+                 "random_balls+bvh", "random_balls22", "random_balls22+global",
+                 "random_balls22+bvh", "random_balls24", "tris64", "tris72",
+                 "groups4", "groups4+global", "groups5", "room", "balls",
+                 "metal", "tris16", "tris32", "random_balls+global",
+                 "instances_scene+global", "room2_scene+global", "groups1",
+                 "groups1+global", "groups2", "groups2+global", "groups3",
+                 "groups3+global"):
+        yield "megakernel", name, 5
+    for name in ("random_balls22", "tris64", "balls", "metal", "tris16",
+                 "tris32"):
+        yield "spheres", name, 5
+    for name in ("random_balls", "room", "balls"):
+        yield "megakernel", name, 0
+    yield "spheres", "balls", 0
+
+
+# scenes of the cells that are not a plain name of scenes.py
+_SCENES = {
+    "random_balls22": lambda sc: sc.random_balls(half=22),
+    "random_balls24": lambda sc: sc.random_balls(half=24),
+    "tris16": lambda sc: sc.wide_bvh_scene(lat=2, lon=4),
+    "tris32": lambda sc: sc.wide_bvh_scene(lat=4, lon=4),
+    "tris64": lambda sc: sc.wide_bvh_scene(lat=4, lon=8),
+    "tris72": lambda sc: sc.wide_bvh_scene(lat=4, lon=9),
+    "groups1": lambda sc: sc.groups_scene(1),
+    "groups2": lambda sc: sc.groups_scene(2),
+    "groups3": lambda sc: sc.groups_scene(3),
+    "groups4": lambda sc: sc.groups_scene(4),
+    "groups5": lambda sc: sc.groups_scene(5),
+}
+
+
+def _build_scene(name: str):
+    """The cell's scene on the card and its render options. Raises
+    ``TypeError``/``AttributeError``/``NotImplementedError`` where the
+    imported tree lacks the scene or the option."""
+    from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables
+    from ray_tracer_2_tpu_torch.scene import scenes
+    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
+    base, *flags = name.split("+")
+    base, _, doubled = base.partition("-")
+    definition = _SCENES[base](scenes) if base in _SCENES \
+        else getattr(scenes, base)()
+    if doubled:
+        definition = _doubled_groups(definition)
+    kw = dict(sphere_bvh=True) if "bvh" in flags else {}
+    scene = instantiate_scene(definition, **kw).to("cuda")
+    if "global" in flags and kernel_tables(scene, budget=0)["staged"]:
+        raise NotImplementedError("tables are always staged")
+    return scene, (dict(antialias=True) if "aa" in flags else {})
 
 
 def _brute_inputs():
@@ -125,7 +196,9 @@ def _doubled_groups(definition):
     return definition
 
 
-def _worker(tree: str, label: str, reps: int) -> None:
+def _worker(tree: str, label: str, reps: int, only: str) -> None:
+    import re
+
     import torch
 
     import ray_tracer_2_tpu_torch as pkg
@@ -133,8 +206,6 @@ def _worker(tree: str, label: str, reps: int) -> None:
     from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all
     from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
     from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
-    from ray_tracer_2_tpu_torch.scene import scenes
-    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 
     def emit(**obj):
         print(json.dumps(dict(run=label, **obj)), flush=True)
@@ -149,15 +220,22 @@ def _worker(tree: str, label: str, reps: int) -> None:
             ln.strip() for ln in k.build_log.splitlines()
             if any(w in ln for w in ("entry function", "registers", "spill"))])
     built = {}
-    kw = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
+    kw0 = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
     for kname, sname, b in _cells():
-        if sname not in built:
-            definition = getattr(scenes, sname.split("-")[0])()
-            if sname.endswith("-doubleprepass"):
-                definition = _doubled_groups(definition)
-            built[sname] = instantiate_scene(definition).to("cuda")
-        k, scene = kernels[kname], built[sname]
-        k(scene, 0, bounces=b, **kw)
+        if not re.search(only, f"{kname} {sname}"):
+            continue
+        k = kernels[kname]
+        try:
+            if sname not in built:
+                built[sname] = _build_scene(sname)
+            scene, over = built[sname]
+            kw = dict(kw0, **over)
+            k(scene, 0, bounces=b, **kw)
+        except (TypeError, AttributeError, KeyError,
+                NotImplementedError) as e:
+            emit(phase="skipped", kernel=kname, scene=sname, bounces=b,
+                 reason=f"{type(e).__name__}: {e}"[:200])
+            continue
         torch.cuda.synchronize()
         k.reset_counts()
         start = torch.cuda.Event(enable_timing=True)
@@ -177,6 +255,16 @@ def _worker(tree: str, label: str, reps: int) -> None:
                 if key in c:
                     r[f"{key}_per_segment"] = c[key] / seg
         emit(**r)
+    if re.search(only, "brute"):
+        _brute_cells(emit, reps)
+    if re.search(only, "mxu_leaf_dense"):
+        _mxu_cells(emit)
+
+
+def _brute_cells(emit, reps: int) -> None:
+    import torch
+
+    from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
     rays, table, big = _brute_inputs()
     for tab, n in ((table, 256), (big, 256), (big, 512), (big, 600)):
         CUDA_BRUTE(rays, tab, n)
@@ -191,7 +279,6 @@ def _worker(tree: str, label: str, reps: int) -> None:
         emit(phase="cell", kernel="brute",
              scene=f"2073600 rays x {n} of {tab.shape[0]} tris",
              bounces=0, ms=start.elapsed_time(end) / reps)
-    _mxu_cells(emit)
 
 
 def _mxu_cells(emit) -> None:
@@ -228,6 +315,10 @@ def main(argv=None) -> int:
                     help="runs by tree letter, e.g. ABBA (default: each "
                          "tree once)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="regular expression: keep the cells whose "
+                         "'kernel scene' it matches (brute and "
+                         "mxu_leaf_dense by those words)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
@@ -245,7 +336,8 @@ def main(argv=None) -> int:
         label = f"{letter}{i}"
         res = subprocess.run(
             [sys.executable, "-c", _BOOT, str(Path(tree).resolve()),
-             str(Path(__file__).resolve()), label, str(args.reps)],
+             str(Path(__file__).resolve()), label, str(args.reps),
+             args.only],
             capture_output=True, text=True, timeout=args.timeout)
         if res.returncode != 0:
             sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
@@ -270,6 +362,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__worker__":
-    _worker(sys.argv[1], sys.argv[3], int(sys.argv[4]))
+    _worker(sys.argv[1], sys.argv[3], int(sys.argv[4]), sys.argv[5])
 elif __name__ == "__main__":
     sys.exit(main())

@@ -75,6 +75,24 @@ def pack_brute_table(scene: TorchScene, tri_offset: int,
     return tab
 
 
+def stage_brute_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Packed table rows (n, 16) as the (n, 16) rows the kernels' loop
+    reads (``csrc/brute.cuh:stage_row``), bit for bit: four 16-byte words
+    (v0, material), (e1, cull), (e2, 0), (n, 0), with e1 = v1 - v0,
+    e2 = v2 - v0 and n = e1 x e2 in ``ray_triangle``'s operations. The
+    kernels stage their rows in shared memory themselves; the megakernel
+    reads these from global memory when a scene's tables pass its
+    shared-memory budget."""
+    v0, v1, v2 = packed[:, 0:3], packed[:, 3:6], packed[:, 6:9]
+    e1, e2 = v1 - v0, v2 - v0
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    zero = torch.zeros_like(packed[:, 0:1])
+    return torch.cat([v0, packed[:, 9:10], e1, packed[:, 10:11], e2, zero,
+                      n, zero], dim=1).contiguous()
+
+
 def brute_force_intersect(scene: TorchScene, origin, direction,
                           tri_offset: int, tri_count: int) -> dict:
     """Closest hit over triangles [tri_offset, tri_offset + tri_count) for

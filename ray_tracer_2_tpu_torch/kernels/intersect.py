@@ -76,6 +76,37 @@ def ray_sphere_fast(origin, direction, centre, k):
     return hit, torch.where(hit, dst, torch.full_like(dst, INF)), is_inside
 
 
+def sphere_k(centre, radius):
+    """``|c|^2 - r^2`` of each sphere, the precomputed term of
+    :func:`ray_sphere_fast`, as ``((x x + y y) + z z) - r r``."""
+    return dot(centre, centre) - radius * radius
+
+
+def closest_sphere(origin, direction, centre, radius, k, elems: int):
+    """Nearest sphere of each ray over the dense (rays x spheres) cross,
+    the lowest id on an equal distance: :func:`ray_sphere_fast` from
+    ``SPHERE_FAST_MIN`` spheres, :func:`ray_sphere` below. ``k`` is
+    :func:`sphere_k` of the spheres. Rays go in blocks, so that one
+    (rays x spheres) temporary holds at most ``elems`` elements. Returns
+    ``(dst (INF on a miss), id, is_inside)``, each (B,): a ray hit a sphere
+    where ``dst < INF``, and ``is_inside`` is the winner's."""
+    n, s = origin.shape[0], centre.shape[0]
+    fast = s >= SPHERE_FAST_MIN
+    block = max(elems // max(s, 1), 1)
+    parts = []
+    for r0 in range(0, max(n, 1), block):
+        o, d = origin[r0:r0 + block], direction[r0:r0 + block]
+        if fast:
+            _, dst, ins = ray_sphere_fast(o, d, centre, k)
+        else:
+            _, dst, ins = ray_sphere(o[:, None, :], d[:, None, :],
+                                     centre[None], radius[None])
+        idx = torch.argmin(dst, dim=1, keepdim=True)
+        parts.append((dst.gather(1, idx)[:, 0], idx[:, 0],
+                      ins.gather(1, idx)[:, 0]))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def sphere_normal(hit_point, centre, is_inside):
     """Outward (or flipped-inside) unit normal (ray_tracer.wgsl:246-251;
     the spherical UV waits for the texture slice)."""

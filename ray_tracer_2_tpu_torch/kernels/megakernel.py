@@ -5,12 +5,16 @@ boundary and the fused boundary of ``kernels/pallas_boundary.py``).
 The scenes it takes: any number of mesh instances (shared tables and
 material-id deltas included), each traversed in its wide BVH, or, at
 ``BRUTE_MAX_TRIS`` triangles or fewer, tested triangle by triangle in the
-segment prepass (``kernels/brute.py``); at most ``MAX_SPHERES`` dense
-spheres; diffuse, specular, emissive and glass materials. A segment is the
-reference's: the dense sphere prepass, each brute-force group in instance
-order, then each wide-BVH instance with its pruning limit seeded from the
-best world distance so far, every merge on a strict ``<`` of the world
-distance; then shading with the hit instance's transform.
+segment prepass (``kernels/brute.py``); spheres, tested densely (up to
+``MAX_SPHERES``; from ``SPHERE_FAST_MIN`` with the shared-term formula) or,
+where the scene carries a sphere BVH, traversed in it; diffuse, specular,
+emissive and glass materials. A segment is the reference's: the dense
+sphere prepass, each brute-force group in instance order, then each
+wide-BVH instance with its pruning limit seeded from the best world
+distance so far, every merge on a strict ``<`` of the world distance; then,
+in place of the dense prepass, the sphere BVH in world space, where a
+sphere wins an equal distance as it would have in the prepass; then shading
+with the hit instance's transform.
 
 Two implementations of one function, chosen by the device the scene's
 tensors live on, never by a switch:
@@ -49,19 +53,22 @@ import torch
 
 from ray_tracer_2_tpu_torch.accel.packed import COL_COUNT, COL_FIRST
 from ray_tracer_2_tpu_torch.accel.wide import (
-    COL_BASE, COL_CHILD_AABB, COL_K, COL_LEAF_GEO, COL_MATCULL, MAX_ARITY,
-    N_AABB_COLS,
+    COL_BASE, COL_CHILD_AABB, COL_K, COL_LEAF_GEO, COL_MATCULL, COL_SPH_ID,
+    MAX_ARITY, N_AABB_COLS, SPH_CHUNK,
 )
 from ray_tracer_2_tpu_torch import rng
 from ray_tracer_2_tpu_torch.kernels.brute import (
     BRUTE_MAX_TRIS, brute_force_intersect_plain, pack_brute_table,
+    stage_brute_rows,
 )
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
     PKG, CudaKernel, check_aligned, check_launch, frame_seed, launch_on,
     launch_scratch,
 )
-from ray_tracer_2_tpu_torch.kernels.intersect import EPS_DET, EPSILON, INF, \
-    ray_sphere, sphere_normal
+from ray_tracer_2_tpu_torch.kernels.intersect import (
+    EPS_DET, EPS_SPHERE, EPSILON, INF, SPHERE_FAST_MIN, closest_sphere,
+    sphere_k, sphere_normal,
+)
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
     gather_material, reflectance
 from ray_tracer_2_tpu_torch.math.vec import dot, lerp, normalize, reflect, \
@@ -70,13 +77,22 @@ from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
     TorchScene
 
-#: dense prepass capacity (the reference's ``ray_sphere`` prepass; from
-#: ``SPHERE_FAST_MIN`` spheres on it takes the shared-term formula)
-MAX_SPHERES = 32
+#: dense prepass capacity: scenes at ``SPHERE_BVH_MIN`` spheres and above
+#: carry the sphere BVH (as ``kernels/spheres.py:MAX_SPHERES``)
+MAX_SPHERES = SPHERE_BVH_MIN - 1
+#: the id a sphere-BVH traversal starts from: no sphere, and it loses every
+#: (distance, id) tie (reference ``SPH_SENT``)
+SPH_SENT = 0x3FFFFFFF
+#: floats per row of the kernel's sphere table (csrc/megakernel.cu
+#: kSphStride): centre, radius (``|c|^2 - r^2`` instead where the dense
+#: prepass takes the shared-term formula), material
+SPHERE_COLS = 5
 #: resume-stack capacity of the CUDA kernel (csrc/megakernel.cu kMaxStack)
 MAX_STACK = 16
 #: pixels per wavefront of the plain version (bounds its memory)
 PLAIN_CHUNK = 1 << 18
+#: elements of one (rays x spheres) temporary of its dense sphere prepass
+PLAIN_ELEMS = 1 << 26
 #: floats per instance row of the kernel's instance table (csrc/megakernel.cu
 #: kInstCols): w2m[:3, :4], m2w[:3, :4], root row, first triangle,
 #: triangle count, material-id delta, brute-force flag, brute table row
@@ -91,11 +107,13 @@ BRUTE_STAGED = 16
 #: those turns
 COUNTS = ("brute_calls", "brute_launches", "rows", "leaves", "boxes",
           "turns", "active_lanes")
-#: shared memory the kernel stages the instance and brute-force tables in
-#: (csrc/megakernel.cu kDynSmemBytes). A staged triangle takes 64 bytes;
-#: when it took 44 the budget was 45 KB, and 66 KB admits every scene that
-#: budget did (45 KB x 16 / 11 < 66 KB). Above 48 KB the launch opts in.
-SMEM_BYTES = 66 * 1024
+#: shared memory the kernel stages the sphere, instance and brute-force
+#: tables in (csrc/megakernel.cu kDynSmemBytes); a scene whose tables pass
+#: it has them read from global memory. Staging costs resident blocks: it
+#: measured faster up to 32 KB of tables, level at 39 KB and slower beyond
+#: (PERF.md, section 6), so the budget keeps 6 of the general forms' 7
+#: blocks resident.
+SMEM_BYTES = 36 * 1024
 
 _F16_MAGIC = 2.0 ** 112          # rebias of f16 exponents onto f32
 # absolute and relative slack of the traversal's pruning limit (reference
@@ -129,30 +147,32 @@ def _brute_ranges(scene: TorchScene) -> dict:
     return ranges
 
 
+def dense_spheres(scene: TorchScene) -> int:
+    """Spheres the dense prepass tests: all of them, or none where the
+    scene carries a sphere BVH."""
+    return 0 if scene.sphere_bvh_root >= 0 else scene.n_spheres
+
+
 def smem_bytes(scene: TorchScene) -> int:
-    """Shared memory the kernel stages the scene's instance and brute-force
-    tables in."""
+    """Bytes of the tables every segment reads whole: the dense spheres,
+    the instance table and the staged brute-force triangles. The kernel
+    stages them in shared memory when they fit ``SMEM_BYTES``."""
     n_brute = sum(c for _, c in _brute_ranges(scene))
-    return 4 * (scene.n_instances * INST_COLS + n_brute * BRUTE_STAGED)
+    return 4 * (dense_spheres(scene) * SPHERE_COLS
+                + scene.n_instances * INST_COLS + n_brute * BRUTE_STAGED)
 
 
 def ineligibility(scene: TorchScene) -> str | None:
     """Why ``scene`` lies outside the ported megakernel, naming the ROADMAP
-    item that lifts it; None if it is inside."""
+    item that lifts it where there is one; None if it is inside."""
     if "texture" in scene.shade_classes:
-        return "textured materials (ROADMAP Queue 1 item 4)"
-    if scene.n_spheres >= SPHERE_BVH_MIN:
-        return "the sphere BVH (ROADMAP Queue 1 item 1)"
-    if scene.n_spheres > MAX_SPHERES:
-        return ("more than 32 spheres, the dense sphere fast path "
-                "(ROADMAP Queue 1 item 1)")
-    if bvh_instances(scene) and scene.wide_depth + 2 > MAX_STACK:
+        return "textured materials (ROADMAP Queue 1 item 3)"
+    if dense_spheres(scene) > MAX_SPHERES:
+        return (f"{scene.n_spheres} dense spheres: from {SPHERE_BVH_MIN} a "
+                "scene is instantiated with the sphere BVH")
+    if (bvh_instances(scene) or scene.sphere_bvh_root >= 0) \
+            and scene.wide_depth + 2 > MAX_STACK:
         return f"wide BVHs deeper than {MAX_STACK - 2} levels"
-    if smem_bytes(scene) > SMEM_BYTES:
-        return (f"instance and brute-force tables of {smem_bytes(scene)} "
-                f"bytes, over the kernel's {SMEM_BYTES}-byte shared-memory "
-                "budget: larger tables wait to be read from global "
-                "memory (ROADMAP Queue 1 item 1)")
     return None
 
 
@@ -203,6 +223,7 @@ class _Tables:
         self.h1 = f32(float(max(height - 1, 1)))
         self.inv_w = float(np.float32(1.0) / np.float32(width))
         self.one = f32(1.0)
+        self.sphere_k = sphere_k(scene.sphere_pos, scene.sphere_radius)
         # traversal work, as the kernel counts it
         self.rows = 0
         self.leaves = 0
@@ -310,20 +331,55 @@ def _leaf_test(rows, om, dm, best):
             first + j[:, 0], pick(mc) >> 1)
 
 
-def _traverse(t: _Tables, root, om, dm, limit):
+def _sphere_leaf_test(rows, o, d, best, best_id):
+    """Blocked 8-sphere quadratic on sphere leaf rows (megakernel.py
+    traversal_step :481-521): the dense test's arithmetic with ``r^2`` from
+    the row. Returns (better, dst, id) of the leaf's nearest hit, lowest id
+    among equal distances, where it beats ``(best, best_id)`` in (distance,
+    id) order."""
+    g = [rows[:, COL_LEAF_GEO + SPH_CHUNK * c:
+              COL_LEAF_GEO + SPH_CHUNK * (c + 1)] for c in range(4)]
+    cx, cy, cz, r2 = g
+    sid = rows[:, COL_SPH_ID:COL_SPH_ID + SPH_CHUNK]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    ocx, ocy, ocz = o[:, 0:1] - cx, o[:, 1:2] - cy, o[:, 2:3] - cz
+    a = (dx * dx + dy * dy) + dz * dz
+    b = 2.0 * ((ocx * dx + ocy * dy) + ocz * dz)
+    c = ((ocx * ocx + ocy * ocy) + ocz * ocz) - r2
+    disc = b * b - (4.0 * a) * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    dn = torch.clamp((-b - sq) / (2.0 * a), min=0.0)
+    df = (-b + sq) / (2.0 * a)
+    hit = (disc >= 0.0) & (df >= EPS_SPHERE)
+    dst = torch.where(dn == 0.0, df, dn)
+    sent = float(SPH_SENT)
+    dstw = torch.where(hit, dst, torch.full_like(dst, INF))
+    mn = dstw.amin(dim=1)
+    idmn = torch.where(hit & (dstw == mn[:, None]), sid,
+                       torch.full_like(sid, sent)).amin(dim=1)
+    better = hit.any(dim=1) & ((mn < best) | ((mn == best)
+                                               & (idmn < best_id.to(mn.dtype))))
+    return better, mn, idmn.to(torch.int64)
+
+
+def _traverse(t: _Tables, root, om, dm, limit, spheres: bool = False):
     """Closest hit of model-space rays in the wide BVH whose root row is
     ``root``, pruned at
     ``limit`` (megakernel.py wide_enter + traversal_step): enter the nearest
     hit child, push the other hits as (base, mask, least entry distance),
     pop the deepest entry still closer than the best hit, lowest child
-    index first. Returns (dst, u, v, det, tri (-1 = none), mat)."""
+    index first. Returns (dst, u, v, det, tri (-1 = none), mat). With
+    ``spheres`` the tree is the sphere BVH and the rays are world-space:
+    its leaves take ``_sphere_leaf_test``, ``tri`` is the winning sphere's
+    id (``SPH_SENT`` = none) and u, v, det and mat stay 0."""
     n, dev, depth = om.shape[0], om.device, t.depth
     inv = 1.0 / dm
     best = limit.clone()
     bu = torch.zeros_like(best)
     bv = torch.zeros_like(best)
     bdet = torch.zeros_like(best)
-    tri = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    tri = torch.full((n,), SPH_SENT if spheres else -1, dtype=torch.int64,
+                     device=dev)
     mat = torch.zeros(n, dtype=torch.int64, device=dev)
     sb = torch.zeros((n, depth), dtype=torch.int64, device=dev)
     sm = torch.zeros((n, depth), dtype=torch.int64, device=dev)
@@ -363,7 +419,12 @@ def _traverse(t: _Tables, root, om, dm, limit):
             done.append(descend(act[~leaf], rows[~leaf]))
         lf = act[leaf]
         t.leaves += lf.numel()
-        if lf.numel():
+        if lf.numel() and spheres:
+            better, d_, id_ = _sphere_leaf_test(rows[leaf], om[lf], dm[lf],
+                                                best[lf], tri[lf])
+            bl = lf[better]
+            best[bl], tri[bl] = d_[better], id_[better]
+        elif lf.numel():
             better, d_, u_, v_, det_, tri_, mat_ = _leaf_test(
                 rows[leaf], om[lf], dm[lf], best[lf])
             bl = lf[better]
@@ -401,9 +462,12 @@ def _intersect(t: _Tables, o, d):
     _advance_impl): the dense sphere prepass, each brute-force group in
     instance order, then each wide-BVH instance with its pruning limit
     seeded from the best world distance so far; every merge keeps the
-    earlier hit on an equal world distance. Returns (kind: -1 miss / -2
-    sphere / >= 0 triangle id, world distance, point, normal, backface,
-    material id)."""
+    earlier hit on an equal world distance. A scene with a sphere BVH skips
+    the dense prepass and traverses the spheres last, in world space, pruned
+    at the best world distance; there a sphere takes an equal distance, as
+    it would have when tested first. Returns (kind: -1 miss / -2 sphere /
+    >= 0 triangle id, world distance, point, normal, backface, material
+    id)."""
     n, scene, dev = o.shape[0], t.scene, t.dev
     kind = torch.full((n,), -1, dtype=torch.int64, device=dev)
     seg_dst = torch.full((n,), INF, dtype=torch.float32, device=dev)
@@ -415,24 +479,26 @@ def _intersect(t: _Tables, o, d):
     u = torch.zeros_like(seg_dst)
     v = torch.zeros_like(seg_dst)
     det = torch.zeros_like(seg_dst)
-    if scene.n_spheres:
-        s_hit, s_dst, s_in = ray_sphere(o[:, None, :], d[:, None, :],
-                                        scene.sphere_pos[None],
-                                        scene.sphere_radius[None])
-        idx = torch.argmin(s_dst, dim=1, keepdim=True)
-        won = s_hit.gather(1, idx)[:, 0]
-        sd = s_dst.gather(1, idx)[:, 0]
-        inside = s_in.gather(1, idx)[:, 0]
-        centre = scene.sphere_pos[idx[:, 0]]
+
+    def sphere_hit(won, sd, idx, inside):
+        """Make sphere ``idx`` at distance ``sd`` the segment's hit where
+        ``won``."""
+        nonlocal kind, seg_dst, point, normal, smat, flag
         hp = o + d * sd[:, None]
         kind = torch.where(won, -2, kind)
         seg_dst = torch.where(won, sd, seg_dst)
         point = torch.where(won[:, None], hp, point)
-        normal = torch.where(won[:, None], sphere_normal(hp, centre, inside),
-                             normal)
-        smat = torch.where(won, scene.sphere_mat[idx[:, 0]].to(torch.int64),
-                           smat)
+        normal = torch.where(
+            won[:, None], sphere_normal(hp, scene.sphere_pos[idx], inside),
+            normal)
+        smat = torch.where(won, scene.sphere_mat[idx].to(torch.int64), smat)
         flag = torch.where(won, inside.to(torch.int64), flag)
+
+    if dense_spheres(scene):
+        sd, idx, inside = closest_sphere(o, d, scene.sphere_pos,
+                                         scene.sphere_radius, t.sphere_k,
+                                         PLAIN_ELEMS)
+        sphere_hit(sd < INF, sd, idx, inside)
 
     def instance_ray(i):
         w2m = scene.inst_world_to_model[i]
@@ -467,6 +533,22 @@ def _intersect(t: _Tables, o, d):
         best, bu, bv, bdet, tri, mat = _traverse(
             t, scene.wide_rows[scene.wide_roots[i]], om, dm, limit)
         merge(i, om, dm, best, tri, mat, bu, bv, bdet)
+    if scene.sphere_bvh_root >= 0:
+        # the winner's inside flag by the dense quadratic (reference
+        # _sphere_merge), centre and radius from the dense tables
+        best, _, _, _, sid, _ = _traverse(
+            t, scene.wide_rows[scene.sphere_bvh_root], o, d, seg_dst,
+            spheres=True)
+        won = sid != SPH_SENT
+        sid = torch.where(won, sid, 0)
+        oc = o - scene.sphere_pos[sid]
+        rad = scene.sphere_radius[sid]
+        a = dot(d, d)
+        b = 2.0 * dot(oc, d)
+        disc = b * b - (4.0 * a) * (dot(oc, oc) - rad * rad)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        inside = torch.clamp((-b - sq) / (2.0 * a), min=0.0) == 0.0
+        sphere_hit(won, best, sid, inside)
 
     mesh = kind >= 0
     if scene.n_instances:
@@ -614,16 +696,29 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
 # --------------------------------------------------------------------------
 # CUDA kernel (csrc/megakernel.cu), built by kernels/cuda_build.py
 # --------------------------------------------------------------------------
-def kernel_tables(scene: TorchScene) -> dict:
-    """The small tables the kernel stages per block, on the scene's device,
+def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
+    """The small tables the kernel reads per segment, on the scene's device,
     once per scene (kept in ``scene.derived``): ``scal`` (cam[:3, :4],
-    view_params, defocus, diverge), ``spheres`` (centre, radius, material
-    per row), ``inst`` (one ``INST_COLS`` row per instance, see there) and
-    ``brute`` (the packed rows of each distinct brute-force group,
-    ``kernels/brute.py:pack_brute_table``). Empty tables hold one zero row.
-    ``general`` and ``glass`` pick the kernel's compiled form: ``general``
-    unless the scene is one instance traversed in its wide BVH, ``glass``
-    if any material is glass."""
+    view_params, defocus, diverge), ``spheres`` (one ``SPHERE_COLS`` row per
+    sphere, see there), ``inst`` (one ``INST_COLS`` row per instance, see
+    there) and ``brute`` (the rows of each distinct brute-force group:
+    packed, ``kernels/brute.py:pack_brute_table``, where the kernel stages
+    them itself, else staged here once as the kernel would,
+    ``kernels/brute.py:stage_brute_rows``). Empty tables hold one zero row.
+    The rest picks the kernel's compiled form from what the scene is:
+
+    * ``spheres_mode``: 0 the dense prepass with the exact quadratic, 1 the
+      dense prepass with the shared-term formula (from ``SPHERE_FAST_MIN``
+      spheres), 2 the sphere BVH;
+    * ``staged``: whether spheres, instances and brute-force triangles fit
+      ``budget`` (``SMEM_BYTES`` unless given: a measurement gives 0 on a
+      scene's first call here to time the other form) and are staged in
+      shared memory per block; if not, the kernel reads them from global
+      memory;
+    * ``general``: unless the scene is one instance traversed in its wide
+      BVH with fewer than ``SPHERE_FAST_MIN`` dense spheres, staged;
+    * ``glass``: whether the glass branch is compiled in; off only for such
+      a scene, or a general one with modes 0 and ``staged``, without glass."""
     cached = scene.derived.get("megakernel_tables")
     if cached is not None:
         return cached
@@ -642,21 +737,31 @@ def kernel_tables(scene: TorchScene) -> dict:
     if np.abs(inst[:, 24:30]).max(initial=0.0) >= 2 ** 24:
         raise ValueError("instance table: an index beyond float32's exact "
                          "integers")
-    spheres = torch.cat([scene.sphere_pos, scene.sphere_radius[:, None],
-                         scene.sphere_mat.to(torch.float32)[:, None]], dim=1)
+    mode = 2 if scene.sphere_bvh_root >= 0 \
+        else int(scene.n_spheres >= SPHERE_FAST_MIN)
+    staged = smem_bytes(scene) <= (SMEM_BYTES if budget is None else budget)
+    lean = mode == 0 and staged
+    spheres = torch.cat([
+        scene.sphere_pos,
+        (sphere_k(scene.sphere_pos, scene.sphere_radius) if mode == 1
+         else scene.sphere_radius)[:, None],
+        scene.sphere_mat.to(torch.float32)[:, None]], dim=1)
+    brute = torch.cat([pack_brute_table(scene, *key) for key in ranges]) \
+        if ranges else torch.zeros((1, 16), dtype=torch.float32, device=dev)
     tables = dict(
         scal=torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
                         scene.view_params.reshape(-1),
                         scene.defocus_strength.reshape(1),
                         scene.diverge_strength.reshape(1)]).contiguous(),
         spheres=spheres.contiguous() if scene.n_spheres
-        else torch.zeros((1, 5), dtype=torch.float32, device=dev),
+        else torch.zeros((1, SPHERE_COLS), dtype=torch.float32, device=dev),
         inst=torch.from_numpy(inst).to(dev),
-        brute=torch.cat([pack_brute_table(scene, *key) for key in ranges])
-        if ranges else torch.zeros((1, 16), dtype=torch.float32, device=dev),
-        general=bvh_instances(scene) != [0] or scene.n_instances != 1,
-        glass=bool((scene.mat_rows[:, 21]
-                    == float(MaterialFlag.GLASS)).any()))
+        brute=brute if staged else stage_brute_rows(brute),
+        spheres_mode=mode, staged=staged,
+        general=not lean or bvh_instances(scene) != [0]
+        or scene.n_instances != 1,
+        glass=not lean or bool((scene.mat_rows[:, 21]
+                                == float(MaterialFlag.GLASS)).any()))
     scene.derived["megakernel_tables"] = tables
     return tables
 
@@ -669,7 +774,7 @@ class CudaMegakernel(CudaKernel):
     brute-force prepass's with ``prepass_counts``)."""
 
     symbol = "rt2_render_persistent"
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
                 + [ctypes.c_uint32] + [ctypes.c_void_p] * 4)
     counts = COUNTS
 
@@ -699,13 +804,20 @@ class CudaMegakernel(CudaKernel):
                      rows=rows, wide_rows=(scene.wide_rows, 128),
                      tri_attr=(scene.tri_attr, 128),
                      mat_rows=(scene.mat_rows, 32),
-                     spheres=(tab["spheres"], 5), scal=(tab["scal"], None),
+                     spheres=(tab["spheres"], SPHERE_COLS),
+                     scal=(tab["scal"], None),
                      inst=(tab["inst"], INST_COLS),
-                     brute=(tab["brute"], 16))
-        if tab["scal"].numel() != 17 or tab["brute"].shape[0] < n_brute:
+                     brute=(tab["brute"], BRUTE_STAGED))
+        if tab["scal"].numel() != 17 or tab["brute"].shape[0] < n_brute \
+                or tab["spheres"].shape[0] < scene.n_spheres \
+                or not -1 <= scene.sphere_bvh_root < max(
+                    scene.wide_rows.shape[0], 1):
             raise ValueError(f"bad tables: {tab['scal'].numel()} camera "
                              f"floats, {tab['brute'].shape[0]} brute rows "
-                             f"for {n_brute}")
+                             f"for {n_brute}, {tab['spheres'].shape[0]} "
+                             f"sphere rows for {scene.n_spheres}, sphere "
+                             f"root {scene.sphere_bvh_root} of "
+                             f"{scene.wide_rows.shape[0]} wide rows")
         check_aligned("wide_rows", scene.wide_rows, 16)
         check_aligned("brute", tab["brute"], 16)
         fn = self.build()
@@ -720,6 +832,7 @@ class CudaMegakernel(CudaKernel):
             n_brute, width, height, row_start, rows, bounces,
             max(int(rays_per_pixel), 1), int(bool(skybox)),
             int(bool(antialias)), int(tab["general"]), int(tab["glass"]),
+            tab["spheres_mode"], int(tab["staged"]), scene.sphere_bvh_root,
             frame_seed(frames), out.data_ptr(), scratch.data_ptr(),
             counts.data_ptr())
         if err != 0:

@@ -42,7 +42,7 @@ from ray_tracer_2_tpu_torch.kernels.cuda_build import (
     PKG, CudaKernel, check_launch, frame_seed, launch_on, launch_scratch,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import (
-    EPS_DET, EPSILON, INF, SPHERE_FAST_MIN, ray_sphere, ray_sphere_fast,
+    EPS_DET, EPSILON, INF, SPHERE_FAST_MIN, closest_sphere,
 )
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
     reflectance
@@ -51,8 +51,9 @@ from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
     TorchScene
 
-#: world-baked triangle cap of the path (reference ``MAX_TRIS``, chosen
-#: there by a TPU measurement; still to be measured on the H100)
+#: world-baked triangle cap of the path and of its kernel (reference
+#: ``MAX_TRIS``, chosen there by a TPU measurement; what the H100 measured
+#: at the cap is in PERF.md, section 6)
 MAX_TRIS = 64
 #: spheres the kernel stages in shared memory (scenes at SPHERE_BVH_MIN
 #: and above take the sphere BVH in the reference)
@@ -93,7 +94,7 @@ def _require_eligible(scene: TorchScene) -> None:
     if not eligible(scene):
         raise NotImplementedError(
             "not a small scene (spheres plus <= 64 untextured triangles); "
-            "textured small scenes wait for ROADMAP Queue 1 item 4")
+            "textured small scenes wait for ROADMAP Queue 1 item 3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,19 +234,6 @@ def _rand_direction(seed):
     return _norm3(torch.stack([x, y, z], dim=-1)), seed
 
 
-def _closest_sphere(tab: SmallTables, o, d, fast: bool):
-    """Nearest sphere of each ray, lowest id on equal distance. Returns
-    (dst (INF on a miss), id, inside)."""
-    sph = tab.spheres
-    if fast:
-        hit, dst, ins = ray_sphere_fast(o, d, sph[:, 0:3], sph[:, 4])
-    else:
-        hit, dst, ins = ray_sphere(o[:, None, :], d[:, None, :],
-                                   sph[None, :, 0:3], sph[None, :, 3])
-    idx = torch.argmin(dst, dim=1, keepdim=True)
-    return dst.gather(1, idx)[:, 0], idx[:, 0], ins.gather(1, idx)[:, 0]
-
-
 def _closest_tri(tab: SmallTables, o, d):
     """Nearest world-baked triangle (Möller–Trumbore with the precomputed
     geometric normal, reference ``tri_pass``), lowest id on equal distance.
@@ -273,8 +261,7 @@ def _closest_tri(tab: SmallTables, o, d):
     return pick(dstw), idx[:, 0], pick(u), pick(v), pick(det)
 
 
-def _segment(tab: SmallTables, o, d, tr, inc, seed, *, skybox: bool,
-             fast: bool):
+def _segment(tab: SmallTables, o, d, tr, inc, seed, *, skybox: bool):
     """One segment of live paths (the reference kernel's ``body`` after
     the restart): closest hit, sky on a miss, the glass or the
     diffuse/specular branch, Russian roulette. Returns the next
@@ -282,7 +269,9 @@ def _segment(tab: SmallTables, o, d, tr, inc, seed, *, skybox: bool,
     n, dev = o.shape[0], o.device
     S, T = tab.n_spheres, tab.n_tris
     if S:
-        sd, sid, sins = _closest_sphere(tab, o, d, fast)
+        sph = tab.spheres
+        sd, sid, sins = closest_sphere(o, d, sph[:, 0:3], sph[:, 3],
+                                       sph[:, 4], PLAIN_ELEMS)
     else:
         sd = torch.full((n,), INF, dtype=torch.float32, device=dev)
         sid = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -372,7 +361,7 @@ def _segment(tab: SmallTables, o, d, tr, inc, seed, *, skybox: bool,
 
 
 def _render_chunk(tab: SmallTables, cam, pix, frames, *, width, bounces,
-                  rpp, skybox, row_start, fast):
+                  rpp, skybox, row_start):
     dev = pix.device
     xi = pix % width
     yi = row_start + pix // width
@@ -412,7 +401,7 @@ def _render_chunk(tab: SmallTables, cam, pix, frames, *, width, bounces,
             segs[idx] += 1
             o[idx], d[idx], tr[idx], inc[idx], seed[idx], cont = _segment(
                 tab, o[idx], d[idx], tr[idx], inc[idx], seed[idx],
-                skybox=skybox, fast=fast)
+                skybox=skybox)
             idx = idx[cont]
     return acc + inc, segs
 
@@ -441,8 +430,7 @@ def render_spheres_plain(scene: TorchScene, frames: int, *, width: int,
         pix = torch.arange(c0, min(c0 + chunk, total), device=dev)
         acc, s = _render_chunk(tab, cam, pix, frames, width=width,
                                bounces=bounces, rpp=rpp, skybox=skybox,
-                               row_start=row_start,
-                               fast=tab.n_spheres >= SPHERE_FAST_MIN)
+                               row_start=row_start)
         out[c0:c0 + pix.shape[0]] = acc * inv_rpp
         pixel_segs[c0:c0 + pix.shape[0]] = s
     if counts is not None:

@@ -47,7 +47,7 @@ class MeshData:
 class MeshFromFile:
     """A mesh named by its OBJ file. The definition API takes it as the
     reference's does; ``instantiate_scene`` refuses it until the assets
-    slice (ROADMAP Queue 1 item 3)."""
+    slice (ROADMAP Queue 1 item 2)."""
 
     path: str
     use_mtl: bool = False

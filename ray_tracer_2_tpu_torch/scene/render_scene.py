@@ -10,9 +10,10 @@ quad-packed triangle attributes), so a port scene and a reference scene of
 the same definition are byte-identical (``tests/test_torch_scene.py``).
 
 Scope of the ported slices: mesh instance groups from data (several, one
-per transform, sharing tables as the reference does), dense spheres, no
-texture atlas, no NEE light table, no live edits (``HostScene``). Meshes
-from files, textured materials and the sphere BVH raise
+per transform, sharing tables as the reference does), spheres (dense, and
+from ``SPHERE_BVH_MIN`` of them or on request also as a world-space sphere
+BVH appended to the wide rows), no texture atlas, no NEE light table, no
+live edits (``HostScene``). Meshes from files and textured materials raise
 ``NotImplementedError`` naming their ROADMAP item. The per-triangle
 model-space tables (``tri_v0`` ...
 ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
@@ -26,11 +27,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ray_tracer_2_tpu_torch.accel.bvh import build_bvh
+from ray_tracer_2_tpu_torch.accel.bvh import build_bvh, build_bvh_bounds
 from ray_tracer_2_tpu_torch.accel.packed import (
     ROW_TRIS, pack_attr_quads, pack_tri_attributes,
 )
-from ray_tracer_2_tpu_torch.accel.wide import pack_wide_rows
+from ray_tracer_2_tpu_torch.accel.wide import (
+    SPH_CHUNK, pack_sphere_wide_rows, pack_wide_rows,
+)
 from ray_tracer_2_tpu_torch.scene.definition import (
     MeshFromData, SceneDefinition, SphereDef,
 )
@@ -39,8 +42,9 @@ from ray_tracer_2_tpu_torch.scene.material import MaterialFlag, MaterialRecord
 #: leaf triangle chunk width (== accel/packed.py ROW_TRIS)
 LEAF_CHUNK = ROW_TRIS
 
-#: sphere count at which the reference traverses a sphere BVH instead of
-#: the dense prepass (ray_tracer_2_tpu/scene/render_scene.py SPHERE_BVH_MIN)
+#: sphere count from which a scene carries a sphere BVH, traversed instead
+#: of the dense prepass (ray_tracer_2_tpu/scene/render_scene.py
+#: SPHERE_BVH_MIN)
 SPHERE_BVH_MIN = 2048
 
 #: the tensor fields a TorchScene carries (all of them RenderScene fields)
@@ -53,7 +57,7 @@ FIELDS = ("sphere_pos", "sphere_radius", "sphere_mat",
           "tri_mat")
 #: the static (host) fields
 STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
-           "inst_mat_deltas")
+           "inst_mat_deltas", "sphere_bvh_root")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +92,10 @@ class TorchScene:
     #: per-instance material-id shift (0 for an instance that owns its
     #: triangles; the reference shares one mesh between instances with it)
     inst_mat_deltas: tuple = ()
+    #: root row of the sphere BVH in ``wide_rows`` (world space, its leaves
+    #: name the spheres by their ids in the dense tables); -1 when the
+    #: scene has none and the dense sphere prepass runs
+    sphere_bvh_root: int = -1
     #: host-side results derived from this scene once and kept with it
     #: (e.g. the small-scene path's packed tables); a scene made by ``to``
     #: starts with an empty one
@@ -128,6 +136,7 @@ class TorchScene:
         st["wide_roots"] = tuple(int(r) for r in st["wide_roots"])
         st["shade_classes"] = tuple(st["shade_classes"])
         st["inst_mat_deltas"] = tuple(int(d) for d in st["inst_mat_deltas"])
+        st["sphere_bvh_root"] = int(st["sphere_bvh_root"])
         return TorchScene(**tensors, **st)
 
 
@@ -188,10 +197,23 @@ def _concat_soup(parts):
     return tuple(np.concatenate(c, axis=0) for c in cols)
 
 
-def instantiate_scene(definition: SceneDefinition) -> TorchScene:
+def sphere_bvh_engaged(n_spheres: int, sphere_bvh: bool | None) -> bool:
+    """Whether a scene of ``n_spheres`` gets a sphere BVH (reference
+    ``_sphere_bvh_engaged``, which reads the choice from the environment):
+    from ``SPHERE_BVH_MIN`` spheres unless ``sphere_bvh`` says otherwise;
+    when asked for, only above one leaf's worth of spheres, since the
+    traversal enters through an interior root row."""
+    if sphere_bvh is None:
+        return n_spheres >= SPHERE_BVH_MIN
+    return bool(sphere_bvh) and n_spheres > SPH_CHUNK
+
+
+def instantiate_scene(definition: SceneDefinition,
+                      sphere_bvh: bool | None = None) -> TorchScene:
     """Entities -> BVH -> tensors on the CPU (ref: Scene::instantiate_scene,
-    scene.rs:179-271; reference ``instantiate_scene``). Move the result to
-    the card with ``.to("cuda")``."""
+    scene.rs:179-271; reference ``instantiate_scene``). ``sphere_bvh``
+    forces the sphere BVH on or off (``sphere_bvh_engaged``). Move the
+    result to the card with ``.to("cuda")``."""
     records: list[MaterialRecord] = []
     spheres = []
     groups: dict[bytes, dict] = {}
@@ -200,7 +222,7 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
                 or e.material.normal_texture is not None:
             raise NotImplementedError(
                 "textured materials wait for the texture slice "
-                "(ROADMAP Queue 1 item 4)")
+                "(ROADMAP Queue 1 item 3)")
         records.append(e.material.resolve())
         mid = len(records) - 1
         if isinstance(e.primitive, SphereDef):
@@ -209,13 +231,10 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         if not isinstance(e.primitive, MeshFromData):
             raise NotImplementedError(
                 "meshes from files wait for the assets slice "
-                "(ROADMAP Queue 1 item 3)")
+                "(ROADMAP Queue 1 item 2)")
         m = e.transform.to_matrix()
         g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": []})
         g["parts"].append((e.primitive.resolved(), mid))
-    if len(spheres) >= SPHERE_BVH_MIN:
-        raise NotImplementedError(
-            "the sphere BVH waits for its slice (ROADMAP Queue 1 item 1)")
 
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
@@ -281,8 +300,6 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         wide_cursor += n_rows
         tri_cursor += len(v0)
         node_cursor += bvh.n_nodes
-    wide = np.concatenate(wide_groups, axis=0) if wide_groups \
-        else np.zeros((0, 128), np.float32)
 
     def cat(parts, shape, dtype=np.float32):
         pad = np.zeros((LEAF_CHUNK, *shape), dtype)
@@ -302,6 +319,21 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
         sphere_pos = np.zeros((0, 3), np.float32)
         sphere_radius = np.zeros(0, np.float32)
         sphere_mat = np.zeros(0, np.int32)
+    # the sphere BVH, in world space, appended to the same wide table
+    # (reference render_scene.py:727-747)
+    sphere_bvh_root = -1
+    if sphere_bvh_engaged(len(spheres), sphere_bvh):
+        sbvh = build_bvh_bounds(sphere_pos - sphere_radius[:, None],
+                                sphere_pos + sphere_radius[:, None],
+                                sphere_pos, max_leaf=SPH_CHUNK)
+        o = sbvh.tri_order
+        rows, n_rows, wd = pack_sphere_wide_rows(
+            sbvh, sphere_pos[o], sphere_radius[o], row_offset=wide_cursor)
+        wide_groups.append(rows)
+        sphere_bvh_root = wide_cursor
+        wide_depth = max(wide_depth, wd)
+    wide = np.concatenate(wide_groups, axis=0) if wide_groups \
+        else np.zeros((0, 128), np.float32)
     cam = definition.camera.to_uniform()
     mat44 = lambda ms: (np.stack(ms) if ms
                         else np.zeros((0, 4, 4), np.float32))
@@ -319,5 +351,6 @@ def instantiate_scene(definition: SceneDefinition) -> TorchScene:
     statics = dict(inst_spans=tuple(spans), wide_roots=tuple(roots),
                    wide_depth=wide_depth,
                    shade_classes=_shade_classes(records),
-                   inst_mat_deltas=tuple(deltas))
+                   inst_mat_deltas=tuple(deltas),
+                   sphere_bvh_root=sphere_bvh_root)
     return TorchScene.from_numpy(fields, statics)

@@ -14,7 +14,10 @@ The small-scene path renders the reference's asset-free built-in scenes
 (``ray_tracer_2_tpu/scene/scenes.py:58-153,211-224``), copied here
 definition for definition. ``room2_scene`` is the reference's benchmark
 scene ``room_2`` with the same soup standing in for its two dragons;
-``instances_scene`` fills the frame with shared instances.
+``instances_scene`` fills the frame with shared instances;
+``random_balls(half=24)`` (about 2,300 spheres, enough for the sphere BVH)
+and ``groups_scene`` (brute-force tables past the megakernel's
+shared-memory budget) are stand-ins for tests and measurement.
 """
 from __future__ import annotations
 
@@ -56,10 +59,13 @@ def balls() -> SceneDefinition:
     return s
 
 
-def random_balls(seed: int = 42) -> SceneDefinition:
+def random_balls(seed: int = 42, half: int = 11) -> SceneDefinition:
     """scene.rs:365-444 (the final scene of Ray Tracing in One Weekend): 4
     large spheres and ~480 small ones drawn from ``default_rng(seed)`` in
-    the reference's order, so the layout is the reference's."""
+    the reference's order, so the layout is the reference's. The small
+    spheres fill the cells of ``range(-half, half)`` squared: the default is
+    the reference's scene, ``half=24`` the same recipe with about 2,300
+    spheres."""
     s = SceneDefinition()
     s.set_camera(CameraDescriptor(
         transform=Transform.cam([13.0, 2.0, 3.0], [0.0, 0.0, 0.0]),
@@ -73,8 +79,8 @@ def random_balls(seed: int = 42) -> SceneDefinition:
                  .specular_([0.7, 0.6, 0.5, 1.0], 1.0).smooth(1.0))
 
     rng = np.random.default_rng(seed)
-    for a in range(-11, 11):
-        for b in range(-11, 11):
+    for a in range(-half, half):
+        for b in range(-half, half):
             mat = rng.random()
             center = np.array([a + 0.9 * rng.random(), 0.2,
                                b + 0.9 * rng.random()], np.float32)
@@ -276,6 +282,23 @@ def instances_scene() -> SceneDefinition:
                    small, mat.emissive([1.0, 0.9, 0.6, 1.0], 2.0))
     s.add_sphere([0.0, -100.0, 0.0], 100.0,
                  new().with_color([0.5, 0.5, 0.5, 1.0]))
+    return s
+
+
+def groups_scene(n_groups: int) -> SceneDefinition:
+    """``n_groups`` distinct brute-force groups of 256 triangles each, in a
+    row before the camera (16 KB of staged triangles a group): two fit the
+    megakernel's shared-memory budget, from three on the kernel reads its
+    tables from global memory."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.75 * (n_groups - 1), 0.3, 7.0],
+                                [0.75 * (n_groups - 1), 0.0, 0.0]),
+        fov=50.0, focus_dist=7.0))
+    for i in range(n_groups):
+        s.add_mesh(Transform(pos=[1.5 * i, 0.0, 0.0]),
+                   MeshFromData(latlon_soup(8, 16, 0.5 + 0.01 * i)),
+                   MaterialDefinition.new())
     return s
 
 

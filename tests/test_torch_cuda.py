@@ -303,6 +303,187 @@ def test_brute_kernel_partial_block_and_chunks():
     assert float((out[:, 0] - p["dst"]).abs()[p["tri"] >= 0].max()) < 1e-5
 
 
+# ---------------------------------------------------- sphere-heavy scenes --
+def _with_spheres(definition, n, seed):
+    """``definition`` plus ``n`` small spheres from ``seed``, scattered
+    through the view volume before the camera of ``random_balls``."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        centre = rng.uniform([-4.0, 0.1, -4.0], [4.0, 2.5, 4.0])
+        mat = MaterialDefinition.new().with_color(
+            [*rng.uniform(0.2, 0.9, 3), 1.0])
+        if rng.random() < 0.2:
+            mat = mat.specular_([1.0] * 4, 0.3)
+        definition.add_sphere(centre.astype(np.float32),
+                              float(rng.uniform(0.05, 0.25)), mat)
+    return definition
+
+
+def _balls(n, seed=0):
+    """A ground sphere, a glass one and ``n - 2`` small ones under
+    ``random_balls``' camera."""
+    s = SceneDefinition()
+    s.set_camera(scenes.random_balls().camera)
+    s.add_sphere([0.0, -1000.0, 0.0], 1000.0,
+                 MaterialDefinition.new().with_color([0.5, 0.5, 0.5, 1.0]))
+    s.add_sphere([0.0, 1.0, 0.0], 1.0, MaterialDefinition.new().glass(1.5))
+    return _with_spheres(s, n - 2, seed)
+
+
+def _over_budget(extra_spheres):
+    """Two 256-triangle groups (33,024 bytes of staged tables) plus
+    ``extra_spheres`` spheres at 20 bytes each: 192 fill the 36,864-byte
+    budget, 193 pass it."""
+    return _with_spheres(scenes.groups_scene(2), extra_spheres, 1)
+
+
+# name -> (definition, sphere_bvh, antialias, bounces, spheres_mode, staged)
+_SPHERE_CELLS = {
+    "random_balls_aa_b0": (scenes.random_balls, None, True, 0, 1, True),
+    "random_balls_aa_b5": (scenes.random_balls, None, True, 5, 1, True),
+    "random_balls_bvh_b0": (scenes.random_balls, True, True, 0, 2, True),
+    "random_balls_bvh_b5": (scenes.random_balls, True, True, 5, 2, True),
+    "random_balls_half24_b5": (lambda: scenes.random_balls(half=24), None,
+                               False, 5, 2, True),
+    "groups5_b5": (lambda: scenes.groups_scene(5), None, False, 5, 0, False),
+    "balls33": (lambda: _balls(33), None, False, 3, 0, True),
+    "balls63": (lambda: _balls(63), None, False, 3, 0, True),
+    "balls64": (lambda: _balls(64), None, False, 3, 1, True),
+    "balls65": (lambda: _balls(65), None, True, 3, 1, True),
+    "balls1843": (lambda: _balls(1843), None, False, 3, 1, True),
+    "balls2047": (lambda: _balls(2047), None, False, 3, 1, False),
+    "balls9_bvh": (lambda: _balls(9), True, False, 3, 2, True),
+    "balls100_mesh_bvh": (lambda: _with_spheres(scenes.wide_bvh_scene(), 99,
+                                                 2), True, False, 3, 2, True),
+    "balls100_mesh": (lambda: _with_spheres(scenes.wide_bvh_scene(), 99, 2),
+                      None, False, 3, 1, True),
+    "under_budget": (lambda: _over_budget(192), None, False, 3, 1, True),
+    "over_budget": (lambda: _over_budget(193), None, False, 3, 1, False),
+    "over_budget_bvh": (lambda: _with_spheres(scenes.groups_scene(5), 40, 3),
+                        True, False, 3, 2, False),
+}
+
+
+def test_sphere_cells_pick_their_forms():
+    """Runs anywhere: each cell below is the kernel form it is named for
+    (``kernel_tables``: how spheres are tested, staged or global tables)."""
+    from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables
+    for name, (make, bvh, _aa, _b, mode, staged) in _SPHERE_CELLS.items():
+        if name in ("balls1843", "balls2047", "random_balls_half24_b5"):
+            continue            # seconds of host BVH and table building
+        tab = kernel_tables(instantiate_scene(make(), sphere_bvh=bvh))
+        assert (tab["spheres_mode"], tab["staged"]) == (mode, staged), name
+        assert tab["general"] and tab["glass"], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_SPHERE_CELLS))
+def test_sphere_cells_match_plain(name):
+    """The megakernel on sphere-heavy scenes against its plain version at
+    128x72: the dense fast loop (485 spheres; both sides of 64; 1,843, the
+    most that is staged, and 2,047, read from global memory), the
+    sphere BVH forced, by its size, at its smallest (9 spheres: a root and
+    two leaves) and after a mesh instance, and tables in global memory
+    (five groups; one sphere past the budget; with the sphere BVH).
+    Segments exact, >= 99.9% of pixels within 1e-5, row, leaf and box visits
+    equal, one active lane per segment."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables
+    make, bvh, antialias, bounces, mode, staged = _SPHERE_CELLS[name]
+    scene = instantiate_scene(make(), sphere_bvh=bvh).to("cuda")
+    tab = kernel_tables(scene)
+    assert (tab["spheres_mode"], tab["staged"]) == (mode, staged)
+    kw = dict(width=128, height=72, bounces=bounces, rays_per_pixel=1,
+              skybox=True, antialias=antialias)
+    CUDA_MEGAKERNEL.reset_counts()
+    ki, ks = CUDA_MEGAKERNEL(scene, 1, **kw)
+    kc = CUDA_MEGAKERNEL.read_counts()
+    pc = {}
+    pi, ps = render_plain(scene, 1, counts=pc, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ki).all())
+    assert float((pi[..., :3] > 0).any(dim=-1).float().mean()) >= 0.1
+    assert int(ks) == int(ps) == kc["active_lanes"]
+    assert [kc[k] for k in ("rows", "leaves", "boxes")] == \
+        [pc[k] for k in ("rows", "leaves", "boxes")]
+    assert (kc["rows"] > 0) == (mode == 2 or name.startswith("balls100"))
+    assert _frac_within(ki, pi) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1500, 2047])
+def test_spheres_kernel_takes_its_stated_capacity(n):
+    """The small-scene kernel at 1,500 spheres and at its stated capacity
+    of 2,047 (41 KB of staged tables): segments exact, >= 99.9% of pixels
+    within 1e-5."""
+    _need_card()
+    scene = instantiate_scene(_balls(n)).to("cuda")
+    kw = dict(width=128, height=72, bounces=3, rays_per_pixel=1, skybox=True)
+    ki, ks = CUDA_SPHERES(scene, 1, **kw)
+    pi, ps = render_spheres_plain(scene, 1, **kw)
+    torch.cuda.synchronize()
+    assert int(ks) == int(ps)
+    assert _frac_within(ki, pi) >= 0.999
+
+
+@pytest.mark.cuda
+def test_spheres_kernel_at_its_triangle_cap():
+    """The small-scene kernel on a 64-triangle mesh, the most it takes
+    (``MAX_TRIS``), renders like its plain version."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels import spheres
+    scene = instantiate_scene(scenes.wide_bvh_scene(lat=4, lon=8)).to("cuda")
+    assert spheres.tri_count(scene) == spheres.MAX_TRIS
+    kw = dict(width=128, height=72, bounces=3, rays_per_pixel=1, skybox=True)
+    ki, ks = CUDA_SPHERES(scene, 1, **kw)
+    pi, ps = render_spheres_plain(scene, 1, **kw)
+    torch.cuda.synchronize()
+    assert int(ks) == int(ps)
+    assert _frac_within(ki, pi) >= 0.999
+
+
+@pytest.mark.cuda
+def test_staged_and_global_tables_render_alike(monkeypatch):
+    """One scene through the staged form and, with the budget set to
+    nothing, through the form that reads global memory: the same image bit
+    for bit (the host's staged rows are the kernel's), the same segments
+    and visits."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels import megakernel
+    kw = dict(width=128, height=72, bounces=4, rays_per_pixel=1, skybox=True)
+    out = []
+    for budget in (megakernel.SMEM_BYTES, 0):
+        monkeypatch.setattr(megakernel, "SMEM_BYTES", budget)
+        scene = instantiate_scene(scenes.instances_scene()).to("cuda")
+        assert megakernel.kernel_tables(scene)["staged"] == (budget > 0)
+        CUDA_MEGAKERNEL.reset_counts()
+        img, segs = CUDA_MEGAKERNEL(scene, 1, **kw)
+        c = CUDA_MEGAKERNEL.read_counts()
+        out.append((img, int(segs), [c[k] for k in ("rows", "leaves",
+                                                    "boxes", "brute_calls")]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][1:] == out[1][1:]
+
+
+@pytest.mark.cuda
+def test_sphere_scenes_route_to_the_megakernel():
+    """``random_balls`` with antialias, and any scene instantiated with a
+    sphere BVH, render through the megakernel, one launch a frame, never
+    through the small-scene kernel."""
+    _need_card()
+    renderer = Renderer(device="cuda")
+    plain = instantiate_scene(scenes.random_balls()).to("cuda")
+    bvh = instantiate_scene(scenes.random_balls(), sphere_bvh=True).to("cuda")
+    before = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches)
+    for scene, aa in ((plain, True), (bvh, False), (bvh, True)):
+        renderer.render(scene, RenderParams(width=64, height=36, bounces=2,
+                                            antialias=aa))
+    torch.cuda.synchronize()
+    assert (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches) == \
+        (before[0], before[1] + 3)
+    assert bool(torch.isfinite(renderer.framebuffer).all())
+
+
 # Edges of the persistent kernels' pixel cursor: fewer pixels than a warp,
 # a pixel total that is not a multiple of 32, a row window, several samples
 # with antialias, no bounce.

@@ -1,7 +1,8 @@
 """The port's intersection math against ``ray_tracer_2_tpu.kernels.intersect``.
 
-4096 numpy-made rays against spheres (both sphere formulas), triangles (with and without backface
-cull) and boxes. Classes: hit masks are equal except on rays within 1e-6
+4096 numpy-made rays against spheres (both sphere formulas, and the dense
+prepass's winner under each), triangles (with and without backface cull)
+and boxes. Classes: hit masks are equal except on rays within 1e-6
 of an edge of the decision (a grazing sphere, a triangle edge, a box
 corner), where the two float pipelines may round to either side; distances
 of rays both call hits agree within 1e-6 relative. ``math.vec.refract``
@@ -138,6 +139,61 @@ def test_ray_sphere_fast(rays):
     _check(h0, h1, t0, t1, near_edge, rel_tol=2e-6)
     both = np.asarray(h0) & h1.numpy()
     assert np.array_equal(np.asarray(in0)[both], in1.numpy()[both])
+
+
+@pytest.mark.parametrize("n_spheres", [63, 64])
+def test_closest_sphere(rays, n_spheres):
+    """The dense prepass's winner on both sides of ``SPHERE_FAST_MIN``
+    (the exact quadratic below, the shared-term formula from it), against
+    the reference's formula of that side with ``argmin``: the same sphere
+    and inside flag wherever the reference's two nearest distances differ
+    by more than 1e-5 relative, distances within 2e-6 relative. Rays taken
+    in blocks of any size give the same records bit for bit."""
+    o, d = rays
+    rs = np.random.default_rng(n_spheres)
+    centre = rs.uniform(-0.8, 0.8, size=(n_spheres, 3)).astype(np.float32)
+    radius = rs.uniform(0.05, 0.3, size=n_spheres).astype(np.float32)
+    to, td, tc, tr = map(torch.from_numpy, (o, d, centre, radius))
+    k = port.sphere_k(tc, tr)
+    dst, idx, ins = port.closest_sphere(to, td, tc, tr, k, 1 << 30)
+    for elems in (n_spheres, 1000 * n_spheres + 1):
+        again = port.closest_sphere(to, td, tc, tr, k, elems)
+        assert all(torch.equal(x, y) for x, y in zip((dst, idx, ins), again))
+    if n_spheres >= port.SPHERE_FAST_MIN:
+        h0, t0, in0 = ref.ray_sphere_fast(*map(jnp.asarray,
+                                               (o, d, centre, radius)))
+    else:
+        h0, t0, in0 = ref.ray_sphere(
+            jnp.asarray(o)[:, None], jnp.asarray(d)[:, None],
+            jnp.asarray(centre)[None], jnp.asarray(radius)[None])
+    t0, in0 = np.asarray(t0), np.asarray(in0)
+    order = np.sort(t0, axis=1)
+    clear = (order[:, 1] - order[:, 0]) > 1e-5 * order[:, 0]
+    want = t0.argmin(axis=1)
+    hit = t0.min(axis=1) < np.float32(port.INF)
+    assert 0.2 < hit.mean() < 1.0 and clear[hit].mean() > 0.99
+    sel = clear & hit
+    assert np.array_equal(idx.numpy()[sel], want[sel])
+    assert np.array_equal(ins.numpy()[sel], in0[np.arange(B), want][sel])
+    assert np.array_equal(dst.numpy() < np.float32(port.INF), hit)
+    rel = np.abs(dst.numpy()[hit] - t0.min(axis=1)[hit]) / t0.min(axis=1)[hit]
+    assert rel.max() <= 2e-6
+
+
+def test_closest_sphere_keeps_the_lowest_id_on_a_tie():
+    """Two copies of one sphere tie exactly: the lower id wins, under both
+    formulas."""
+    o = torch.tensor([[0.0, 0.0, 3.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    for n in (5, 70):
+        centre = torch.zeros((n, 3))
+        centre[:, 0] = torch.arange(n) * 10.0 + 10.0    # out of the way
+        centre[n - 1] = centre[2] = torch.tensor([0.0, 0.0, 0.0])
+        radius = torch.full((n,), 0.5)
+        dst, idx, ins = port.closest_sphere(
+            o, d, centre, radius, port.sphere_k(centre, radius), 1 << 20)
+        assert int(idx) == 2 and not bool(ins)
+        assert abs(float(dst) - 2.5) < 1e-6
 
 
 @pytest.mark.parametrize("backface", [False, True])

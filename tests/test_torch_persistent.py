@@ -16,6 +16,7 @@ takes the card unless asked for the CPU. The kernels themselves run only
 on the card (``tests/test_torch_cuda.py``).
 """
 import ctypes
+import dataclasses
 import re
 
 import numpy as np
@@ -244,28 +245,62 @@ def test_renderer_defaults_to_the_card():
 # ------------------------------------------- the staged tables' budget --
 def _groups_scene(n_groups: int):
     """``n_groups`` distinct brute-force groups of 256 triangles each."""
-    from ray_tracer_2_tpu_torch.math.transform import Transform
-    from ray_tracer_2_tpu_torch.scene.definition import (
-        MeshFromData, SceneDefinition,
-    )
-    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
-    s = SceneDefinition()
-    for i in range(n_groups):
-        s.add_mesh(Transform(pos=[1.5 * i, 0.0, 0.0]),
-                   MeshFromData(scenes.latlon_soup(8, 16, 0.5 + 0.01 * i)),
-                   MaterialDefinition.new())
-    return instantiate_scene(s)
+    return instantiate_scene(scenes.groups_scene(n_groups))
+
+
+class _Word:
+    """One 16-byte word of a packed row, by component, over all rows."""
+
+    def __init__(self, cols):
+        self.x, self.y, self.z, self.w = (cols[:, i] for i in range(4))
+
+
+def _stage_row_model(packed: np.ndarray) -> np.ndarray:
+    """``csrc/brute.cuh:stage_row`` read from its source and evaluated in
+    numpy float32 (one rounding per operation, which is what the kernels'
+    build without contraction gives): the ``const float`` definitions in
+    order, then the four ``make_float4`` words."""
+    src = (CSRC / "brute.cuh").read_text()
+    body = src[src.index("void stage_row("):]
+    body = body[:body.index("\n}\n")]
+    env = {f"q{i}": _Word(packed[:, 4 * i:4 * i + 4]) for i in range(3)}
+    for stmt in re.findall(r"const float ((?!4)[^;]+);", body):
+        for name, expr in re.findall(r"(\w+) = ([^,;]+)", stmt):
+            env[name] = eval(expr, {}, env).astype(np.float32)
+    words = re.findall(r"row\[(\d)\] = make_float4\(([^;]+)\);", body)
+    assert [int(i) for i, _ in words] == [0, 1, 2, 3]
+    zero = np.zeros(len(packed), np.float32)
+    cols = [eval(e.replace("0.0f", "zero"), {}, dict(env, zero=zero))
+            for _, args in words for e in args.split(", ")]
+    return np.stack(cols, axis=1)
 
 
 def test_staged_row_matches_the_kernel_source():
     """A staged brute-force triangle is ``kRowWords`` 16-byte words, and
-    the budget the wrapper polices is the one the C entry point does."""
+    the budget the wrapper polices is the one the C entry point does. The
+    rows staged on the host for tables read from global memory
+    (``stage_brute_rows``) are, bit for bit, what ``stage_row`` in the
+    source computes."""
     words = _constants(CSRC / "brute.cuh", "k")["RowWords"]
     assert 4 * words == megakernel.BRUTE_STAGED == 16
     m = re.search(r"constexpr int kDynSmemBytes = (\d+) \* 1024;",
                   (CSRC / "megakernel.cu").read_text())
     assert int(m.group(1)) * 1024 == megakernel.SMEM_BYTES
     assert megakernel.SMEM_BYTES <= 227 * 1024 - 2048
+    assert _constants(CSRC / "megakernel.cu", "k")["SphStride"] == \
+        megakernel.SPHERE_COLS
+    from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table, \
+        stage_brute_rows
+    scene = instantiate_scene(scenes.room2_scene(12, 12))
+    (tri_off, count), = megakernel._brute_ranges(scene)
+    packed = pack_brute_table(scene, tri_off, count)
+    staged = stage_brute_rows(packed)
+    assert tuple(staged.shape) == (count, 16) and staged.is_contiguous()
+    model = _stage_row_model(packed.numpy())
+    assert model.dtype == np.float32
+    assert np.array_equal(staged.numpy().view(np.uint32),
+                          model.view(np.uint32))
+    assert np.abs(model[:, 12:15]).max() > 0 and model[:, 7].max() == 1.0
 
 
 @pytest.mark.parametrize("name,args", [
@@ -273,33 +308,104 @@ def test_staged_row_matches_the_kernel_source():
     ("room2_scene", (12, 12)), ("instances_scene", ()), ("balls", ()),
     ("metal", ()), ("room", ())])
 def test_smem_budget_admits_the_scenes_that_render(name, args):
-    """Every scene of ``scenes.py`` the megakernel takes still fits its
-    shared-memory budget with triangles staged at 64 bytes."""
+    """Every scene of ``scenes.py`` the megakernel took with its spheres in
+    a static array still fits its shared-memory budget with triangles
+    staged at 64 bytes and spheres at 20, and is staged."""
     scene = instantiate_scene(getattr(scenes, name)(*args))
     assert megakernel.ineligibility(scene) is None
     assert megakernel.smem_bytes(scene) <= megakernel.SMEM_BYTES
     n_brute = sum(c for _, c in megakernel._brute_ranges(scene))
     assert megakernel.smem_bytes(scene) == \
-        128 * scene.n_instances + 64 * n_brute
+        128 * scene.n_instances + 64 * n_brute + 20 * scene.n_spheres
+    tab = megakernel.kernel_tables(scene)
+    assert tab["staged"] and tab["spheres_mode"] == 0
 
 
 def test_smem_budget_keeps_what_fit_before_and_raises_past_it():
-    """Four groups of 256 triangles fit the earlier 45 KB at 44 bytes a
-    triangle and fit the 66 KB at 64; a fifth group is past the limit, and
-    the message names the budget and the ROADMAP item that lifts it."""
+    """The budget is what measured faster staged than read from global
+    memory: two groups of 256 triangles (33 KB) are staged, three and more
+    are not. Nothing raises past it any more: five groups (what passed the
+    earlier 66 KB) render, their tables marked for global memory with the
+    triangles staged on the host."""
+    two, three = _groups_scene(2), _groups_scene(3)
     four, five = _groups_scene(4), _groups_scene(5)
-    assert 4 * (32 * 4 + 11 * 1024) <= 45 * 1024      # the earlier budget
+    assert megakernel.SMEM_BYTES == 36 * 1024
+    assert megakernel.smem_bytes(two) == 128 * 2 + 64 * 512 \
+        <= megakernel.SMEM_BYTES < megakernel.smem_bytes(three)
     assert megakernel.smem_bytes(four) == 128 * 4 + 64 * 1024
-    assert megakernel.ineligibility(four) is None
-    assert megakernel.smem_bytes(five) == 128 * 5 + 64 * 1280 \
-        > megakernel.SMEM_BYTES
-    reason = megakernel.ineligibility(five)
-    assert "82560 bytes" in reason and "67584-byte" in reason
-    assert "ROADMAP Queue 1 item 1" in reason
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        megakernel.render_plain(five, 0, width=4, height=4, bounces=0,
-                                rays_per_pixel=1, skybox=True)
-    # any table that fit 45 KB at 44 bytes a triangle fits 66 KB at 64
-    for inst in range(1, 300, 7):
-        tris = (45 * 1024 - 128 * inst) // 44
-        assert 128 * inst + 64 * tris <= megakernel.SMEM_BYTES
+    assert megakernel.smem_bytes(five) == 128 * 5 + 64 * 1280 > 66 * 1024
+    for scene in (two, three, four, five):
+        assert megakernel.ineligibility(scene) is None
+    assert [megakernel.kernel_tables(sc)["staged"]
+            for sc in (two, three, four, five)] == [True, False, False, False]
+    t5 = megakernel.kernel_tables(five)
+    assert t5["general"] and t5["glass"] and t5["spheres_mode"] == 0
+    from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table, \
+        stage_brute_rows
+    packed = torch.cat([pack_brute_table(five, *key)
+                        for key in megakernel._brute_ranges(five)])
+    assert tuple(t5["brute"].shape) == (1280, 16)
+    assert torch.equal(t5["brute"], stage_brute_rows(packed))
+    assert torch.equal(megakernel.kernel_tables(two)["brute"][:, :9],
+                       torch.cat([pack_brute_table(two, *key) for key in
+                                  megakernel._brute_ranges(two)])[:, :9])
+    img, segs = megakernel.render_plain(five, 0, width=24, height=8,
+                                        bounces=1, rays_per_pixel=1,
+                                        skybox=True)
+    assert bool(torch.isfinite(img).all()) and int(segs) > 24 * 8
+    # six resident blocks fit an SM's 228 KB with their staged tables, the
+    # 1 KB the system keeps per block and the kernel's static words
+    assert 6 * (megakernel.SMEM_BYTES + 1024 + 256) <= 228 * 1024
+
+
+def test_tables_in_global_memory_change_nothing(monkeypatch):
+    """The five-group scene renders the same, pixel for pixel and visit for
+    visit, whether its tables are marked staged (under a raised budget) or
+    for global memory: the plain version has one code path, and the choice
+    lives in ``kernel_tables`` alone, from ``smem_bytes`` against
+    ``SMEM_BYTES``."""
+    kw = dict(width=32, height=12, bounces=2, rays_per_pixel=1, skybox=True)
+    five = _groups_scene(5)
+    assert not megakernel.kernel_tables(five)["staged"]
+    ca = {}
+    a, sa = megakernel.render_plain(five, 2, counts=ca, **kw)
+    monkeypatch.setattr(megakernel, "SMEM_BYTES", 128 * 1024)
+    again = _groups_scene(5)
+    assert megakernel.kernel_tables(again)["staged"]
+    cb = {}
+    b, sb = megakernel.render_plain(again, 2, counts=cb, **kw)
+    assert torch.equal(a, b) and int(sa) == int(sb)
+    assert torch.equal(ca.pop("pixel_segments"), cb.pop("pixel_segments"))
+    assert ca == cb
+    assert float((a[..., :3] - a[0, 0, :3]).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("n,mode,staged", [
+    (33, 0, True), (63, 0, True), (64, 1, True), (65, 1, True),
+    (1843, 1, True), (1844, 1, False), (2047, 1, False), (3500, 1, False)])
+def test_sphere_tables_pick_the_kernel_form(n, mode, staged):
+    """The dense prepass takes the shared-term formula from
+    ``SPHERE_FAST_MIN`` spheres, with ``|c|^2 - r^2`` in the table's fourth
+    column instead of the radius; 1,843 spheres (36,860 bytes) are staged,
+    and what passes the budget, as 2,047 do, is read from global memory."""
+    rng = np.random.default_rng(n)
+    pos = torch.from_numpy(rng.uniform(-3, 3, (n, 3)).astype(np.float32))
+    rad = torch.from_numpy(rng.uniform(0.05, 0.3, n).astype(np.float32))
+    base = instantiate_scene(scenes.balls())
+    scene = dataclasses.replace(
+        base, sphere_pos=pos, sphere_radius=rad,
+        sphere_mat=torch.zeros(n, dtype=torch.int32))
+    if n > megakernel.MAX_SPHERES:
+        assert "dense spheres" in megakernel.ineligibility(scene)
+        return
+    tab = megakernel.kernel_tables(scene)
+    assert (tab["spheres_mode"], tab["staged"]) == (mode, staged)
+    # balls has no glass: only the forms past the exact staged one are
+    # compiled with the glass branch alone
+    assert tab["general"] and tab["glass"] == (mode != 0)
+    assert megakernel.smem_bytes(scene) == 20 * n
+    col = tab["spheres"][:, 3]
+    k = ((pos[:, 0] * pos[:, 0] + pos[:, 1] * pos[:, 1])
+         + pos[:, 2] * pos[:, 2]) - rad * rad
+    assert torch.equal(col, k if mode == 1 else rad)
+    assert torch.equal(tab["spheres"][:, :3], pos)

@@ -9,7 +9,8 @@ reference's weight 1/(frames+1); each frame's image must agree with JAX
 boundary) in the primary and the chaos class (measured: every pixel within
 1e-5, segments exact, in both). On
 the CPU no kernel is launched, and scenes or options outside the ported
-slices raise ``NotImplementedError``.
+slices raise ``NotImplementedError`` (``random_balls`` with antialias, which
+did, renders: ``tests/test_torch_spheres_renderer.py``).
 """
 import dataclasses
 
@@ -33,7 +34,6 @@ from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
 from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
 from ray_tracer_2_tpu_torch.scene import scenes
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
-from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 from torch_bridge import (
     H, W, frac_within, ref_definition, torch_scene, wide_bvh_render_scene,
 )
@@ -77,18 +77,20 @@ def _textured(ts):
 
 
 def test_outside_the_slice_raises(scenes_):
-    """Outside every ported path: random_balls with antialias (485 spheres,
-    more than the megakernel's dense prepass takes), a textured material,
-    and the debug modes, NEE and normal maps."""
+    """Outside every ported path: a textured material, with and without
+    antialias, and the debug modes, NEE and normal maps; each names its
+    ROADMAP item."""
     _, ts = scenes_
-    rballs = instantiate_scene(scenes.random_balls())
     renderer = Renderer(device="cpu")
-    for scene, over in ((rballs, dict(antialias=True)), (_textured(ts), {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            renderer.render(scene, dataclasses.replace(PARAMS, **over))
-    for over in (dict(debug_mode=DebugMode.NORMALS), dict(nee=True),
-                 dict(normal_maps=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for over in ({}, dict(antialias=True)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 3"):
+            renderer.render(_textured(ts),
+                            dataclasses.replace(PARAMS, **over))
+    for over, item in ((dict(debug_mode=DebugMode.NORMALS), 4),
+                       (dict(nee=True), 1), (dict(normal_maps=True), 3)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}"):
             renderer.render(ts, dataclasses.replace(PARAMS, **over))
 
 

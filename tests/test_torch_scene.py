@@ -120,6 +120,7 @@ def _assert_same(rs, ts: TorchScene):
     assert ts.wide_depth == rs.wide_depth
     assert ts.shade_classes == tuple(rs.shade_classes)
     assert ts.inst_mat_deltas == tuple(rs.inst_mat_deltas)
+    assert ts.sphere_bvh_root == rs.sphere_bvh_root
 
 
 # Meshes below NATIVE_MIN_TRIS build their BVH in numpy, the others in the
@@ -225,16 +226,32 @@ def _textured(s):
         s.entities[0].material, diffuse_texture="earthmap.png"))
 
 
-def _sphere_bvh(s):
-    for i in range(SPHERE_BVH_MIN):
-        s.add_sphere([i * 0.01, 5.0, 0.0], 0.005, s.entities[1].material)
-
-
-@pytest.mark.parametrize("add", [_from_file, _textured, _sphere_bvh])
-def test_outside_the_slice_raises(add):
+@pytest.mark.parametrize("add,item", [(_from_file, 2), (_textured, 3)])
+def test_outside_the_slice_raises(add, item):
     """What the scene slices still leave out raises, naming its ROADMAP
-    item: a mesh from a file, a textured material, the sphere BVH."""
+    item: a mesh from a file, a textured material. (The sphere BVH, which
+    did, is built: ``tests/test_torch_sphere_bvh.py``.)"""
     s = scenes.wide_bvh_scene()
     add(s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}"):
         instantiate_scene(s)
+
+
+def test_random_balls_recipe_scales():
+    """``random_balls(half=11)`` is the default scene, object for object;
+    ``half=24`` the same recipe over a wider field: the same four large
+    spheres first, about 2,300 in all, enough for the sphere BVH."""
+    a, b = scenes.random_balls(), scenes.random_balls(half=11)
+    assert len(a.entities) == len(b.entities) == 485
+    for x, y in zip(a.entities, b.entities):
+        assert np.array_equal(x.primitive.centre, y.primitive.centre)
+        assert x.primitive.radius == y.primitive.radius
+        assert x.material == y.material
+    big = scenes.random_balls(half=24)
+    assert len(big.entities) >= SPHERE_BVH_MIN
+    for x, y in zip(a.entities[:4], big.entities[:4]):
+        assert np.array_equal(x.primitive.centre, y.primitive.centre)
+    ts = instantiate_scene(big)
+    assert ts.sphere_bvh_root == 0 and ts.n_instances == 0
+    assert ts.wide_rows.shape[0] > ts.n_spheres // 8

@@ -18,8 +18,9 @@ A small scene asked for antialias goes to ``render_persistent`` instead, as
 in the reference: ``metal`` at bounces 3 then agrees with JAX
 ``render_persistent`` in the chaos class (segments within 2%, >= 99% of
 pixels within 1e-5; measured: segments exact, one pixel of 512 off), and
-``random_balls``, with more spheres than the megakernel's dense prepass
-takes, raises.
+``random_balls`` (485 spheres, the megakernel's dense fast loop) at bounces
+0 in the primary class (segments exact, >= 99% of pixels within 1e-5;
+measured: every pixel).
 """
 import dataclasses
 
@@ -109,12 +110,25 @@ def test_routing(monkeypatch):
     assert small_scene(metal) and not small_scene(wide)
 
 
-def test_antialias_on_a_small_scene_raises():
-    """random_balls with antialias goes to the megakernel, which takes at
-    most 32 dense spheres."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        Renderer(device="cpu").render(_pair("random_balls")[1],
-                          dataclasses.replace(PARAMS, antialias=True))
+def test_antialias_on_a_small_scene_raises(monkeypatch):
+    """random_balls with antialias goes to the megakernel, which raised at
+    more than 32 dense spheres and now renders its 485 with the dense fast
+    loop: through ``render_persistent``, not ``render_spheres``, and equal
+    to JAX ``render_persistent`` (XLA boundary) at bounces 0."""
+    rs, ts = _pair("random_balls")
+    calls = []
+    real = renderer_mod.render_persistent
+    monkeypatch.setattr(renderer_mod, "render_persistent",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    renderer = Renderer(device="cpu")
+    renderer.render(ts, dataclasses.replace(PARAMS, antialias=True))
+    ref, segs = ref_render_persistent(
+        rs, jnp.int32(0), width=W, height=H, bounces=0, rays_per_pixel=1,
+        skybox=True, antialias=True, lanes=128, unroll=2,
+        fused_boundary=False)
+    assert calls == [1] and small_scene(ts)
+    assert int(renderer.last_segments) == int(float(segs)) == W * H
+    assert frac_within(np.asarray(ref), renderer.read_framebuffer()) >= 0.99
 
 
 def test_antialias_on_a_small_scene_renders():
