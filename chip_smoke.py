@@ -23,6 +23,16 @@ went through the path's kernel and no other:
   on ``room2_scene`` (two instances of one shared 80,000-triangle soup, a
   16-triangle brute-force group, a glass sphere, depth of field).
 
+Next-event estimation (``RenderParams.nee``) goes through the megakernel's
+NEE forms: they are held against ``render_plain(nee=True)`` on ``room``
+(the shadow ray tested inline, mode 1; and forced into shadow segments,
+mode 2, which must give the same image), ``balls`` (a sphere light, cone
+sampling), room2 (shadow segments through both instances) at 128x72 and at
+1920x1080, and ``sunlit_balls`` with the sphere BVH. The ``nee_path`` phase
+renders room2 at 1080p through ``Renderer.render`` with ``nee=True``; then
+``room`` is rendered to 1,024 samples a pixel with and without NEE through
+``Renderer.render`` (seconds, image means, per-sample variance).
+
 The megakernel is also held against its plain version on
 ``instances_scene``, where four instances of two shared tables take 38%
 of the primary rays, and on the sphere-heavy scenes: ``random_balls`` with
@@ -99,6 +109,11 @@ OPS_BRUTE = 47          # brute.cuh test_row, per ray-triangle pair (what
                         # depends on the triangle alone is staged once)
 OPS_INSTANCE = 60       # megakernel.cu instance ray, limit, merge
 OPS_SEGMENT = 160       # camera ray share, shading, roulette per segment
+OPS_NEE_TRI = 62        # megakernel.cu sample_light, a triangle light
+OPS_NEE_SPHERE = 126    # megakernel.cu sample_light, a sphere light
+# (each plus one compare per light but the last, for the pick)
+SPP = 1024              # samples a pixel of the time-to-quality phase
+SPP_VAR_FRAMES = 32     # frames whose deltas give the per-sample variance
 
 
 def check(ok: bool, what: str) -> None:
@@ -173,7 +188,7 @@ def compare(scene, width, height, bounces, kernel, plain, **options):
              lane_occupancy=kc["active_lanes"] / (32.0 * max(kc["turns"], 1)),
              lane_occupancy_one_thread_per_pixel=
              one_thread_per_pixel_occupancy(pc["pixel_segments"]))
-    for k in ("rows", "leaves", "boxes", "brute_calls"):
+    for k in ("rows", "leaves", "boxes", "brute_calls", "shadow_rays"):
         if k in kc:
             r[f"{k}_kernel"] = kc[k]
             if k in pc:
@@ -195,7 +210,7 @@ def check_cases(cases, launch, plain, **tags):
         where = f"{name} at bounces={b} ({w}x{h})"
         check(r["segments_kernel"] == r["segments_plain"],
               f"exact segments, {where}")
-        for k in ("rows", "leaves", "boxes"):
+        for k in ("rows", "leaves", "boxes", "shadow_rays"):
             if f"{k}_plain" in r:
                 check(r[f"{k}_kernel"] == r[f"{k}_plain"],
                       f"{k} visits {r[f'{k}_kernel']} (kernel) == "
@@ -210,7 +225,7 @@ def check_cases(cases, launch, plain, **tags):
     return results
 
 
-def megakernel_bound(scene, r) -> dict:
+def megakernel_bound(scene, r, nee_mode: int = 0) -> dict:
     """Bound of the megakernel on a compared cell: its counted child boxes,
     leaves and segments (each segment tests every dense sphere, by the
     formula the scene's sphere count picks, and every brute-force triangle,
@@ -218,7 +233,11 @@ def megakernel_bound(scene, r) -> dict:
     once and the image written once. A leaf counts as 8 triangles, or, in a
     scene whose only tree is the sphere BVH, as 8 spheres. The kernel's
     counts do not tell the two kinds of leaf apart, so a scene with both
-    kinds of tree has no bound here and raises."""
+    kinds of tree has no bound here and raises. With next-event estimation
+    each counted shadow ray adds a light sample (the cheaper kind among the
+    scene's lights) and, in mode 1, a prepass (its spheres, brute-force
+    triangles and their instances); in mode 2 it is a counted segment that
+    shades nothing."""
     from ray_tracer_2_tpu_torch.kernels.intersect import SPHERE_FAST_MIN
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         brute_instances, bvh_instances, dense_spheres,
@@ -229,12 +248,21 @@ def megakernel_bound(scene, r) -> dict:
                          "no bound for a scene with both kinds of tree")
     brute_tris = sum(scene.inst_spans[i][2] for i in brute_instances(scene))
     dense = dense_spheres(scene)
-    per_seg = (dense * (OPS_SPHERE_FAST if dense >= SPHERE_FAST_MIN
+    prepass = (dense * (OPS_SPHERE_FAST if dense >= SPHERE_FAST_MIN
                         else OPS_SPHERE) + brute_tris * OPS_BRUTE
-               + scene.n_instances * OPS_INSTANCE + OPS_SEGMENT)
+               + len(brute_instances(scene)) * OPS_INSTANCE)
+    per_seg = prepass + (scene.n_instances - len(brute_instances(scene))) \
+        * OPS_INSTANCE + OPS_SEGMENT
     ops_leaf = OPS_SPHERE_LEAF if scene.sphere_bvh_root >= 0 else OPS_LEAF
     ops = (r["boxes_kernel"] * OPS_BOX + r["leaves_kernel"] * ops_leaf
            + r["segments_kernel"] * per_seg)
+    shadow = r.get("shadow_rays_kernel", 0) if nee_mode else 0
+    if shadow:
+        kinds = {int(row[0]) for row in scene.lights}
+        sample = min(OPS_NEE_SPHERE if k else OPS_NEE_TRI for k in kinds) \
+            + len(scene.lights) - 1
+        ops += shadow * (sample + (prepass if nee_mode == 1
+                                   else -OPS_SEGMENT))
     return bound(ops, nbytes(scene.wide_rows, scene.tri_attr, scene.mat_rows)
                  + r["width"] * r["height"] * 16)
 
@@ -417,6 +445,42 @@ def probe_entry(name, wrapper, replaces, launches, records) -> dict:
     return e
 
 
+def time_to_spp(scene, params):
+    """SPP progressive frames of one sample a pixel through
+    ``Renderer.render``; returns (seconds from the first frame to the last
+    one's end, mean of the final image's rgb over all pixels)."""
+    from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+    renderer = Renderer(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(SPP):
+        renderer.render(scene, dataclasses.replace(params, frames=f))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    fb = renderer.framebuffer
+    check(bool(torch.isfinite(fb).all()), "converged image finite")
+    return sec, float(fb[..., :3].double().mean())
+
+
+def sample_variance(scene, params) -> float:
+    """Per-sample variance of the rgb of each pixel, averaged over the
+    image, from the SPP_VAR_FRAMES first frames of ``Renderer.render``: each
+    frame's own sample is read off the accumulation (frame f's buffer times
+    f + 1 less frame f - 1's times f, in float64)."""
+    from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+    renderer = Renderer(device="cuda")
+    s1 = s2 = prev = None
+    for f in range(SPP_VAR_FRAMES):
+        fb = renderer.render(scene, dataclasses.replace(params, frames=f))
+        fb = fb[..., :3].double()
+        raw = fb if f == 0 else fb * (f + 1) - prev * f
+        s1 = raw if s1 is None else s1 + raw
+        s2 = raw * raw if s2 is None else s2 + raw * raw
+        prev = fb.clone()
+    n = SPP_VAR_FRAMES
+    return float(((s2 - s1 * s1 / n) / (n - 1)).mean())
+
+
 def drive(renderer, scene, params):
     """FRAMES progressive frames through ``Renderer.render``, frames 2-5
     timed on the host clock after a synchronise. Returns (seconds of the
@@ -450,7 +514,8 @@ def main() -> int:
     from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all, \
         ptxas_lines
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
-        CUDA_MEGAKERNEL, brute_instances, kernel_tables, render_plain,
+        CUDA_MEGAKERNEL, brute_instances, kernel_tables, nee_mode,
+        render_plain,
     )
     from ray_tracer_2_tpu_torch.kernels.spheres import (
         CUDA_SPHERES, render_spheres_plain,
@@ -557,6 +622,43 @@ def main() -> int:
          ("random_balls", rballs, W, H, BOUNCES)],
         CUDA_SPHERES, render_spheres_plain, kernel="spheres")[-1]
 
+    # ---- 3b. next-event estimation: the NEE forms against the plain version
+    balls = instantiate_scene(scenes.balls()).to("cuda")
+    sunlit_bvh = instantiate_scene(scenes.sunlit_balls(),
+                                   sphere_bvh=True).to("cuda")
+    modes = {name: nee_mode(sc, True) for name, sc in (
+        ("room", room), ("balls", balls), ("room2", room2),
+        ("sunlit_bvh", sunlit_bvh))}
+    check(modes == dict(room=1, balls=1, room2=2, sunlit_bvh=2)
+          and sunlit_bvh.sphere_bvh_root >= 0,
+          f"NEE cells take their modes: {modes}")
+    nee = dict(nee=True)
+    forced = dict(nee=True, nee_segments=True)
+    nee_cmp = check_cases(
+        [("room", room, SMALL_W, SMALL_H, 0, nee),
+         ("room", room, SMALL_W, SMALL_H, BOUNCES, nee),
+         ("balls", balls, SMALL_W, SMALL_H, BOUNCES, nee),
+         (small_name, room2_small, SMALL_W, SMALL_H, BOUNCES, nee),
+         ("room, shadow segments forced", room, SMALL_W, SMALL_H, BOUNCES,
+          forced),
+         ("sunlit_balls, sphere BVH", sunlit_bvh, SMALL_W, SMALL_H, BOUNCES,
+          nee),
+         ("room2_scene", room2, W, H, BOUNCES, nee)],
+        CUDA_MEGAKERNEL, render_plain, kernel="megakernel")
+    kw = dict(width=SMALL_W, height=SMALL_H, bounces=BOUNCES,
+              rays_per_pixel=1, skybox=True)
+    inline, s_inline = CUDA_MEGAKERNEL(room, 1, nee=True, **kw)
+    segmented, s_segmented = CUDA_MEGAKERNEL(room, 1, **forced, **kw)
+    check(torch.equal(inline, segmented), "room: the kernel's mode 1 and "
+                                          "forced mode 2 give one image")
+    emit(phase="nee_modes_agree", scene="room", width=SMALL_W,
+         height=SMALL_H, bounces=BOUNCES, segments_mode1=int(s_inline),
+         segments_mode2=int(s_segmented),
+         shadow_rays=nee_cmp[4]["shadow_rays_kernel"])
+    check(int(s_segmented) - int(s_inline)
+          == nee_cmp[4]["shadow_rays_kernel"],
+          "forced mode 2 traces one segment more per shadow ray")
+
     # ---- 4. the main path -------------------------------------------------
     params = RenderParams(width=W, height=H, bounces=BOUNCES,
                           rays_per_pixel=1, skybox=True)
@@ -646,6 +748,54 @@ def main() -> int:
          ms_per_frame=dt * 1e3 / (FRAMES - 2),
          mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
+    # ---- 6b. next-event estimation: Renderer -> the megakernel's NEE form
+    zero_counts()
+    dt, segs = drive(Renderer(device="cuda"), room2,
+                     dataclasses.replace(params, nee=True))
+    nee_launches = CUDA_MEGAKERNEL.nee_launches
+    counts = CUDA_MEGAKERNEL.read_counts()
+    check(CUDA_MEGAKERNEL.launches == nee_launches == FRAMES,
+          f"{nee_launches} NEE launches of {CUDA_MEGAKERNEL.launches} in "
+          f"{FRAMES} NEE frames")
+    check(CUDA_SPHERES.launches == CUDA_BRUTE.launches == 0,
+          "no other kernel launched on the NEE path")
+    check(counts["brute_calls"] == len(brute_instances(room2)) * sum(segs),
+          "every segment, shadow segments included, ran the prepass")
+    check(0 < counts["shadow_rays"] < sum(segs), "shadow segments traced")
+    emit(phase="nee_path", scene="room2_scene with next-event estimation "
+         "(shadow segments)", width=W, height=H, bounces=BOUNCES, rpp=1,
+         frames=FRAMES, launches=CUDA_MEGAKERNEL.launches,
+         nee_launches=nee_launches, segments=sum(segs),
+         shadow_segments=counts["shadow_rays"],
+         shadow_share=counts["shadow_rays"] / sum(segs),
+         timed_frames="2-5", timed_segments=sum(segs[2:]),
+         ms_per_frame=dt * 1e3 / (FRAMES - 2),
+         mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
+
+    # ---- 6c. time to 1024 samples a pixel on room, NEE off and on
+    spp = {}
+    for flag in (False, True):
+        zero_counts()
+        sec, mean = time_to_spp(room, dataclasses.replace(params, nee=flag))
+        launched = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.nee_launches)
+        check(launched == ((0, SPP) if flag else (SPP, 0)),
+              f"time to {SPP} spp, nee={flag}: launches {launched}")
+        spp[flag] = dict(seconds=sec, mean=mean, variance=sample_variance(
+            room, dataclasses.replace(params, nee=flag)))
+    check(abs(spp[True]["mean"] - spp[False]["mean"])
+          <= 0.03 * spp[False]["mean"],
+          f"NEE's mean {spp[True]['mean']} within 3% of plain path "
+          f"tracing's {spp[False]['mean']}")
+    emit(phase="time_to_spp", scene="room", spp=SPP, width=W, height=H,
+         bounces=BOUNCES, seconds_plain=spp[False]["seconds"],
+         seconds_nee=spp[True]["seconds"], mean_plain=spp[False]["mean"],
+         mean_nee=spp[True]["mean"],
+         variance_frames=SPP_VAR_FRAMES,
+         variance_plain=spp[False]["variance"],
+         variance_nee=spp[True]["variance"],
+         variance_ratio=spp[False]["variance"] / spp[True]["variance"],
+         card=card)
+
     # ---- 7. the probes ------------------------------------------------------
     zero_counts()
     for w in probe_wrappers:
@@ -681,6 +831,8 @@ def main() -> int:
     # triangle table, so library_ms is null
     main_b = megakernel_bound(main_scene, main_cmp)
     room2_b = megakernel_bound(room2, room2_cmp)
+    nee_b = megakernel_bound(room2, nee_cmp[-1], nee_mode=2)
+    room_nee_b = megakernel_bound(room, nee_cmp[1], nee_mode=1)
 
     def sphere_cell(scene, r, **more):
         return dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
@@ -716,6 +868,27 @@ def main() -> int:
                  rballs, dense_cmp,
                  launches_per_frame=ball_launches / FRAMES),
              random_balls_sphere_bvh=sphere_cell(rballs_bvh, bvh_cmp)),
+        # next-event estimation: the NEE forms of megakernel.cu; in the
+        # reference it runs in the XLA boundary (megakernel.py:888-1082),
+        # beside the TPU kernel the megakernel replaces
+        dict(name="megakernel_nee", route="cuda",
+             source="ray_tracer_2_tpu_torch/csrc/megakernel.cu",
+             replaces="ray_tracer_2_tpu/kernels/pallas_boundary.py:236",
+             reference="ray_tracer_2_tpu/kernels/megakernel.py:888",
+             launches=nee_launches, launches_per_frame=nee_launches / FRAMES,
+             max_abs_err=nee_cmp[-1]["max_abs_err"],
+             ms=nee_cmp[-1]["kernel_ms"], plain_ms=nee_cmp[-1]["plain_ms"],
+             bound_ms=nee_b["bound_ms"], bound_by=nee_b["bound_by"],
+             bound_nofma_ms=nee_b["bound_nofma_ms"], library_ms=None,
+             ops=nee_b["ops"], bytes=nee_b["bytes"],
+             lane_occupancy=nee_cmp[-1]["lane_occupancy"],
+             segments=nee_cmp[-1]["segments_kernel"],
+             shadow_rays=nee_cmp[-1]["shadow_rays_kernel"],
+             room_inline_128x72=dict(
+                 ms=nee_cmp[1]["kernel_ms"], plain_ms=nee_cmp[1]["plain_ms"],
+                 max_abs_err=nee_cmp[1]["max_abs_err"],
+                 shadow_rays=nee_cmp[1]["shadow_rays_kernel"],
+                 **room_nee_b)),
         dict(name="spheres", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/spheres.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_spheres.py:149",

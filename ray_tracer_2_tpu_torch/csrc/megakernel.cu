@@ -53,8 +53,18 @@
 //   takes an equal distance (it would have been tested first), the lowest
 //   sphere id among equal spheres.
 //   out[pixel] = sum / rpp; every started segment counts once.
+// With next-event estimation (the NEE forms, render_general_nee; reference
+// resolve_and_shade :888-1082 and the boundary :1765-1790): each diffuse
+// vertex with room in the bounce budget samples one light of the scene's
+// table and adds its contribution if a shadow ray finds it unoccluded,
+// either at once against the prepass (mode kNeeInline, scenes without a
+// traversal phase) or after a shadow segment of its own (kNeeSegments),
+// which counts as a segment and keeps the bounce; the next hit then adds
+// no emission.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "brute.cuh"
 #include "claim.cuh"
@@ -119,9 +129,11 @@ constexpr float kFlagGlass = 1.0f;  // material flag of glass
 
 // What the kernel counts, accumulated across launches in int64 words
 // (kernels/megakernel.py COUNTS): closest-hit calls of the brute-force
-// prepass (one per segment and brute-force group), launches that made any,
-// interior wide-row visits, leaf visits, child boxes tested, turns of a
-// warp's lane loop, and lanes holding a path summed over those turns.
+// prepass (one per segment and brute-force group, and per inline shadow
+// test and group), launches that made any, interior wide-row visits, leaf
+// visits, child boxes tested, turns of a warp's lane loop, lanes holding a
+// path summed over those turns, and shadow rays of next-event estimation
+// (inline tests and shadow segments; only the NEE forms add to it).
 constexpr int kCntBruteCalls = 0;
 constexpr int kCntBruteLaunches = 1;
 constexpr int kCntRows = 2;
@@ -129,7 +141,22 @@ constexpr int kCntLeaves = 3;
 constexpr int kCntBoxes = 4;
 constexpr int kCntTurns = 5;
 constexpr int kCntActive = 6;
-constexpr int kCounts = 7;
+constexpr int kCntShadowRays = 7;
+constexpr int kCounts = 8;
+
+// Next-event estimation (kernels/megakernel.py nee_mode, light_tables;
+// reference resolve_and_shade :888-1082). Light rows: kind (1 sphere), v0
+// (a sphere: centre), v1 (a sphere: radius in v1.x), v2, the unit normal,
+// radiance.
+constexpr int kLightCols = 16;
+constexpr int kMaxLights = 64;   // render_scene.py MAX_NEE_LIGHTS
+constexpr int kNeeInline = 1;    // the shadow ray tested in the same turn
+constexpr int kNeeSegments = 2;  // the shadow ray traced as its own segment
+// a lane's NEE bits: its last vertex sampled a light (its next hit adds no
+// emission), it is tracing a shadow segment, the path goes on after it
+constexpr int kNeeSup = 1;
+constexpr int kNeeShadow = 2;
+constexpr int kNeeGoesOn = 4;
 
 struct Params {
   const float* wide_rows;
@@ -155,6 +182,17 @@ struct Params {
   int sph, n_inst, n_brute, width, height, row_start, total;
   int bounces, rpp, skybox, antialias;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
+};
+
+// What only the NEE forms take, as a kernel parameter of its own: Params
+// stays the other forms' (see there).
+struct NeeParams {
+  const float* lights;  // n_lights rows of kLightCols floats
+  const float* cdf;     // the area shares summed, n_lights floats
+  int n_lights;
+  int mode;             // kNeeInline or kNeeSegments, launch-uniform
+  float c_tri;          // total area / (2 pi), float32
+  float c_area;         // total area, float32
 };
 
 template <int kSph>
@@ -229,6 +267,13 @@ __device__ __forceinline__ void rand_disk(uint32_t& seed, float& a,
 
 __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
+}
+// jnp.cross
+__device__ __forceinline__ void cross3(const float a[3], const float b[3],
+                                       float out[3]) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
 }
 __device__ __forceinline__ void normalize3(float v[3]) {
   float len = sqrtf(dot3(v, v));
@@ -551,6 +596,14 @@ struct Path {
   uint32_t seed;
   int pix, sample, bounce;
 };
+// ... and in the NEE forms also its NEE bits (kNee*), while a shadow
+// segment is traced the path's next ray, the light's contribution if the
+// light is unoccluded and the distance to it, and the lane's shadow rays
+struct NeePath : Path {
+  float so[3], sd[3], sc[3], st;
+  int bits;
+  unsigned long long shadows;
+};
 
 // Start the lane's next sample: the camera ray (megakernel.py camera_ray;
 // ray_tracer.wgsl:473-500), drawn from the pixel's seed.
@@ -614,30 +667,23 @@ __device__ __forceinline__ void sphere_hit(const float* sp, int mat,
   for (int r = 0; r < 3; ++r) normal[r] = inside ? -n[r] : n[r];
 }
 
-// One segment of the lane's path: {dense sphere prepass; each brute-force
-// group; each wide-BVH instance; the sphere BVH; shade; Russian roulette}.
-// Updates the ray, transmission, incoming light and seed; returns whether
-// the path goes on. `tests` counts the brute-force closest-hit calls.
-// `s_sph`, `s_inst` and `s_brute` are the tables every segment reads
-// whole, in shared or in global memory.
-template <bool kGeneral, bool kGlass, int kSph>
-__device__ __forceinline__ bool trace_segment(
+// The segment prepass of the ray (o, d) (megakernel.py segment_prepass
+// :1088): the dense spheres, then each brute-force group in instance
+// order. Starts `h` and `normal` afresh. `tests` counts the brute-force
+// closest-hit calls. `s_sph`, `s_inst` and `s_brute` are the tables every
+// segment reads whole, in shared or in global memory.
+template <bool kGeneral, int kSph>
+__device__ __forceinline__ void segment_prepass(
     const Params& p, const float* s_sph, const float* s_inst,
-    const float4* s_brute, Path& q, unsigned long long& tests,
-    Visits& vis) {
-  float* o = q.o;
-  float* d = q.d;
-  float* trans = q.trans;
-  float* inc = q.inc;
-  uint32_t& seed = q.seed;
-  SegHit h;
+    const float4* s_brute, const float o[3], const float d[3], SegHit& h,
+    float normal[3], unsigned long long& tests) {
   h.dst = kInf;
   h.u = h.v = h.det = 0.0f;
   h.kind = -1;
   h.mat = 0;
   h.flag = 0;
   for (int r = 0; r < 3; ++r) h.point[r] = 0.0f;
-  float normal[3] = {0.0f, 0.0f, 0.0f};
+  for (int r = 0; r < 3; ++r) normal[r] = 0.0f;
 
   // ---- dense sphere prepass (intersect.closest_sphere): the first index on
   // an equal distance like argmin. The exact branch is the main path's and
@@ -731,6 +777,119 @@ __device__ __forceinline__ bool trace_segment(
                      rt2_brute::row_material(
                          rows + bh.tri * rt2_brute::kRowWords), h);
   }
+}
+
+// One light sample from a diffuse vertex (megakernel.py resolve_and_shade
+// :924-1000, in its op order): the shadow ray's direction, the distance to
+// the light point, the light's contribution if it is unoccluded, and
+// whether the sample counts.
+struct NeeSample {
+  float d[3], t_l, c3[3];
+  bool may;    // not inside the picked sphere light (else no sample, and
+               // the next hit's emission is kept)
+  bool takes;  // above the surface and on the light's front (a triangle)
+};
+
+// Three draws; the light picked by area as a count of the cdf entries
+// before the last that the draw reaches; a point on a triangle by the sqrt
+// warp (cos_l * total_area / (2 pi d^2)), or a direction in the cone a
+// sphere subtends ((1 - cos_max) * total_area / (4 pi r^2)). `color` is the
+// material's, `trans` the path's before this vertex.
+__device__ __forceinline__ void sample_light(const NeeParams& nee,
+                                             uint32_t& seed,
+                                             const float point[3],
+                                             const float normal[3],
+                                             const float trans[4],
+                                             const float* color,
+                                             NeeSample& s) {
+  float r_pick = rand01(seed);
+  float r1 = rand01(seed);
+  float r2 = rand01(seed);
+  int li = 0;
+  for (int j = 0; j + 1 < nee.n_lights; ++j)
+    li += r_pick >= __ldg(nee.cdf + j) ? 1 : 0;
+  const float* L = nee.lights + li * kLightCols;
+  float geom;
+  bool front;
+  if (__ldg(L) > 0.5f) {  // sphere: centre in v0, radius in v1.x
+    float rad = __ldg(L + 4);
+    float cvec[3], w[3], u[3], v[3];
+    for (int r = 0; r < 3; ++r) cvec[r] = __ldg(L + 1 + r) - point[r];
+    float cd2 = nan_max(dot3(cvec, cvec), 1e-12f);
+    float cdist = sqrtf(cd2);
+    for (int r = 0; r < 3; ++r) w[r] = cvec[r] / cdist;
+    float sin_max = clamp01(rad / cdist);
+    float cos_max = sqrtf(nan_max(1.0f - sin_max * sin_max, 0.0f));
+    float cos_t = 1.0f - r1 * (1.0f - cos_max);
+    float sin_t = sqrtf(nan_max(1.0f - cos_t * cos_t, 0.0f));
+    float phi = 6.2831855f * r2;  // float32(2 pi)
+    float hx = fabsf(w[0]) > 0.9f ? 0.0f : 1.0f;
+    float helper[3] = {hx, 1.0f - hx, 0.0f};
+    cross3(helper, w, u);
+    normalize3(u);
+    cross3(w, u, v);
+    float cp = cosf(phi), sp = sinf(phi);
+    for (int r = 0; r < 3; ++r)
+      s.d[r] = w[r] * cos_t + (u[r] * cp + v[r] * sp) * sin_t;
+    normalize3(s.d);
+    float h_q = dot3(s.d, cvec);
+    float disc = nan_max(h_q * h_q - (cd2 - rad * rad), 0.0f);
+    s.t_l = h_q - sqrtf(disc);
+    // float32(4 pi)
+    geom = ((1.0f - cos_max) * nee.c_area) /
+           nan_max((12.566371f * rad) * rad, 1e-12f);
+    s.may = cdist > rad * 1.001f;
+    front = s.may;
+  } else {  // triangle
+    float su = sqrtf(r1);
+    float a = 1.0f - su, b = su * (1.0f - r2), c = su * r2;
+    float dv[3];
+    for (int r = 0; r < 3; ++r)
+      dv[r] = ((__ldg(L + 1 + r) * a + __ldg(L + 4 + r) * b) +
+               __ldg(L + 7 + r) * c) - point[r];
+    float d2 = nan_max(dot3(dv, dv), 1e-12f);
+    s.t_l = sqrtf(d2);
+    for (int r = 0; r < 3; ++r) s.d[r] = dv[r] / s.t_l;
+    float cos_l = -((__ldg(L + 10) * s.d[0] + __ldg(L + 11) * s.d[1]) +
+                    __ldg(L + 12) * s.d[2]);
+    geom = (cos_l * nee.c_tri) / d2;
+    s.may = true;
+    front = cos_l > 0.0f;
+  }
+  s.takes = dot3(normal, s.d) > 0.0f && front;
+  for (int c = 0; c < 3; ++c)
+    s.c3[c] = ((trans[c] * __ldg(color + c)) * __ldg(L + 13 + c)) * geom;
+}
+
+// One segment of the lane's path: {the prepass; each wide-BVH instance;
+// the sphere BVH; shade; Russian roulette}. Updates the ray, transmission,
+// incoming light and seed; returns whether the path goes on. `tests`
+// counts the brute-force closest-hit calls.
+//
+// With kNee, next-event estimation (megakernel.py resolve_and_shade): a
+// diffuse vertex with room in the bounce budget samples a light (three
+// draws more on every diffuse or specular vertex) and its next hit adds no
+// emission. In mode kNeeInline the shadow ray runs the prepass here and
+// the contribution is added at once; in mode kNeeSegments the lane's next
+// turn traces the shadow ray as a segment of its own, through every phase,
+// and then banks the contribution if the light was unoccluded and takes
+// the stashed ray up again, without shading or drawing (the bounce stays
+// meanwhile: render_kernel).
+template <bool kGeneral, bool kGlass, int kSph, bool kNee>
+__device__ __forceinline__ bool trace_segment(
+    const Params& p, const NeeParams& nee, const float* s_sph,
+    const float* s_inst, const float4* s_brute,
+    std::conditional_t<kNee, NeePath, Path>& q, unsigned long long& tests,
+    Visits& vis) {
+  float* o = q.o;
+  float* d = q.d;
+  float* trans = q.trans;
+  float* inc = q.inc;
+  uint32_t& seed = q.seed;
+  SegHit h;
+  float normal[3];
+  segment_prepass<kGeneral, kSph>(p, s_sph, s_inst, s_brute, o, d, h,
+                                  normal, tests);
 
   // ---- wide-BVH instances, in order: pruning limit seeded from the best
   // world distance so far (start_segments :1257-1268, _advance_impl
@@ -770,6 +929,20 @@ __device__ __forceinline__ bool trace_segment(
     }
   }
 
+  if constexpr (kNee) {
+    if (q.bits & kNeeShadow) {  // a shadow segment ends: resume the path
+      if (h.dst >= q.st * 0.999f)  // float32(1 - 1e-3)
+        for (int c = 0; c < 3; ++c) inc[c] = inc[c] + q.sc[c];
+      for (int r = 0; r < 3; ++r) {
+        o[r] = q.so[r];
+        d[r] = q.sd[r];
+      }
+      bool goes_on = (q.bits & kNeeGoesOn) != 0;
+      q.bits = kNeeSup;
+      return goes_on;
+    }
+  }
+
   // ---- resolve + shade (megakernel.py resolve_and_shade :739;
   // ray_tracer.wgsl:398-471)
   if (h.kind == -1) {
@@ -801,6 +974,12 @@ __device__ __forceinline__ bool trace_segment(
   }
   const float* m = p.mat_rows + (size_t)h.mat * 32;
   float nd[3], no[3];
+  [[maybe_unused]] NeeSample ns;
+  [[maybe_unused]] bool sup = false, shadow = false;
+  if constexpr (kNee) {
+    sup = (q.bits & kNeeSup) != 0;
+    q.bits = 0;
+  }
   if (kGlass && __ldg(m + 21) == kFlagGlass) {  // glass (:826-852)
     if (backface) {
       float ak = __ldg(m + 16);
@@ -858,9 +1037,28 @@ __device__ __forceinline__ bool trace_segment(
     }
     normalize3(nd);
     float emis = __ldg(m + 17);
+    [[maybe_unused]] bool sampled = false, lit = false;
+    if constexpr (kNee) {
+      sample_light(nee, seed, h.point, normal, trans, m, ns);
+      sampled = !is_spec && ns.may && q.bounce + 1 <= p.bounces;
+      shadow = sampled && ns.takes;
+      q.shadows += shadow ? 1 : 0;
+      if (shadow && nee.mode == kNeeInline) {
+        SegHit sh;
+        float sn[3];
+        segment_prepass<kGeneral, kSph>(p, s_sph, s_inst, s_brute, h.point,
+                                        ns.d, sh, sn, tests);
+        lit = sh.dst >= ns.t_l * 0.999f;  // float32(1 - 1e-3)
+      }
+    }
     for (int c = 0; c < 4; ++c) {
-      inc[c] = inc[c] + (__ldg(m + 4 + c) * emis) * trans[c];
+      inc[c] = inc[c] + (sup ? 0.0f : __ldg(m + 4 + c) * emis) * trans[c];
       trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
+    }
+    if constexpr (kNee) {
+      if (lit)
+        for (int c = 0; c < 3; ++c) inc[c] = inc[c] + ns.c3[c];
+      if (sampled) q.bits = kNeeSup;
     }
     for (int r = 0; r < 3; ++r) no[r] = h.point[r];
   }
@@ -873,6 +1071,20 @@ __device__ __forceinline__ bool trace_segment(
   for (int r = 0; r < 3; ++r) {
     o[r] = no[r];
     d[r] = nd[r];
+  }
+  if constexpr (kNee) {
+    if (shadow && nee.mode == kNeeSegments) {  // trace the shadow ray next
+      for (int r = 0; r < 3; ++r) {
+        q.so[r] = o[r];
+        q.sd[r] = d[r];
+        q.sc[r] = ns.c3[r];
+        o[r] = h.point[r];
+        d[r] = ns.d[r];
+      }
+      q.st = ns.t_l;
+      q.bits = kNeeSup | kNeeShadow | (survive ? kNeeGoesOn : 0);
+      return true;
+    }
   }
   return survive;
 }
@@ -890,9 +1102,12 @@ __device__ __forceinline__ bool trace_segment(
 // the instance loop; kGlass is false when no material is glass, which
 // compiles out the glass branch; kSph says how spheres are tested (kSph*);
 // kStaged is false when the scene's tables pass kDynSmemBytes and are read
-// from global memory instead of being staged.
-template <bool kGeneral, bool kGlass, int kSph, bool kStaged>
-__device__ __forceinline__ void render_kernel(const Params& p) {
+// from global memory instead of being staged; kNee compiles in next-event
+// estimation (trace_segment), whose lanes carry NeePath.
+template <bool kGeneral, bool kGlass, int kSph, bool kStaged,
+          bool kNee = false>
+__device__ __forceinline__ void render_kernel(
+    const Params& p, const NeeParams& nee = NeeParams()) {
   __shared__ float s_scal[kScal];
   __shared__ unsigned long long s_warp[kThreads / 32];
   extern __shared__ __align__(16) float s_dyn[];
@@ -932,7 +1147,8 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
   const float rpp = (float)p.rpp;
   unsigned long long segs = 0, tests = 0, rows = 0, leaves = 0, boxes = 0;
   unsigned long long turns = 0, active = 0;
-  Path q;
+  std::conditional_t<kNee, NeePath, Path> q;
+  if constexpr (kNee) q.shadows = 0;
   q.pix = -1;
   q.sample = 0;
   bool has_path = false, exhausted = false;
@@ -958,6 +1174,7 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
     }
     if (!has_path && q.pix >= 0) {
       start_sample(p, s_scal, q);
+      if constexpr (kNee) q.bits = 0;  // a new path shows every emission
       has_path = true;
     }
     unsigned live = __ballot_sync(rt2_claim::kFull, has_path);
@@ -969,12 +1186,14 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
     if (has_path) {
       ++segs;
       Visits vis = {0u, 0u, 0u};
-      bool goes_on = trace_segment<kGeneral, kGlass, kSph>(
-          p, s_sph, s_inst, s_brute, q, tests, vis);
+      bool goes_on = trace_segment<kGeneral, kGlass, kSph, kNee>(
+          p, nee, s_sph, s_inst, s_brute, q, tests, vis);
       rows += vis.rows;
       leaves += vis.leaves;
       boxes += vis.boxes;
-      if (!goes_on || ++q.bounce > p.bounces) {
+      bool pinned = false;  // a shadow segment is next: the bounce stays
+      if constexpr (kNee) pinned = (q.bits & kNeeShadow) != 0;
+      if (!goes_on || (!pinned && ++q.bounce > p.bounces)) {
         for (int c = 0; c < 4; ++c) q.acc[c] = q.acc[c] + q.inc[c];
         has_path = false;
       }
@@ -989,6 +1208,9 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
   rt2_claim::block_add<kThreads>(boxes, p.counts + kCntBoxes, s_warp);
   rt2_claim::block_add<kThreads>(turns, p.counts + kCntTurns, s_warp);
   rt2_claim::block_add<kThreads>(active, p.counts + kCntActive, s_warp);
+  if constexpr (kNee)
+    rt2_claim::block_add<kThreads>(q.shadows, p.counts + kCntShadowRays,
+                                   s_warp);
   if (kGeneral) {
     unsigned long long t = rt2_claim::block_add<kThreads>(
         tests, p.counts + kCntBruteCalls, s_warp);
@@ -1007,7 +1229,10 @@ __device__ __forceinline__ void render_kernel(const Params& p) {
 // blocks) instead of 96 (5 blocks), so they carry no minimum (PERF.md,
 // section 5). The general forms beyond the exact dense prepass on staged
 // tables (the fast prepass, the sphere BVH, tables in global memory) are
-// compiled with the glass branch only: nine kernels in all.
+// compiled with the glass branch only: nine kernels. Next-event estimation
+// has its own general forms, one for each way spheres are tested and for
+// staged or global tables, each with the glass branch, taking NeeParams
+// beside Params: fifteen kernels in all.
 constexpr int kGeneralMinBlocks = 7;
 
 template <bool kGlass>
@@ -1021,7 +1246,14 @@ render_general(Params p) {
   render_kernel<true, kGlass, kSph, kStaged>(p);
 }
 
+template <int kSph, bool kStaged>
+__global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
+render_general_nee(Params p, NeeParams nee) {
+  render_kernel<true, true, kSph, kStaged, true>(p, nee);
+}
+
 using Kernel = void (*)(Params);
+using NeeKernel = void (*)(Params, NeeParams);
 
 // The compiled form for a scene class; nullptr for a class without one.
 Kernel pick_kernel(bool general, bool glass, int sph, bool staged) {
@@ -1039,11 +1271,74 @@ Kernel pick_kernel(bool general, bool glass, int sph, bool staged) {
                            : render_general<true, kSphBvh, false>;
 }
 
-cudaError_t launch(Kernel kernel, size_t smem, cudaStream_t stream,
-                   const Params& p) {
+// The NEE form for a scene class: always general, with the glass branch.
+NeeKernel pick_nee_kernel(int sph, bool staged) {
+  if (staged)
+    return sph == kSphExact  ? render_general_nee<kSphExact, true>
+           : sph == kSphFast ? render_general_nee<kSphFast, true>
+                             : render_general_nee<kSphBvh, true>;
+  return sph == kSphExact  ? render_general_nee<kSphExact, false>
+         : sph == kSphFast ? render_general_nee<kSphFast, false>
+                           : render_general_nee<kSphBvh, false>;
+}
+
+template <typename K, typename... Args>
+cudaError_t launch(K kernel, size_t smem, cudaStream_t stream,
+                   const Params& p, Args... more) {
   int blocks = rt2_claim::persistent_blocks(kernel, kThreads, smem, p.total);
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  kernel<<<blocks, kThreads, smem, stream>>>(p, more...);
   return cudaGetLastError();
+}
+
+// Checks the arguments shared by both entry points and fills `p` and the
+// dynamic shared memory `smem`; returns cudaErrorInvalidValue where an
+// argument is out of range.
+cudaError_t make_params(
+    const float* wide_rows, const float* tri_attr, const float* mat_rows,
+    const float* spheres, const float* scal, const float* inst,
+    const float* brute, int n_spheres, int n_inst, int n_brute, int width,
+    int height, int row_start, int rows, int bounces, int rpp, int skybox,
+    int antialias, int spheres_mode, int staged, int sphere_root,
+    unsigned int frame_seed, float* out, unsigned long long* scratch,
+    unsigned long long* counts, Params& p, size_t& smem) {
+  if (n_spheres < 0 || n_inst < 0 ||
+      n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
+      (((uintptr_t)wide_rows | (uintptr_t)brute) & 15u) != 0u)
+    return cudaErrorInvalidValue;
+  if (spheres_mode == kSphBvh ? (sphere_root < 0 || n_spheres < 1)
+                              : n_spheres > kMaxSpheres)
+    return cudaErrorInvalidValue;
+  smem = 0;
+  if (staged) {
+    smem = sizeof(float) *
+           ((size_t)n_inst * kInstCols +
+            (size_t)n_brute * 4 * rt2_brute::kRowWords +
+            (spheres_mode == kSphBvh ? 0 : (size_t)n_spheres * kSphStride));
+    if (smem > (size_t)kDynSmemBytes) return cudaErrorInvalidValue;
+  }
+  p.wide_rows = wide_rows;
+  p.tri_attr = tri_attr;
+  p.mat_rows = mat_rows;
+  p.spheres = spheres;
+  p.scal = scal;
+  p.inst = inst;
+  p.brute = brute;
+  p.out = out;
+  p.scratch = scratch;
+  p.counts = counts;
+  p.sph = spheres_mode == kSphBvh ? sphere_root : n_spheres;
+  p.n_inst = n_inst;
+  p.n_brute = n_brute;
+  p.width = width;
+  p.height = height;
+  p.row_start = row_start;
+  p.total = rows * width;
+  p.bounces = bounces;
+  p.rpp = rpp;
+  p.skybox = skybox;
+  p.antialias = antialias;
+  p.frame_seed = frame_seed;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1074,48 +1369,57 @@ extern "C" int rt2_render_persistent(
     int spheres_mode, int staged, int sphere_root, unsigned int frame_seed,
     float* out, unsigned long long* scratch, unsigned long long* counts,
     void* stream) {
-  if (n_spheres < 0 || n_inst < 0 ||
-      n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
-      (((uintptr_t)wide_rows | (uintptr_t)brute) & 15u) != 0u)
-    return (int)cudaErrorInvalidValue;
-  if (spheres_mode == kSphBvh ? (sphere_root < 0 || n_spheres < 1)
-                              : n_spheres > kMaxSpheres)
-    return (int)cudaErrorInvalidValue;
+  Params p;
+  size_t smem;
+  cudaError_t err = make_params(
+      wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
+      n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
+      antialias, spheres_mode, staged, sphere_root, frame_seed, out, scratch,
+      counts, p, smem);
+  if (err != cudaSuccess) return (int)err;
   if (!general && (n_inst != 1 || n_brute != 0))
     return (int)cudaErrorInvalidValue;
   Kernel kernel = pick_kernel(general != 0, glass != 0, spheres_mode,
                               staged != 0);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  if (staged) {
-    smem = sizeof(float) *
-           ((size_t)n_inst * kInstCols +
-            (size_t)n_brute * 4 * rt2_brute::kRowWords +
-            (spheres_mode == kSphBvh ? 0 : (size_t)n_spheres * kSphStride));
-    if (smem > (size_t)kDynSmemBytes) return (int)cudaErrorInvalidValue;
-  }
-  Params p;
-  p.wide_rows = wide_rows;
-  p.tri_attr = tri_attr;
-  p.mat_rows = mat_rows;
-  p.spheres = spheres;
-  p.scal = scal;
-  p.inst = inst;
-  p.brute = brute;
-  p.out = out;
-  p.scratch = scratch;
-  p.counts = counts;
-  p.sph = spheres_mode == kSphBvh ? sphere_root : n_spheres;
-  p.n_inst = n_inst;
-  p.n_brute = n_brute;
-  p.width = width;
-  p.height = height;
-  p.row_start = row_start;
-  p.total = rows * width;
-  p.bounces = bounces;
-  p.rpp = rpp;
-  p.skybox = skybox;
-  p.antialias = antialias;
-  p.frame_seed = frame_seed;
   return (int)launch(kernel, smem, (cudaStream_t)stream, p);
+}
+
+// The same with next-event estimation, through the NEE forms (general,
+// glass compiled in): `lights` holds `n_lights` (1-64) rows of kLightCols
+// floats (kernels/megakernel.py light_tables), `cdf` their area shares
+// summed, `nee_mode` kNeeInline (a scene without a traversal phase: no
+// wide-BVH instance, no sphere BVH) or kNeeSegments, `c_tri` the total
+// light area over 2 pi and `c_area` the total area, both float32. Each
+// shadow segment of kNeeSegments counts as a segment.
+extern "C" int rt2_render_persistent_nee(
+    const float* wide_rows, const float* tri_attr, const float* mat_rows,
+    const float* spheres, const float* scal, const float* inst,
+    const float* brute, int n_spheres, int n_inst, int n_brute, int width,
+    int height, int row_start, int rows, int bounces, int rpp, int skybox,
+    int antialias, int spheres_mode, int staged, int sphere_root,
+    unsigned int frame_seed, const float* lights, const float* cdf,
+    int n_lights, int nee_mode, float c_tri, float c_area, float* out,
+    unsigned long long* scratch, unsigned long long* counts, void* stream) {
+  Params p;
+  size_t smem;
+  cudaError_t err = make_params(
+      wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
+      n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
+      antialias, spheres_mode, staged, sphere_root, frame_seed, out, scratch,
+      counts, p, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_lights < 1 || n_lights > kMaxLights ||
+      (nee_mode != kNeeInline && nee_mode != kNeeSegments) ||
+      (nee_mode == kNeeInline && spheres_mode == kSphBvh))
+    return (int)cudaErrorInvalidValue;
+  NeeParams nee;
+  nee.lights = lights;
+  nee.cdf = cdf;
+  nee.n_lights = n_lights;
+  nee.mode = nee_mode;
+  nee.c_tri = c_tri;
+  nee.c_area = c_area;
+  return (int)launch(pick_nee_kernel(spheres_mode, staged != 0), smem,
+                     (cudaStream_t)stream, p, nee);
 }

@@ -9,7 +9,9 @@ Routing (reference ``render_sample`` and ``Renderer._use_pallas_spheres``):
 a small scene (``kernels/spheres.eligible``: spheres plus at most 64
 untextured triangles) renders through ``render_spheres``, unless it asks
 for antialias, which that path does not take, or was instantiated with the
-sphere BVH, which only the megakernel walks; every other frame goes
+sphere BVH, which only the megakernel walks, or for next-event estimation,
+which the reference keeps off its small-scene kernel
+(``ray_tracer_2_tpu/engine/renderer.py:278-281``); every other frame goes
 through ``render_persistent`` (the megakernel), which raises only for a
 scene outside the ported slices (textures). The reference also capped the
 small path at 128 spheres, a choice between two TPU implementations; the
@@ -53,16 +55,21 @@ def small_scene(scene: TorchScene) -> bool:
 
 def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
                  *, width: int, height: int, bounces: int,
-                 rays_per_pixel: int, skybox: bool, antialias: bool = False):
+                 rays_per_pixel: int, skybox: bool, antialias: bool = False,
+                 nee: bool = False):
     """Render + accumulate one frame into ``framebuffer`` ((height, width, 4)
-    float32, updated in place). Returns (framebuffer, segment count)."""
+    float32, updated in place). Returns (framebuffer, segment count).
+    ``nee`` (next-event estimation) sends the frame to the megakernel
+    whatever the scene; on a scene without lights it renders there as
+    without ``nee``."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox)
-    if small_scene(scene) and not antialias:
+    if small_scene(scene) and not antialias and not nee:
         sample, segments = spheres.render_spheres(scene, frames, **kw)
     else:
         sample, segments = render_persistent(scene, frames,
-                                             antialias=antialias, **kw)
+                                             antialias=antialias, nee=nee,
+                                             **kw)
     # the reference's float32 weight: 1 / (f + 1), and 1 - w, each rounded
     w = np.float32(1.0) / np.float32(frames + 1) if frames >= 1 \
         else np.float32(1.0)
@@ -100,10 +107,6 @@ class Renderer:
         if params.debug_mode != DebugMode.OFF:
             raise NotImplementedError(
                 "debug modes wait for their slice (ROADMAP Queue 1 item 4)")
-        if params.nee:
-            raise NotImplementedError(
-                "next-event estimation waits for its slice "
-                "(ROADMAP Queue 1 item 1)")
         if params.normal_maps:
             raise NotImplementedError(
                 "normal maps wait for their slice (ROADMAP Queue 1 item 3)")
@@ -113,7 +116,8 @@ class Renderer:
             width=params.width, height=params.height,
             bounces=int(params.bounces),
             rays_per_pixel=int(params.rays_per_pixel),
-            skybox=bool(params.skybox), antialias=bool(params.antialias))
+            skybox=bool(params.skybox), antialias=bool(params.antialias),
+            nee=bool(params.nee))
         return self.framebuffer
 
     def read_framebuffer(self) -> np.ndarray:

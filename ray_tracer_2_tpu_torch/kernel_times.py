@@ -8,7 +8,9 @@ Each TREE is the root of a checkout of this repository (default: the one
 this module lies in); the first is A, the second B. ``--order`` lists the
 runs by letter, so two trees measured as "ABBA" run A, B, B, A. Each run is
 a fresh process that imports the tree's own package, builds its kernels
-(printing ``ptxas`` registers, stack and spills), builds the scenes and
+(printing ``ptxas`` registers, stack and spills, and a digest of each
+kernel's SASS: the last lines say, kernel by kernel, whether the trees
+compiled it to the same instructions), builds the scenes and
 times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
 1, ... between two CUDA events. A cell is a scene at a bounce count:
 
@@ -24,10 +26,11 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
   frame;
 * sphere-heavy scenes at bounces 5 (a scene name is a scene of
   ``scenes.py`` or of ``_SCENES`` below, then ``+flags``: ``+aa``
-  antialias, ``+bvh`` the sphere BVH forced, ``+global`` the megakernel's
-  tables decided with a shared-memory budget of nothing, so that they are
-  read from global memory): ``random_balls`` (485 spheres) through the megakernel
-  with the dense loop and with the sphere BVH; ``random_balls22`` (about
+  antialias, ``+nee`` next-event estimation, ``+bvh`` the sphere BVH
+  forced, ``+global`` the megakernel's tables decided with a shared-memory
+  budget of nothing, so that they are read from global memory):
+  ``random_balls`` (485 spheres) through the megakernel with the dense
+  loop and with the sphere BVH; ``random_balls22`` (about
   1,940 spheres, the most the dense paths take with room to spare) through
   the small-scene kernel, the megakernel's dense loop (staged and from
   global memory) and the sphere BVH; ``random_balls24`` (2,305 spheres: the
@@ -39,6 +42,9 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
 * tables past the shared-memory budget: ``groups5`` (five 256-triangle
   brute-force groups, read from global memory) against ``groups4``
   (staged), and ``groups4+global``;
+* next-event estimation (flag ``+nee``): ``room2_scene+nee`` (shadow
+  segments) and ``room+nee`` (the shadow ray tested inline) at bounces 5,
+  beside the same scenes without it; a tree without NEE skips them;
 * the standalone brute-force kernel on 2,073,600 seeded rays x 256
   triangles (kernel ``brute``), and on the first 256, 512 and all 600
   triangles of a 600-triangle table (three staged chunks): what staging a
@@ -56,7 +62,7 @@ launches. A cell that a tree cannot run (an older tree without the scene,
 the option or the path) is reported as skipped with the reason.
 ``--only`` keeps the cells whose "kernel scene" matches. Every result is
 one JSON line on standard output (and in ``--out``); the last lines are a
-summary per cell. Needs one CUDA card.
+summary per cell and per kernel's SASS. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -98,6 +104,8 @@ def _cells():
         yield "spheres", name, 5
     for name in ("random_balls", "room", "balls"):
         yield "megakernel", name, 0
+    for name in ("room2_scene+nee", "room+nee"):
+        yield "megakernel", name, 5
     yield "spheres", "balls", 0
 
 
@@ -134,7 +142,10 @@ def _build_scene(name: str):
     scene = instantiate_scene(definition, **kw).to("cuda")
     if "global" in flags and kernel_tables(scene, budget=0)["staged"]:
         raise NotImplementedError("tables are always staged")
-    return scene, (dict(antialias=True) if "aa" in flags else {})
+    over = dict(antialias=True) if "aa" in flags else {}
+    if "nee" in flags:
+        over["nee"] = True
+    return scene, over
 
 
 def _brute_inputs():
@@ -218,7 +229,8 @@ def _worker(tree: str, label: str, reps: int, only: str) -> None:
     for name, k in dict(kernels, brute=CUDA_BRUTE).items():
         emit(phase="build", kernel=name, ptxas=[
             ln.strip() for ln in k.build_log.splitlines()
-            if any(w in ln for w in ("entry function", "registers", "spill"))])
+            if any(w in ln for w in ("entry function", "registers", "spill"))],
+            sass=_sass_digests(k.source))
     built = {}
     kw0 = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
     for kname, sname, b in _cells():
@@ -254,11 +266,38 @@ def _worker(tree: str, label: str, reps: int, only: str) -> None:
             for key in ("rows", "leaves", "boxes"):
                 if key in c:
                     r[f"{key}_per_segment"] = c[key] / seg
+            if c.get("shadow_rays"):
+                r["shadow_share"] = c["shadow_rays"] / seg
         emit(**r)
     if re.search(only, "brute"):
         _brute_cells(emit, reps)
     if re.search(only, "mxu_leaf_dense"):
         _mxu_cells(emit)
+
+
+def _sass_digests(source: Path) -> dict:
+    """Per kernel of ``source``'s built library, by ``_kernel_name``: the
+    first 16 hex digits of the SHA-256 of its SASS (``cuobjdump -sass``),
+    so that two trees' forms can be called instruction for instruction the
+    same or not."""
+    import hashlib
+    import re
+
+    from ray_tracer_2_tpu_torch.kernels import cuda_build as cb
+    lib = cb.load_library(source)[0]._name
+    sass = subprocess.run(
+        [str(Path(cb._find_nvcc()).with_name("cuobjdump")), "-sass", lib],
+        capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for ln in sass.splitlines():
+        m = re.match(r"\s*Function : (\w+)", ln)
+        if m:
+            name = cb._kernel_name(m.group(1))
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(ln.strip())
+    return {n: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
+            for n, v in funcs.items()}
 
 
 def _brute_cells(emit, reps: int) -> None:
@@ -352,6 +391,14 @@ def main(argv=None) -> int:
             summary.setdefault(key, {}).setdefault(r["run"][0], []).append(
                 r["ms"])
     lines += [dict(phase="summary", cell=k, ms=v) for k, v in summary.items()]
+    sass = {}
+    for r in lines:
+        for fn, digest in r.get("sass", {}).items():
+            sass.setdefault(f"{r['kernel']} {fn}", {})[r["run"][0]] = digest
+    lines += [dict(phase="sass", kernel=k, digests=v,
+                   identical=len(v) == len(letters)
+                   and len(set(v.values())) == 1)
+              for k, v in sass.items()]
     for r in lines:
         print(json.dumps(r), flush=True)
         if out:

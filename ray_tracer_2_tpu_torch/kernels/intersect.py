@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ray_tracer_2_tpu_torch.math.vec import dot
+from ray_tracer_2_tpu_torch.math.vec import cross, dot
 
 # Constants are kept at their float32 values, so a comparison means the
 # same whether a device compares in float32 or in double.
@@ -24,12 +24,6 @@ EPS_SPHERE = float(np.float32(0.001))   # far-root cut (ray_tracer.wgsl:223-256)
 #: reference-order quadratic of ``ray_sphere`` (reference
 #: ``kernels/intersect.py:SPHERE_FAST_MIN``)
 SPHERE_FAST_MIN = 64
-
-
-def _cross(a, b):
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
 def ray_sphere(origin, direction, centre, radius):
@@ -120,9 +114,9 @@ def ray_triangle(origin, direction, v0, v1, v2, cull_backface):
     of rays x triangles. Returns ``(hit, dst, u, v, det)``."""
     edge_ab = v1 - v0
     edge_ac = v2 - v0
-    normal = _cross(edge_ab, edge_ac)
+    normal = cross(edge_ab, edge_ac)
     ao = origin - v0
-    dao = _cross(ao, direction)
+    dao = cross(ao, direction)
     det = -dot(direction, normal)
     keep = torch.where(cull_backface, det >= EPS_DET,
                        torch.abs(det) >= EPS_DET)

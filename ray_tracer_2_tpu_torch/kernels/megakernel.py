@@ -14,7 +14,11 @@ wide-BVH instance with its pruning limit seeded from the best world
 distance so far, every merge on a strict ``<`` of the world distance; then,
 in place of the dense prepass, the sphere BVH in world space, where a
 sphere wins an equal distance as it would have in the prepass; then shading
-with the hit instance's transform.
+with the hit instance's transform. With ``nee``, next-event estimation at
+diffuse vertices (reference resolve_and_shade :888-1082): one light of the
+scene's table sampled, its shadow ray tested inline against the prepass on
+a scene without a traversal phase (``nee_mode`` 1) or traced as a segment
+of its own through every phase (2).
 
 Two implementations of one function, chosen by the device the scene's
 tensors live on, never by a switch:
@@ -46,6 +50,7 @@ construction and have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import numpy as np
@@ -63,7 +68,7 @@ from ray_tracer_2_tpu_torch.kernels.brute import (
 )
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
     PKG, CudaKernel, check_aligned, check_launch, frame_seed, launch_on,
-    launch_scratch,
+    launch_scratch, load_library,
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import (
     EPS_DET, EPS_SPHERE, EPSILON, INF, SPHERE_FAST_MIN, closest_sphere,
@@ -71,8 +76,8 @@ from ray_tracer_2_tpu_torch.kernels.intersect import (
 )
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
     gather_material, reflectance
-from ray_tracer_2_tpu_torch.math.vec import dot, lerp, normalize, reflect, \
-    refract, sign
+from ray_tracer_2_tpu_torch.math.vec import cross, dot, lerp, normalize, \
+    reflect, refract, sign
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
     TorchScene
@@ -101,12 +106,13 @@ INST_COLS = 32
 #: kRowWords float4 words: v0, both edges, the normal, material, cull)
 BRUTE_STAGED = 16
 #: the kernel's device counts, in csrc/megakernel.cu's order (kCnt*):
-#: brute-force closest-hit calls (one per segment and group), launches
-#: that ran the prepass, interior wide-row visits, leaf visits, child boxes
-#: tested, turns of a warp's lane loop, lanes holding a path summed over
-#: those turns
+#: brute-force closest-hit calls (one per segment and group, and per inline
+#: shadow test and group), launches that ran the prepass, interior wide-row
+#: visits, leaf visits, child boxes tested, turns of a warp's lane loop,
+#: lanes holding a path summed over those turns, shadow rays of next-event
+#: estimation (inline tests and shadow segments)
 COUNTS = ("brute_calls", "brute_launches", "rows", "leaves", "boxes",
-          "turns", "active_lanes")
+          "turns", "active_lanes", "shadow_rays")
 #: shared memory the kernel stages the sphere, instance and brute-force
 #: tables in (csrc/megakernel.cu kDynSmemBytes); a scene whose tables pass
 #: it has them read from global memory. Staging costs resident blocks: it
@@ -115,11 +121,26 @@ COUNTS = ("brute_calls", "brute_launches", "rows", "leaves", "boxes",
 #: blocks resident.
 SMEM_BYTES = 36 * 1024
 
+#: floats per row of the light table of next-event estimation (csrc/
+#: megakernel.cu kLightCols): kind (1 sphere), v0 (a sphere: centre), v1
+#: (a sphere: radius in v1.x), v2, the unit normal cross(v1-v0, v2-v0),
+#: radiance
+LIGHT_COLS = 16
+
 _F16_MAGIC = 2.0 ** 112          # rebias of f16 exponents onto f32
 # absolute and relative slack of the traversal's pruning limit (reference
 # megakernel.start_segments): keeps a triangle that ties the prepass hit
 _SLACK = float(np.float32(8e-6))
 _REL = float(np.float32(1.0 + 4e-6))
+# next-event estimation's float32 constants as JAX rounds its Python floats
+# (reference resolve_and_shade :924-1003; csrc/megakernel.cu the same
+# literals): the shadow test's slack, the d^2 floor, 2 pi, 4 pi, the
+# inside-the-light margin
+_UNOCC = float(np.float32(1.0 - 1e-3))
+_D2_MIN = float(np.float32(1e-12))
+_TWO_PI = float(np.float32(2.0 * math.pi))
+_FOUR_PI = float(np.float32(4.0 * math.pi))
+_SPH_MARGIN = float(np.float32(1.001))
 
 
 def bvh_instances(scene: TorchScene) -> list:
@@ -176,6 +197,51 @@ def ineligibility(scene: TorchScene) -> str | None:
     return None
 
 
+def nee_mode(scene: TorchScene, nee: bool, segments: bool = False) -> int:
+    """How next-event estimation runs on ``scene`` (reference
+    ``_make_parts``): 0 off (not asked for, or no light table); 2 shadow
+    segments, each traced as a segment of its own through every phase,
+    where the scene has a traversal phase (a wide-BVH instance or the sphere
+    BVH) or ``segments`` asks for them (the reference's
+    ``RT2_NEE_SEGMENTS=1``, for tests); else 1, the shadow ray tested inline
+    against the dense spheres and brute-force groups."""
+    if not nee or not scene.lights:
+        return 0
+    traversal = bool(bvh_instances(scene)) or scene.sphere_bvh_root >= 0
+    return 2 if traversal or segments else 1
+
+
+def light_tables(scene: TorchScene) -> dict:
+    """The light table as next-event estimation samples it, once per scene
+    (kept in ``scene.derived``), built as the reference builds it in
+    resolve_and_shade (:911-922): ``rows`` (n, ``LIGHT_COLS``) float32 on
+    the scene's device, ``cdf`` the float32 cumulative area shares (the
+    pick counts the entries before the last that a draw reaches), and the
+    float32 constants ``c_tri`` = total area / 2 pi and ``c_area`` = total
+    area, each rounded once from float64."""
+    cached = scene.derived.get("nee_lights")
+    if cached is not None:
+        return cached
+    arr = np.asarray(scene.lights, np.float32)
+    lk, lv0 = arr[:, 0], arr[:, 1:4]
+    lv1, lv2, lrad = arr[:, 4:7], arr[:, 7:10], arr[:, 10:13]
+    larea = arr[:, 13]
+    nrm = np.cross(lv1 - lv0, lv2 - lv0)
+    nl = np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm = nrm / np.maximum(nl, 1e-30)
+    rows = np.concatenate([lk[:, None], lv0, lv1, lv2, nrm, lrad], axis=1)
+    total_area = float(larea.sum())
+    cdf = np.cumsum(larea) / max(total_area, 1e-30)
+    dev = scene.device
+    tables = dict(
+        rows=torch.from_numpy(rows.astype(np.float32)).to(dev).contiguous(),
+        cdf=torch.from_numpy(cdf.astype(np.float32)).to(dev).contiguous(),
+        c_tri=float(np.float32(total_area / (2.0 * math.pi))),
+        c_area=float(np.float32(total_area)))
+    scene.derived["nee_lights"] = tables
+    return tables
+
+
 def _require_eligible(scene: TorchScene) -> None:
     reason = ineligibility(scene)
     if reason is not None:
@@ -185,14 +251,18 @@ def _require_eligible(scene: TorchScene) -> None:
 def render_persistent(scene: TorchScene, frames: int, *, width: int,
                       height: int, bounces: int, rays_per_pixel: int,
                       skybox: bool, antialias: bool = False,
-                      row_start: int = 0, rows: int | None = None):
+                      row_start: int = 0, rows: int | None = None,
+                      nee: bool = False, nee_segments: bool = False):
     """Render ``rows`` image rows from ``row_start`` (``width``/``height``
     describe the full image). Returns ``((rows, width, 4) float32 image,
     int64 0-d segment count)`` on the scene's device. CPU scenes take the
-    plain version; CUDA scenes take the kernel."""
+    plain version; CUDA scenes take the kernel. ``nee``: next-event
+    estimation at diffuse vertices (``nee_mode``; ``nee_segments`` forces
+    shadow segments, for tests)."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox,
-              antialias=antialias, row_start=row_start, rows=rows)
+              antialias=antialias, row_start=row_start, rows=rows, nee=nee,
+              nee_segments=nee_segments)
     if scene.device.type == "cpu":
         return render_plain(scene, frames, **kw)
     if scene.device.type == "cuda":
@@ -208,7 +278,8 @@ class _Tables:
     constants as float32 0-d tensors on the scene's device (a division by
     one stays a true division on CUDA)."""
 
-    def __init__(self, scene: TorchScene, width: int, height: int):
+    def __init__(self, scene: TorchScene, width: int, height: int,
+                 nee: int = 0):
         dev = scene.device
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         self.scene = scene
@@ -224,10 +295,17 @@ class _Tables:
         self.inv_w = float(np.float32(1.0) / np.float32(width))
         self.one = f32(1.0)
         self.sphere_k = sphere_k(scene.sphere_pos, scene.sphere_radius)
+        # next-event estimation: its mode and light table
+        self.nee = nee
+        if nee:
+            lt = light_tables(scene)
+            self.lights, self.cdf = lt["rows"], lt["cdf"][:-1]
+            self.c_tri, self.c_area = f32(lt["c_tri"]), f32(lt["c_area"])
         # traversal work, as the kernel counts it
         self.rows = 0
         self.leaves = 0
         self.boxes = torch.zeros((), dtype=torch.int64, device=dev)
+        self.shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
 
 
 def _affine(m, v, translate: bool):
@@ -598,12 +676,82 @@ def _glass(m, d, trans, seed, dst, point, normal, backface):
     return dir_g, origin_g, trans_g, seed_g
 
 
+def _nee_sample(t: _Tables, seed, point, normal, trans, color):
+    """One light sample from each vertex (reference resolve_and_shade
+    :924-1000, in its op order): three draws, the light picked by area (a
+    count of the cdf entries the draw reaches), a point on a triangle by the
+    sqrt warp, or a direction in the cone a sphere subtends. Returns (seed,
+    shadow-ray direction, distance to the light, the contribution if the
+    light is unoccluded (rgb), whether the vertex may take the sample)."""
+    r_pick, seed = rng.rand(seed)
+    r1, seed = rng.rand(seed)
+    r2, seed = rng.rand(seed)
+    row = t.lights[(r_pick[:, None] >= t.cdf[None, :]).sum(dim=1)]
+    is_sph = row[:, 0] > 0.5
+    # triangle: cos_l * total_area / (2 pi d^2), single-sided
+    su = torch.sqrt(r1)
+    p_tri = (row[:, 1:4] * (1.0 - su)[:, None]
+             + row[:, 4:7] * (su * (1.0 - r2))[:, None]) \
+        + row[:, 7:10] * (su * r2)[:, None]
+    dvec = p_tri - point
+    d2 = torch.clamp(dot(dvec, dvec), min=_D2_MIN)
+    t_tri = torch.sqrt(d2)
+    d_tri = dvec / t_tri[:, None]
+    cos_l = -dot(row[:, 10:13], d_tri)
+    geom_tri = (cos_l * t.c_tri) / d2
+    # sphere (radius in v1.x): (1 - cos_max) * total_area / (4 pi r^2)
+    rad = row[:, 4]
+    cvec = row[:, 1:4] - point
+    cd2 = torch.clamp(dot(cvec, cvec), min=_D2_MIN)
+    cdist = torch.sqrt(cd2)
+    w_ax = cvec / cdist[:, None]
+    sin_max = torch.clamp(rad / cdist, 0.0, 1.0)
+    cos_max = torch.sqrt(torch.clamp(1.0 - sin_max * sin_max, min=0.0))
+    cos_t = 1.0 - r1 * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = _TWO_PI * r2
+    helper = torch.zeros_like(w_ax)
+    helper[:, 0] = torch.where(torch.abs(w_ax[:, 0]) > 0.9, 0.0, 1.0)
+    helper[:, 1] = 1.0 - helper[:, 0]
+    u_b = normalize(cross(helper, w_ax))
+    v_b = cross(w_ax, u_b)
+    d_sph = normalize(w_ax * cos_t[:, None]
+                      + (u_b * torch.cos(phi)[:, None]
+                         + v_b * torch.sin(phi)[:, None]) * sin_t[:, None])
+    h_q = dot(d_sph, cvec)
+    disc = torch.clamp(h_q * h_q - (cd2 - rad * rad), min=0.0)
+    t_sph = h_q - torch.sqrt(disc)
+    geom_sph = ((1.0 - cos_max) * t.c_area) \
+        / torch.clamp((_FOUR_PI * rad) * rad, min=_D2_MIN)
+    # a vertex inside an emissive sphere cannot be cone-sampled
+    sph_valid = cdist > rad * _SPH_MARGIN
+
+    d_s = torch.where(is_sph[:, None], d_sph, d_tri)
+    geom = torch.where(is_sph, geom_sph, geom_tri)
+    contrib = ((trans * color)[:, :3] * row[:, 13:16]) * geom[:, None]
+    takes = (dot(normal, d_s) > 0.0) & torch.where(is_sph, sph_valid,
+                                                   cos_l > 0.0)
+    return (seed, d_s, torch.where(is_sph, t_sph, t_tri), contrib,
+            ~is_sph | sph_valid, takes)
+
+
 def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
-           backface, smat, skybox: bool):
+           backface, smat, skybox: bool, sup=None, sample: bool = False):
     """resolve_and_shade (megakernel.py:739; ray_tracer.wgsl:398-471): sky
     on a miss, the glass or the diffuse/specular branch, emission, Russian
     roulette. Returns the next (o, d, trans, incoming, seed, continues) —
-    misses keep their ray."""
+    misses keep their ray — and, with next-event estimation (``t.nee``),
+    which lanes sampled a light (their next hit adds no emission) and which
+    of them traced a shadow ray; otherwise two Nones.
+
+    Next-event estimation: ``sup`` marks the lanes whose last vertex
+    sampled a light, whose emission is not added again here; ``sample``
+    says the bounce budget leaves room for the sample's direct light. The
+    shadow ray is traced here, right after its vertex, whatever the mode:
+    mode 2 counts it as a segment (``_render_pixels``), but its hit is the
+    same ``_intersect`` call, so both modes give one image, and every lane
+    shades in the same batch in both (on the CPU a transcendental can
+    round by an ulp differently with an element's place in a batch)."""
     hit = kind != -1
     if skybox:
         inc = torch.where(hit[:, None], inc, inc + trans * environment_light(d))
@@ -613,13 +761,32 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
     diffuse, seed_n = rng.rand_hemisphere(normal, seed_n)
     nd = normalize(lerp(diffuse, reflect(d, normal),
                         (m["smoothness"] * is_spec)[:, None]))
-    inc_n = inc + (m["emission_color"] * m["emission_strength"][:, None]) \
-        * trans
+    emitted = m["emission_color"] * m["emission_strength"][:, None]
+    if t.nee:
+        emitted = torch.where(sup[:, None], 0.0, emitted)
+    inc_n = inc + emitted * trans
     trans_n = trans * torch.where(is_spec[:, None], m["specular_color"],
                                   m["color"])
     point_n = point
+    is_glass = m["flag"] == float(MaterialFlag.GLASS) if t.glass else None
+    sampled = shadow = None
+    if t.nee:
+        seed_n, d_s, t_l, contrib, may, takes = _nee_sample(
+            t, seed_n, point, normal, trans, m["color"])
+        sampled = hit & ~is_spec & may
+        if t.glass:
+            sampled = sampled & ~is_glass
+        if not sample:
+            sampled = torch.zeros_like(sampled)
+        shadow = sampled & takes
+        lanes = shadow.nonzero()[:, 0]
+        occ = torch.full_like(t_l, INF)
+        if lanes.numel():
+            occ[lanes] = _intersect(t, point[lanes], d_s[lanes])[1]
+        ok = shadow & (occ >= t_l * _UNOCC)
+        inc_n = inc_n + torch.cat([torch.where(ok[:, None], contrib, 0.0),
+                                   torch.zeros_like(inc_n[:, 3:])], dim=1)
     if t.glass:
-        is_glass = m["flag"] == float(MaterialFlag.GLASS)
         g = is_glass[:, None]
         dir_g, origin_g, trans_g, seed_g = _glass(
             m, d, trans, seed, dst, point, normal, backface)
@@ -635,7 +802,7 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
     h = hit[:, None]
     return (torch.where(h, point_n, o), torch.where(h, nd, d),
             torch.where(h, trans_n, trans), torch.where(h, inc_n, inc),
-            torch.where(hit, seed_n, seed), hit & survive)
+            torch.where(hit, seed_n, seed), hit & survive, sampled, shadow)
 
 
 def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
@@ -651,14 +818,23 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
         trans = torch.ones_like(acc)
         inc = torch.zeros_like(acc)
         idx = torch.arange(pix.shape[0], device=t.dev)
-        for _bounce in range(bounces + 1):
+        # next-event estimation: the lane's last vertex sampled a light
+        sup = torch.zeros(pix.shape[0], dtype=torch.bool, device=t.dev)
+        for bounce in range(bounces + 1):
             if not idx.numel():
                 break
             segs[idx] += 1
             oi, di = o[idx], d[idx]
             hit = _intersect(t, oi, di)
-            o[idx], d[idx], trans[idx], inc[idx], seed[idx], cont = _shade(
-                t, oi, di, trans[idx], inc[idx], seed[idx], *hit, skybox)
+            o[idx], d[idx], trans[idx], inc[idx], seed[idx], cont, sampled, \
+                shadow = _shade(t, oi, di, trans[idx], inc[idx], seed[idx],
+                                *hit, skybox, sup=sup[idx] if t.nee else None,
+                                sample=bounce < bounces)
+            if t.nee:
+                sup[idx] = sampled
+                t.shadow_rays += shadow.sum()
+                if t.nee == 2:      # each shadow ray is a segment
+                    segs[idx[shadow]] += 1
             idx = idx[cont]
         acc = acc + inc
     return acc, segs
@@ -667,15 +843,17 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
 def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
                  bounces: int, rays_per_pixel: int, skybox: bool,
                  antialias: bool = False, row_start: int = 0,
-                 rows: int | None = None, counts: dict | None = None):
+                 rows: int | None = None, nee: bool = False,
+                 nee_segments: bool = False, counts: dict | None = None):
     """The plain PyTorch version of ``render_persistent`` (any device).
     Given a dict ``counts``, fills in the traversal's work as the kernel
-    counts it (``rows``, ``leaves``, ``boxes``: ints) and the segments of
-    each pixel (``pixel_segments``: (rows, width) int64)."""
+    counts it (``rows``, ``leaves``, ``boxes``: ints; with next-event
+    estimation also ``shadow_rays``) and the segments of each pixel
+    (``pixel_segments``: (rows, width) int64)."""
     _require_eligible(scene)
     rows = height if rows is None else rows
     rpp = max(int(rays_per_pixel), 1)
-    t = _Tables(scene, width, height)
+    t = _Tables(scene, width, height, nee_mode(scene, nee, nee_segments))
     total = rows * width
     out = torch.empty((total, 4), dtype=torch.float32, device=t.dev)
     pixel_segs = torch.empty(total, dtype=torch.int64, device=t.dev)
@@ -690,6 +868,8 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
     if counts is not None:
         counts.update(rows=t.rows, leaves=t.leaves, boxes=int(t.boxes),
                       pixel_segments=pixel_segs.reshape(rows, width))
+        if t.nee:
+            counts["shadow_rays"] = int(t.shadow_rays)
     return out.reshape(rows, width, 4), pixel_segs.sum()
 
 
@@ -769,30 +949,53 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
 class CudaMegakernel(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` at first
     use, checks every tensor it hands over, launches on the current stream
-    and counts its launches in ``launches``. The kernel itself counts its
-    work on the device (``COUNTS``, read with ``read_counts``; the
-    brute-force prepass's with ``prepass_counts``)."""
+    and counts its launches in ``launches``, those of the next-event
+    estimation forms (entry point ``rt2_render_persistent_nee``) also in
+    ``nee_launches``. The kernel itself counts its work on the device
+    (``COUNTS``, read with ``read_counts``; the brute-force prepass's with
+    ``prepass_counts``)."""
 
     symbol = "rt2_render_persistent"
     argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
                 + [ctypes.c_uint32] + [ctypes.c_void_p] * 4)
+    nee_symbol = "rt2_render_persistent_nee"
+    nee_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+                    + [ctypes.c_uint32] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p] * 4)
     counts = COUNTS
 
     def __init__(self, source: Path = PKG / "csrc" / "megakernel.cu"):
         super().__init__(source)
+        self.nee_launches = 0
+        self._nee_fn = None
+
+    def _load(self):
+        fn = super()._load()
+        lib = load_library(self.source, self.build_dir)[0]
+        self._nee_fn = getattr(lib, self.nee_symbol)
+        self._nee_fn.restype = ctypes.c_int
+        self._nee_fn.argtypes = list(self.nee_argtypes)
+        return fn
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.nee_launches = 0
 
     def prepass_counts(self) -> tuple[int, int]:
         """What the kernel counted of its brute-force prepass since the last
         ``reset_counts``: (closest-hit calls of the ``csrc/brute.cuh`` loop,
-        one per segment and brute-force group; launches that made any).
-        Synchronises with the device."""
+        one per segment and brute-force group, and one per inline shadow
+        test and group; launches that made any). Synchronises with the
+        device."""
         c = self.read_counts()
         return c["brute_calls"], c["brute_launches"]
 
     def __call__(self, scene: TorchScene, frames: int, *, width: int,
                  height: int, bounces: int, rays_per_pixel: int,
                  skybox: bool, antialias: bool = False, row_start: int = 0,
-                 rows: int | None = None):
+                 rows: int | None = None, nee: bool = False,
+                 nee_segments: bool = False):
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
@@ -820,24 +1023,38 @@ class CudaMegakernel(CudaKernel):
                              f"{scene.wide_rows.shape[0]} wide rows")
         check_aligned("wide_rows", scene.wide_rows, 16)
         check_aligned("brute", tab["brute"], 16)
+        mode = nee_mode(scene, nee, nee_segments)
+        if mode:
+            lt = light_tables(scene)
+            check_launch(dev, width=width, height=height, row_start=row_start,
+                         rows=rows, lights=(lt["rows"], LIGHT_COLS),
+                         cdf=(lt["cdf"], None))
         fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         scratch = launch_scratch(dev)
         counts = self.device_counts(dev)
-        err = launch_on(
-            dev, fn, scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
-            scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
-            tab["scal"].data_ptr(), tab["inst"].data_ptr(),
-            tab["brute"].data_ptr(), scene.n_spheres, scene.n_instances,
-            n_brute, width, height, row_start, rows, bounces,
-            max(int(rays_per_pixel), 1), int(bool(skybox)),
-            int(bool(antialias)), int(tab["general"]), int(tab["glass"]),
-            tab["spheres_mode"], int(tab["staged"]), scene.sphere_bvh_root,
-            frame_seed(frames), out.data_ptr(), scratch.data_ptr(),
-            counts.data_ptr())
+        head = (scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
+                scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
+                tab["scal"].data_ptr(), tab["inst"].data_ptr(),
+                tab["brute"].data_ptr(), scene.n_spheres, scene.n_instances,
+                n_brute, width, height, row_start, rows, bounces,
+                max(int(rays_per_pixel), 1), int(bool(skybox)),
+                int(bool(antialias)))
+        tail = (out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
+        form = (tab["spheres_mode"], int(tab["staged"]),
+                scene.sphere_bvh_root, frame_seed(frames))
+        if mode:
+            err = launch_on(dev, self._nee_fn, *head, *form,
+                            lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
+                            lt["rows"].shape[0], mode, lt["c_tri"],
+                            lt["c_area"], *tail)
+        else:
+            err = launch_on(dev, fn, *head, int(tab["general"]),
+                            int(tab["glass"]), *form, *tail)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.nee_launches += bool(mode)
         return out, scratch[0]
 
 

@@ -16,6 +16,14 @@ def dot(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False):
     return s[..., None] if keepdim else s
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross`` on (..., 3): ``a1 b2 - a2 b1``, ``a2 b0 - a0 b2``,
+    ``a0 b1 - a1 b0``."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """WGSL ``normalize`` (no epsilon guard)."""
     return v / torch.sqrt(dot(v, v, keepdim=True))

@@ -12,11 +12,11 @@ the same definition are byte-identical (``tests/test_torch_scene.py``).
 Scope of the ported slices: mesh instance groups from data (several, one
 per transform, sharing tables as the reference does), spheres (dense, and
 from ``SPHERE_BVH_MIN`` of them or on request also as a world-space sphere
-BVH appended to the wide rows), no texture atlas, no NEE light table, no
-live edits (``HostScene``). Meshes from files and textured materials raise
-``NotImplementedError`` naming their ROADMAP item. The per-triangle
-model-space tables (``tri_v0`` ...
-``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
+BVH appended to the wide rows), the static light table of next-event
+estimation (``lights``), no texture atlas, no live edits (``HostScene``).
+Meshes from files and textured materials raise ``NotImplementedError``
+naming their ROADMAP item. The per-triangle model-space tables (``tri_v0``
+... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
 are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
 """
@@ -57,7 +57,12 @@ FIELDS = ("sphere_pos", "sphere_radius", "sphere_mat",
           "tri_mat")
 #: the static (host) fields
 STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
-           "inst_mat_deltas", "sphere_bvh_root")
+           "inst_mat_deltas", "sphere_bvh_root", "lights")
+
+#: a scene with more emissive primitives than this gets an empty light
+#: table, so next-event estimation is off for it (reference
+#: ``MAX_NEE_LIGHTS``): never a truncated table that loses energy
+MAX_NEE_LIGHTS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +101,11 @@ class TorchScene:
     #: name the spheres by their ids in the dense tables); -1 when the
     #: scene has none and the dense sphere prepass runs
     sphere_bvh_root: int = -1
+    #: emissive primitives for next-event estimation (``_extract_lights``),
+    #: one 14-tuple each: kind (0 triangle, 1 sphere), v0, v1, v2 in world
+    #: space (a sphere: centre, radius, zeros), radiance, area; () when the
+    #: scene has none or more than ``MAX_NEE_LIGHTS``
+    lights: tuple = ()
     #: host-side results derived from this scene once and kept with it
     #: (e.g. the small-scene path's packed tables); a scene made by ``to``
     #: starts with an empty one
@@ -137,6 +147,7 @@ class TorchScene:
         st["shade_classes"] = tuple(st["shade_classes"])
         st["inst_mat_deltas"] = tuple(int(d) for d in st["inst_mat_deltas"])
         st["sphere_bvh_root"] = int(st["sphere_bvh_root"])
+        st["lights"] = tuple(tuple(row) for row in st["lights"])
         return TorchScene(**tensors, **st)
 
 
@@ -155,6 +166,64 @@ def _shade_classes(records) -> tuple:
     if any(r.normal_index != -1 for r in records):
         classes.append("normal_map")
     return tuple(classes)
+
+
+def _extract_lights(records, tri, inst_spans, inst_m2w, inst_mat_deltas,
+                    spheres) -> tuple:
+    """The static light table of next-event estimation (a copy of the
+    reference's ``_extract_lights``, which is pure numpy, kept op for op so
+    the tables are byte-identical). Emissive triangles of every instance,
+    brute-force and wide-BVH alike, in world space (a mirrored transform
+    swaps v1 and v2, so the front side stays the one rays can hit), then
+    emissive spheres; each row carries the resolved radiance (emission
+    colour times strength) and the world-space area. Emissive glass is no
+    light: the glass branch never adds its emission. More than
+    ``MAX_NEE_LIGHTS`` rows give ()."""
+
+    def emissive(rec):
+        return (rec.emission_strength > 0.0
+                and max(rec.emission_color[:3]) > 0.0
+                and int(rec.flag) != 1)
+
+    def radiance(rec):
+        return tuple(float(c) * float(rec.emission_strength)
+                     for c in rec.emission_color[:3])
+
+    emissive_ids = np.array([i for i, r in enumerate(records)
+                             if emissive(r)], np.int64)
+    if emissive_ids.size == 0 and not spheres:
+        return ()
+    lights = []
+    tri_mat = np.asarray(tri["mat"], np.int64)
+    for i, (_, tri_off, count) in enumerate(inst_spans):
+        m = np.asarray(inst_m2w[i], np.float32)
+        delta = inst_mat_deltas[i] if i < len(inst_mat_deltas) else 0
+        if emissive_ids.size == 0:
+            continue
+        span = tri_mat[tri_off:tri_off + count] + delta
+        mirrored = float(np.linalg.det(m[:3, :3].astype(np.float64))) < 0.0
+        for t in (tri_off + np.nonzero(np.isin(span, emissive_ids))[0]):
+            rec = records[int(tri_mat[t]) + delta]
+            w = [tuple((m[:3, :3] @ v + m[:3, 3]).tolist())
+                 for v in (tri["v0"][t], tri["v1"][t], tri["v2"][t])]
+            if mirrored:
+                w[1], w[2] = w[2], w[1]
+            area = 0.5 * float(np.linalg.norm(
+                np.cross(np.subtract(w[1], w[0]), np.subtract(w[2], w[0]))))
+            if area <= 0.0:
+                continue
+            lights.append((0, *w[0], *w[1], *w[2], *radiance(rec), area))
+    for centre, radius, mid in spheres:
+        rec = records[mid]
+        if not emissive(rec):
+            continue
+        area = float(4.0 * np.pi * radius * radius)
+        lights.append((1, *(float(c) for c in np.asarray(centre)[:3]),
+                       float(radius), 0.0, 0.0, 0.0, 0.0, 0.0,
+                       *radiance(rec), area))
+    if len(lights) > MAX_NEE_LIGHTS:
+        return ()
+    return tuple(lights)
 
 
 def _pack_material_rows(records: list) -> np.ndarray:
@@ -352,5 +421,7 @@ def instantiate_scene(definition: SceneDefinition,
                    wide_depth=wide_depth,
                    shade_classes=_shade_classes(records),
                    inst_mat_deltas=tuple(deltas),
-                   sphere_bvh_root=sphere_bvh_root)
+                   sphere_bvh_root=sphere_bvh_root,
+                   lights=_extract_lights(records, t, spans, m2w, deltas,
+                                          spheres))
     return TorchScene.from_numpy(fields, statics)

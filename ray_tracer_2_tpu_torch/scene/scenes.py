@@ -100,6 +100,19 @@ def random_balls(seed: int = 42, half: int = 11) -> SceneDefinition:
     return s
 
 
+def sunlit_balls() -> SceneDefinition:
+    """``random_balls`` under a spherical sun above the field (not a scene
+    of the reference): a sphere light among hundreds of spheres, so that
+    next-event estimation's cone sampling runs through the dense sphere
+    loop or, instantiated with ``sphere_bvh=True``, through the sphere
+    BVH."""
+    s = random_balls()
+    s.add_sphere([-20.0, 40.0, -30.0], 10.0, MaterialDefinition.new()
+                 .with_color([0.1, 0.1, 0.1, 0.0])
+                 .emissive([1.0, 0.95, 0.85, 1.0], 4.0))
+    return s
+
+
 def room() -> SceneDefinition:
     """scene.rs:445-573: a closed box of 12 triangles with an emissive
     ceiling quad, a glass sphere and a specular one."""

@@ -692,3 +692,160 @@ def test_mxu_leaf_dense_tensor_core_form_edges(B, T):
     with pytest.raises(ValueError, match="multiple of 8"):
         lut.mxu_leaf_dense(rays.cuda(), tris[:, :T - 1].contiguous().cuda(),
                            form="mma")
+
+
+# ---------------------------------------------------- next-event estimation --
+def _lit_wide_bvh():
+    """``wide_bvh_scene`` under a small spherical sun: one wide-BVH instance
+    (the main path's kernel form without NEE) and a sphere light."""
+    s = scenes.wide_bvh_scene()
+    s.add_sphere([2.0, 4.0, 2.0], 0.5,
+                 MaterialDefinition.new().emissive([1.0] * 4, 20.0))
+    return s
+
+
+def _sunlit(definition):
+    """``definition`` under ``sunlit_balls``' sun."""
+    sun = scenes.sunlit_balls().entities[-1]
+    definition.add_sphere(sun.primitive.centre, sun.primitive.radius,
+                          sun.material)
+    return definition
+
+
+# name -> (definition, sphere_bvh, tables in global memory, forced shadow
+# segments, NEE mode, spheres_mode, staged)
+_NEE_CELLS = {
+    "room": (scenes.room, None, False, False, 1, 0, True),
+    "room_segments": (scenes.room, None, False, True, 2, 0, True),
+    "room_global": (scenes.room, None, True, False, 1, 0, False),
+    "balls": (scenes.balls, None, False, False, 1, 0, True),
+    "room2": (lambda: scenes.room2_scene(12, 12), None, False, False, 2, 0,
+              True),
+    "room2_global": (lambda: scenes.room2_scene(12, 12), None, True, False,
+                     2, 0, False),
+    "lit_wide_bvh": (_lit_wide_bvh, None, False, False, 2, 0, True),
+    "sunlit_fast": (scenes.sunlit_balls, None, False, False, 1, 1, True),
+    "sunlit_fast_segments": (scenes.sunlit_balls, None, False, True, 2, 1,
+                             True),
+    "sunlit_fast_global": (scenes.sunlit_balls, None, True, False, 1, 1,
+                           False),
+    "sunlit_bvh": (scenes.sunlit_balls, True, False, False, 2, 2, True),
+    "groups_sunlit_bvh": (lambda: _sunlit(_with_spheres(
+        scenes.groups_scene(5), 40, 3)), True, False, False, 2, 2, False),
+}
+
+
+def test_nee_cells_pick_their_forms():
+    """Runs anywhere: each NEE cell is the mode and kernel form it is named
+    for."""
+    for name in _NEE_CELLS:
+        _nee_cell(name, "cpu")
+
+
+def _nee_cell(name, device="cuda"):
+    from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables, \
+        nee_mode
+    make, bvh, in_global, segments, mode, sph, staged = _NEE_CELLS[name]
+    scene = instantiate_scene(make(), sphere_bvh=bvh).to(device)
+    tab = kernel_tables(scene, budget=0 if in_global else None)
+    assert (nee_mode(scene, True, segments), tab["spheres_mode"],
+            tab["staged"]) == (mode, sph, staged), name
+    return scene, segments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [1, 5])
+@pytest.mark.parametrize("name", list(_NEE_CELLS))
+def test_nee_forms_match_plain(name, bounces):
+    """Every NEE form against ``render_plain(nee=True)`` at 128x72: the
+    dense exact loop staged and from global memory, the fast loop, the
+    sphere BVH (staged, and from global memory past five brute-force
+    groups), one wide-BVH instance, mode 1 and mode 2 (by the scene and
+    forced). Bit-equal images, segments exact (shadow segments included),
+    row, leaf and box visits equal, one launch of an NEE form."""
+    _need_card()
+    scene, segments = _nee_cell(name)
+    kw = dict(width=128, height=72, bounces=bounces, rays_per_pixel=1,
+              skybox=True, nee=True, nee_segments=segments)
+    CUDA_MEGAKERNEL.reset_counts()
+    ki, ks = CUDA_MEGAKERNEL(scene, 1, **kw)
+    kc = CUDA_MEGAKERNEL.read_counts()
+    pc = {}
+    pi, ps = render_plain(scene, 1, counts=pc, **kw)
+    torch.cuda.synchronize()
+    assert CUDA_MEGAKERNEL.nee_launches == CUDA_MEGAKERNEL.launches == 1
+    assert int(ks) == int(ps) == kc["active_lanes"]
+    assert [kc[k] for k in ("rows", "leaves", "boxes", "shadow_rays")] == \
+        [pc[k] for k in ("rows", "leaves", "boxes", "shadow_rays")]
+    assert (pc["shadow_rays"] > 0) == (bounces > 0)
+    assert float((pi[..., :3] > 0).any(dim=-1).float().mean()) >= 0.1
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["room", "sunlit_fast"])
+def test_nee_segments_render_the_inline_image(name):
+    """The kernel in mode 1 and forced into mode 2 renders one image; mode
+    2 traces more segments (one per shadow ray), mode 1 more brute-force
+    calls than segments where the scene has groups."""
+    _need_card()
+    scene, _ = _nee_cell(name)
+    kw = dict(width=128, height=72, bounces=5, rays_per_pixel=1,
+              skybox=True, nee=True)
+    a, sa = CUDA_MEGAKERNEL(scene, 1, **kw)
+    b, sb = CUDA_MEGAKERNEL(scene, 1, nee_segments=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and int(sb) > int(sa)
+
+
+@pytest.mark.cuda
+def test_nee_frames_go_through_the_megakernel():
+    """``Renderer.render`` with ``nee`` on ``room`` (a small scene) and on
+    room2 launches the megakernel's NEE forms, one a frame, never the
+    small-scene kernel; on a scene without lights the ordinary form."""
+    _need_card()
+    renderer = Renderer(device="cuda")
+    CUDA_MEGAKERNEL.reset_counts()
+    before = CUDA_SPHERES.launches
+    for definition in (scenes.room(), scenes.room2_scene(12, 12),
+                       scenes.metal()):
+        scene = instantiate_scene(definition).to("cuda")
+        renderer.render(scene, RenderParams(width=64, height=36, bounces=3,
+                                            nee=True))
+    torch.cuda.synchronize()
+    assert (CUDA_MEGAKERNEL.launches, CUDA_MEGAKERNEL.nee_launches) == (3, 2)
+    assert CUDA_SPHERES.launches == before
+    assert bool(torch.isfinite(renderer.framebuffer).all())
+
+
+# ptxas -v of the forms that predate next-event estimation, as they were
+# built before it was added (sm_90a, CUDA 12.8): registers, spill stores,
+# spill loads
+_PTXAS = {
+    "render_single<Lb0>": (95, 0, 0),
+    "render_single<Lb1>": (96, 0, 0),
+    "render_general<Lb0ELi0ELb1>": (72, 280, 254),
+    "render_general<Lb1ELi0ELb1>": (72, 312, 334),
+    "render_general<Lb1ELi1ELb1>": (72, 308, 342),
+    "render_general<Lb1ELi2ELb1>": (72, 240, 230),
+    "render_general<Lb1ELi0ELb0>": (72, 324, 358),
+    "render_general<Lb1ELi1ELb0>": (72, 324, 358),
+    "render_general<Lb1ELi2ELb0>": (72, 272, 270),
+}
+
+
+@pytest.mark.cuda
+def test_forms_without_nee_keep_their_registers(tmp_path):
+    """A fresh build of ``megakernel.cu``: fifteen kernels, the nine that
+    predate next-event estimation with their registers and spills, six NEE
+    forms held to the general forms' 72 registers."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.kernels.cuda_build import (
+        load_library, ptxas_summary,
+    )
+    got = ptxas_summary(load_library(CUDA_MEGAKERNEL.source, tmp_path)[2])
+    assert {k: (v["registers"], v["spill_stores"], v["spill_loads"])
+            for k, v in got.items() if k in _PTXAS} == _PTXAS
+    nee = {k: v for k, v in got.items() if k.startswith("render_general_nee")}
+    assert len(nee) == 6 and len(got) == 15
+    assert all(v["registers"] <= 72 for v in nee.values())

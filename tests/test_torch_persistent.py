@@ -194,6 +194,44 @@ def test_argtypes_match_the_entry_point(cls, source):
     assert params[-2].endswith("* counts")
 
 
+def test_nee_argtypes_match_the_entry_point():
+    """The megakernel's next-event estimation entry point: the ordinary
+    one's parameters without the form flags, then the light table, its cdf,
+    the light count, the mode and the two float32 constants."""
+    cls = megakernel.CudaMegakernel
+    params = _c_params(CSRC / "megakernel.cu", cls.nee_symbol)
+    assert len(params) == len(cls.nee_argtypes)
+    for p, t in zip(params, cls.nee_argtypes):
+        if "*" in p:
+            assert t is ctypes.c_void_p, p
+        elif p.startswith("unsigned int"):
+            assert t is ctypes.c_uint32, p
+        elif p.startswith("float"):
+            assert t is ctypes.c_float, p
+        else:
+            assert p.startswith("int") and t is ctypes.c_int, p
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names[-10:] == ["lights", "cdf", "n_lights", "nee_mode", "c_tri",
+                           "c_area", "out", "scratch", "counts", "stream"]
+    assert [n for n in names if n not in ("general", "glass")][:22] == \
+        [p.split()[-1].lstrip("*") for p in _c_params(
+            CSRC / "megakernel.cu", cls.symbol)
+         if p.split()[-1] not in ("general", "glass")][:22]
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_nee_plain_row_windows_stitch(segments):
+    """With next-event estimation (``room``, mode 1 and forced mode 2), the
+    frame stitched from shuffled row windows: segments and shadow rays
+    exact, pixels within ``STITCH_TOL``."""
+    scene = instantiate_scene(scenes.room())
+    W, H = 23, 13
+    kw = dict(width=W, height=H, rays_per_pixel=2, skybox=True, bounces=3,
+              nee=True, nee_segments=segments)
+    whole = _check_stitched(megakernel.render_plain, scene, kw, H, 5)
+    assert whole["shadow_rays"] > 0
+
+
 def test_brute_argtypes_match_the_entry_point():
     """The standalone brute-force kernel's entry point: three table and
     record pointers, two int counts, the stream."""

@@ -7,9 +7,9 @@ reference's weight 1/(frames+1); each frame's image must agree with JAX
 0) and ``room`` with antialias (bounces 3) render through
 ``render_persistent`` and agree with JAX ``render_persistent`` (XLA
 boundary) in the primary and the chaos class (measured: every pixel within
-1e-5, segments exact, in both). On
-the CPU no kernel is launched, and scenes or options outside the ported
-slices raise ``NotImplementedError`` (``random_balls`` with antialias, which
+1e-5, segments exact, in both); so does ``room`` with next-event
+estimation. On the CPU no kernel is launched, and scenes or options outside
+the ported slices raise ``NotImplementedError`` (``random_balls`` with antialias, which
 did, renders: ``tests/test_torch_spheres_renderer.py``).
 """
 import dataclasses
@@ -30,10 +30,12 @@ from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
 from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
-from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL
+from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL, \
+    render_plain
 from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
 from ray_tracer_2_tpu_torch.scene import scenes
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
+from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 from torch_bridge import (
     H, W, frac_within, ref_definition, torch_scene, wide_bvh_render_scene,
 )
@@ -78,8 +80,8 @@ def _textured(ts):
 
 def test_outside_the_slice_raises(scenes_):
     """Outside every ported path: a textured material, with and without
-    antialias, and the debug modes, NEE and normal maps; each names its
-    ROADMAP item."""
+    antialias, and the debug modes and normal maps; each names its ROADMAP
+    item."""
     _, ts = scenes_
     renderer = Renderer(device="cpu")
     for over in ({}, dict(antialias=True)):
@@ -88,10 +90,34 @@ def test_outside_the_slice_raises(scenes_):
             renderer.render(_textured(ts),
                             dataclasses.replace(PARAMS, **over))
     for over, item in ((dict(debug_mode=DebugMode.NORMALS), 4),
-                       (dict(nee=True), 1), (dict(normal_maps=True), 3)):
+                       (dict(normal_maps=True), 3)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}"):
             renderer.render(ts, dataclasses.replace(PARAMS, **over))
+
+
+def test_nee_goes_through_the_megakernel(monkeypatch):
+    """Next-event estimation renders through ``render_persistent`` even on
+    ``room``, which would otherwise take the small-scene path (the
+    reference keeps NEE off its small-scene kernel): a lit, finite image,
+    the plain version's with ``nee=True``, and no kernel launched."""
+    ts = instantiate_scene(scenes.room())
+    assert renderer_mod.small_scene(ts) and len(ts.lights) == 2
+    calls = []
+    real = renderer_mod.render_persistent
+    monkeypatch.setattr(renderer_mod, "render_persistent",
+                        lambda *a, **k: calls.append(k["nee"])
+                        or real(*a, **k))
+    monkeypatch.setattr(renderer_mod.spheres, "render_spheres", None)
+    launches = (CUDA_MEGAKERNEL.launches, CUDA_SPHERES.launches)
+    params = dataclasses.replace(PARAMS, bounces=3, skybox=False, nee=True)
+    out = Renderer(device="cpu").render(ts, params).numpy()
+    want, _ = render_plain(ts, 0, width=W, height=H, bounces=3,
+                           rays_per_pixel=1, skybox=False, nee=True)
+    assert calls == [True]
+    assert np.isfinite(out).all() and (out[..., :3] > 0).any(-1).mean() > 0.1
+    assert np.array_equal(out, want.numpy())
+    assert (CUDA_MEGAKERNEL.launches, CUDA_SPHERES.launches) == launches
 
 
 def test_brute_force_mesh_renders():

@@ -121,6 +121,7 @@ def _assert_same(rs, ts: TorchScene):
     assert ts.shade_classes == tuple(rs.shade_classes)
     assert ts.inst_mat_deltas == tuple(rs.inst_mat_deltas)
     assert ts.sphere_bvh_root == rs.sphere_bvh_root
+    assert ts.lights == tuple(rs.lights)
 
 
 # Meshes below NATIVE_MIN_TRIS build their BVH in numpy, the others in the

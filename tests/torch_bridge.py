@@ -165,3 +165,107 @@ def port_render(ts, frames, **over):
     img, segs = render_persistent(ts, frames, **kw)
     assert img.dtype == torch.float32 and segs.dtype == torch.int64
     return img.numpy(), int(segs)
+
+
+# ---- the asset-free scenes of the reference's tests/test_nee.py, written
+# against the port's API (the reference's definitions come from
+# ``ref_definition``)
+def _quad(y, s, down):
+    """Two triangles of a square at height ``y``, facing down or up."""
+    a, b, c, d = ([-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s])
+    tris = [[a, b, c], [a, c, d]] if down else [[a, c, b], [a, d, c]]
+    return np.asarray(tris, np.float32)
+
+
+def _uv_sphere():
+    """The 1,080-triangle unit sphere of test_nee.py (18 x 30 quads): more
+    than the brute-force size, so a wide-BVH instance."""
+    lat, lon = 18, 30
+    th = np.linspace(0.0, np.pi, lat + 1)
+    ph = np.linspace(0.0, 2 * np.pi, lon + 1)
+    p = np.stack(np.meshgrid(th, ph, indexing="ij"), axis=-1)
+    xyz = np.stack([np.sin(p[..., 0]) * np.cos(p[..., 1]), np.cos(p[..., 0]),
+                    np.sin(p[..., 0]) * np.sin(p[..., 1])], axis=-1)
+    quads = []
+    for i in range(lat):
+        for j in range(lon):
+            a, b, c, d = (xyz[i, j], xyz[i + 1, j], xyz[i + 1, j + 1],
+                          xyz[i, j + 1])
+            quads += [[a, b, c], [a, c, d]]
+    return np.asarray(quads, np.float32)
+
+
+def nee_definition(name: str):
+    """A scene of the reference's tests/test_nee.py as a port
+    ``SceneDefinition``: ``traversal`` (:159, a wide-BVH sphere, a floor and
+    a single-sided ceiling light), ``view`` and ``view_far`` (:248, the
+    floor and light alone, and with an instance far out of view),
+    ``plain_light`` and ``mirrored_light`` (:446, the light under the
+    identity and under a mirroring transform), ``emissive_glass`` (:414),
+    ``light_in_instance`` (:499, the light's triangles in the sphere's
+    wide-BVH instance) and ``cone`` (:305, a sphere light over a ground
+    sphere)."""
+    from ray_tracer_2_tpu_torch.math.transform import Transform
+    from ray_tracer_2_tpu_torch.scene.camera import CameraDescriptor
+    from ray_tracer_2_tpu_torch.scene.definition import (
+        MeshData, MeshFromData, SceneDefinition,
+    )
+    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+    new = MaterialDefinition.new
+    light = new().emissive([1.0, 0.9, 0.7, 1.0], 14.0)
+
+    def mesh(tris, normals):
+        return MeshFromData(MeshData.from_vertices(
+            tris.reshape(-1, 3), np.asarray(normals, np.float32)))
+
+    def flat(tris, n):
+        return mesh(tris, np.tile(n, (len(tris) * 3, 1)))
+
+    s = SceneDefinition()
+    look = ([0.0, 1.2, 4.0], [0.0, 0.8, 0.0])
+    if name == "cone":
+        s.set_camera(CameraDescriptor(
+            transform=Transform.cam([0.0, 6.0, 1.5], [0.0, 0.0, 0.0]),
+            fov=25.0, focus_dist=5.0))
+        s.add_sphere([0.0, -100.0, 0.0], 100.0,
+                     MaterialDefinition(color=(0.6, 0.55, 0.5, 1.0)))
+        s.add_sphere([0.0, 2.0, 0.0], 0.5, MaterialDefinition(
+            emission_color=(1.0, 0.9, 0.7, 1.0), emission_strength=10.0))
+        return s
+    if name == "emissive_glass":
+        s.set_camera(CameraDescriptor(
+            transform=Transform.cam([0.0, 1.0, 4.0], [0.0, 1.0, 0.0]),
+            fov=45.0, focus_dist=4.0))
+        glass_sun = new().emissive([1.0, 0.9, 0.7, 1.0], 10.0).glass(1.5)
+        s.add_sphere([0.0, 3.0, 0.0], 0.5, glass_sun)
+        s.add_mesh(Transform(), flat(_quad(2.0, 0.5, True), [0, -1, 0]),
+                   glass_sun)
+        return s
+    s.set_camera(CameraDescriptor(transform=Transform.cam(*look), fov=45.0,
+                                  focus_dist=4.0))
+    soup = _uv_sphere()
+    if name == "light_in_instance":
+        soup = soup * 0.8 + np.array([0, 0.8, 0], np.float32)
+        s.add_mesh(Transform(), mesh(soup, soup.reshape(-1, 3)),
+                   new().with_color([0.75, 0.35, 0.25, 1.0]))
+        lt = np.asarray([[[-0.8, 3, -0.8], [0.8, 3, -0.8], [0.8, 3, 0.8]],
+                         [[-0.8, 3, -0.8], [0.8, 3, 0.8], [-0.8, 3, 0.8]]],
+                        np.float32)
+        s.add_mesh(Transform(), flat(lt, [0, -1, 0]), light)
+        return s
+    if name == "traversal":
+        s.add_mesh(Transform(pos=[0.0, 0.8, 0.0], scale=[0.8] * 3),
+                   mesh(soup, soup.reshape(-1, 3)),
+                   new().with_color([0.75, 0.35, 0.25, 1.0]))
+    elif name == "view_far":
+        s.add_mesh(Transform(pos=[500.0, 0.0, 0.0]),
+                   mesh(soup, soup.reshape(-1, 3)), new().with_color([0.5] * 4))
+    s.add_mesh(Transform(), flat(_quad(0.0, 6.0, False), [0, 1, 0]),
+               new().with_color([0.7, 0.7, 0.7, 1.0]))
+    light_t = Transform(scale=[-1.0, 1.0, 1.0]) \
+        if name == "mirrored_light" else Transform()
+    s.add_mesh(light_t, flat(_quad(3.0, 0.8, True), [0, -1, 0]), light)
+    if name not in ("traversal", "view", "view_far", "plain_light",
+                    "mirrored_light"):
+        raise KeyError(name)
+    return s
