@@ -33,6 +33,25 @@ renders room2 at 1080p through ``Renderer.render`` with ``nee=True``; then
 ``room`` is rendered to 1,024 samples a pixel with and without NEE through
 ``Renderer.render`` (seconds, image means, per-sample variance).
 
+Scenes from asset files and textures (``scenes.sponza``, ``bugatti``: the
+procedural substitutes of their absent OBJ files) go through the
+megakernel's forms as they stand, and textured scenes through its textured
+forms (general, glass, tables in global memory; one for each way spheres
+are tested, with and without NEE). Each textured form is held against
+``render_plain`` on at least one cell at 128x72: ``texture_test``'s sphere
+pulled back with a seeded 512 x 256 image (bounces 0, 1, 5),
+``textured_atrium_scene(size=64)`` (every material textured) and with one
+material in ten textured, the normal-map quad with normal maps off and on
+(the images must differ), a textured ``room`` (NEE mode 1) and the textured
+atrium with NEE (mode 2), textured spheres among ``random_balls`` and
+``sunlit_balls`` (the dense fast loop and the sphere BVH, with and without
+NEE); ``bugatti`` and ``sponza`` take the untextured forms. The
+``sponza_path`` phase holds ``sponza()`` (41,424 triangles, a quad light,
+an emissive sphere) at 1080p, without and with NEE, against the plain
+version, then renders it so through ``Renderer.render``; ``textured_path`` renders ``textured_atrium_scene(size=1024)`` (the
+same geometry, ten 1024 x 1024 images: a 168 MB atlas) at 1080p with NEE,
+after holding that frame's kernel against its plain version.
+
 The megakernel is also held against its plain version on
 ``instances_scene``, where four instances of two shared tables take 38%
 of the primary rays, and on the sphere-heavy scenes: ``random_balls`` with
@@ -112,6 +131,8 @@ OPS_SEGMENT = 160       # camera ray share, shading, roulette per segment
 OPS_NEE_TRI = 62        # megakernel.cu sample_light, a triangle light
 OPS_NEE_SPHERE = 126    # megakernel.cu sample_light, a sphere light
 # (each plus one compare per light but the last, for the pick)
+OPS_TAP = 76            # megakernel.cu sample_quads, per texel quad fetched
+TAP_BYTES = 16          # one int4 texel quad a tap
 SPP = 1024              # samples a pixel of the time-to-quality phase
 SPP_VAR_FRAMES = 32     # frames whose deltas give the per-sample variance
 
@@ -193,6 +214,8 @@ def compare(scene, width, height, bounces, kernel, plain, **options):
             r[f"{k}_kernel"] = kc[k]
             if k in pc:
                 r[f"{k}_plain"] = pc[k]
+    if "texture_taps" in pc:    # the kernel does not count its taps
+        r["texture_taps_plain"] = pc["texture_taps"]
     return r
 
 
@@ -225,7 +248,7 @@ def check_cases(cases, launch, plain, **tags):
     return results
 
 
-def megakernel_bound(scene, r, nee_mode: int = 0) -> dict:
+def megakernel_bound(scene, r, nee_mode: int = 0, taps: int = 0) -> dict:
     """Bound of the megakernel on a compared cell: its counted child boxes,
     leaves and segments (each segment tests every dense sphere, by the
     formula the scene's sphere count picks, and every brute-force triangle,
@@ -237,7 +260,8 @@ def megakernel_bound(scene, r, nee_mode: int = 0) -> dict:
     each counted shadow ray adds a light sample (the cheaper kind among the
     scene's lights) and, in mode 1, a prepass (its spheres, brute-force
     triangles and their instances); in mode 2 it is a counted segment that
-    shades nothing."""
+    shades nothing. Each of ``taps`` texel quads fetched (the plain
+    version's count) adds its sampling arithmetic and its 16 bytes."""
     from ray_tracer_2_tpu_torch.kernels.intersect import SPHERE_FAST_MIN
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         brute_instances, bvh_instances, dense_spheres,
@@ -263,8 +287,9 @@ def megakernel_bound(scene, r, nee_mode: int = 0) -> dict:
             + len(scene.lights) - 1
         ops += shadow * (sample + (prepass if nee_mode == 1
                                    else -OPS_SEGMENT))
+    ops += taps * OPS_TAP
     return bound(ops, nbytes(scene.wide_rows, scene.tri_attr, scene.mat_rows)
-                 + r["width"] * r["height"] * 16)
+                 + r["width"] * r["height"] * 16 + taps * TAP_BYTES)
 
 
 def spheres_bound(scene, r) -> dict:
@@ -508,6 +533,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
     from ray_tracer_2_tpu_torch.config import RenderParams
     from ray_tracer_2_tpu_torch.engine.renderer import Renderer
     from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
@@ -515,7 +541,7 @@ def main() -> int:
         ptxas_lines
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         CUDA_MEGAKERNEL, brute_instances, kernel_tables, nee_mode,
-        render_plain,
+        render_plain, samples_textures,
     )
     from ray_tracer_2_tpu_torch.kernels.spheres import (
         CUDA_SPHERES, render_spheres_plain,
@@ -659,6 +685,87 @@ def main() -> int:
           == nee_cmp[4]["shadow_rays_kernel"],
           "forced mode 2 traces one segment more per shadow ray")
 
+    # ---- 3c. textures and normal maps: the textured forms against the plain
+    # version; the substitutes of sponza and bugatti
+    def with_assets(build, **kw):
+        assets = AssetManager()
+        return instantiate_scene(build(assets), assets, **kw).to("cuda")
+
+    def atrium64(every=1):
+        return with_assets(lambda a: scenes.textured_atrium_scene(
+            a, size=64, every=every))
+
+    def spheres_tex(build, **kw):
+        return with_assets(lambda a: scenes.textured_variant(build(), a,
+                                                             every=7), **kw)
+
+    atrium = atrium64()
+    nmap = with_assets(scenes.normal_map_scene)
+    nm_on = dict(normal_maps=True)
+    tex_cases = [
+        ("texture_sphere_scene", with_assets(scenes.texture_sphere_scene),
+         SMALL_W, SMALL_H, b) for b in (0, 1, BOUNCES)] + [
+        ("textured_atrium_scene(size=64)", atrium, SMALL_W, SMALL_H, 2),
+        ("textured_atrium_scene(size=64)", atrium, SMALL_W, SMALL_H,
+         BOUNCES),
+        ("textured_atrium_scene(size=64, every=10)", atrium64(10), SMALL_W,
+         SMALL_H, BOUNCES),
+        ("normal_map_scene, normal maps off", nmap, SMALL_W, SMALL_H,
+         BOUNCES),
+        ("normal_map_scene, normal maps on", nmap, SMALL_W, SMALL_H, BOUNCES,
+         nm_on),
+        ("room, textured, NEE mode 1", with_assets(
+            lambda a: scenes.textured_variant(scenes.room(), a, every=2)),
+         SMALL_W, SMALL_H, BOUNCES, nee),
+        ("textured_atrium_scene(size=64), NEE mode 2", atrium, SMALL_W,
+         SMALL_H, BOUNCES, nee),
+        ("random_balls, textured", spheres_tex(scenes.random_balls), SMALL_W,
+         SMALL_H, BOUNCES),
+        ("random_balls, textured, sphere BVH",
+         spheres_tex(scenes.random_balls, sphere_bvh=True), SMALL_W, SMALL_H,
+         BOUNCES),
+        ("sunlit_balls, textured, NEE", spheres_tex(scenes.sunlit_balls),
+         SMALL_W, SMALL_H, BOUNCES, nee),
+        ("sunlit_balls, textured, sphere BVH, NEE",
+         spheres_tex(scenes.sunlit_balls, sphere_bvh=True), SMALL_W, SMALL_H,
+         BOUNCES, nee),
+        ("bugatti", instantiate_scene(scenes.bugatti()).to("cuda"), SMALL_W,
+         SMALL_H, BOUNCES),
+        ("sponza", instantiate_scene(scenes.sponza()).to("cuda"), SMALL_W,
+         SMALL_H, BOUNCES)]
+    tex_forms, tex_cmp = set(), []
+    for case in tex_cases:
+        sc, opts = case[1], (case[5] if len(case) > 5 else {})
+        tex_cmp += check_cases([case], CUDA_MEGAKERNEL, render_plain,
+                               kernel="megakernel")
+        textured = samples_textures(sc, opts.get("normal_maps", False))
+        check(CUDA_MEGAKERNEL.tex_launches == (6 if textured else 0),
+              f"{case[0]}: {CUDA_MEGAKERNEL.tex_launches} of 6 launches "
+              f"through the textured forms (textured: {textured})")
+        if textured:
+            tex_forms.add((kernel_tables(sc)["spheres_mode"],
+                           nee_mode(sc, opts.get("nee", False)) > 0))
+    check(tex_forms == {(m, n) for m in range(3) for n in (False, True)},
+          f"every textured form held against its plain version: {tex_forms}")
+    kw = dict(width=SMALL_W, height=SMALL_H, bounces=BOUNCES,
+              rays_per_pixel=1, skybox=True)
+    nm_diff = float((CUDA_MEGAKERNEL(nmap, 1, **nm_on, **kw)[0]
+                     - CUDA_MEGAKERNEL(nmap, 1, **kw)[0]).abs().max())
+    check(nm_diff > 0.02, f"normal maps change the image ({nm_diff})")
+    emit(phase="textured_forms", forms=sorted(tex_forms),
+         normal_map_max_change=nm_diff)
+    # the textured path's frame at 1080p, kernel against plain version
+    t0 = time.perf_counter()
+    tex_assets = AssetManager()
+    atrium_1k = instantiate_scene(scenes.textured_atrium_scene(tex_assets),
+                                  tex_assets).to("cuda")
+    atrium_1k_s = time.perf_counter() - t0
+    atlas_bytes = atrium_1k.tex_quads.numel() * 4
+    check(atlas_bytes >= 10 * 1024 * 1024 * 16, f"atlas of {atlas_bytes} B")
+    tex_big_cmp = check_cases(
+        [("textured_atrium_scene(size=1024), NEE", atrium_1k, W, H, BOUNCES,
+          nee)], CUDA_MEGAKERNEL, render_plain, kernel="megakernel")[0]
+
     # ---- 4. the main path -------------------------------------------------
     params = RenderParams(width=W, height=H, bounces=BOUNCES,
                           rays_per_pixel=1, skybox=True)
@@ -772,7 +879,69 @@ def main() -> int:
          ms_per_frame=dt * 1e3 / (FRAMES - 2),
          mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
 
-    # ---- 6c. time to 1024 samples a pixel on room, NEE off and on
+    # ---- 6c. sponza: Renderer -> the megakernel on the atrium substitute,
+    # without and with NEE; then the same geometry textured, with NEE
+    t0 = time.perf_counter()
+    sponza = instantiate_scene(scenes.sponza()).to("cuda")
+    sponza_s = time.perf_counter() - t0
+    check(sponza.inst_spans[0][2] == 41_424 and sponza.n_spheres == 1,
+          f"sponza substitute: {sponza.inst_spans}, {sponza.n_spheres} "
+          "spheres")
+    # the untextured forms at the path's own shape, kernel against plain
+    check_cases([("sponza()", sponza, W, H, BOUNCES),
+                 ("sponza(), NEE mode 2", sponza, W, H, BOUNCES, nee)],
+                CUDA_MEGAKERNEL, render_plain, kernel="megakernel")
+    for flag in (False, True):
+        zero_counts()
+        dt, segs = drive(Renderer(device="cuda"), sponza,
+                         dataclasses.replace(params, nee=flag))
+        counts = CUDA_MEGAKERNEL.read_counts()
+        check(CUDA_MEGAKERNEL.launches == FRAMES
+              and CUDA_MEGAKERNEL.nee_launches == (FRAMES if flag else 0)
+              and CUDA_MEGAKERNEL.tex_launches == 0,
+              f"sponza, nee={flag}: {CUDA_MEGAKERNEL.launches} launches, "
+              f"{CUDA_MEGAKERNEL.nee_launches} NEE, "
+              f"{CUDA_MEGAKERNEL.tex_launches} textured")
+        check(CUDA_SPHERES.launches == CUDA_BRUTE.launches == 0,
+              "no other kernel launched on the sponza path")
+        check(counts["brute_calls"] == sum(segs), "every segment ran the "
+              "light's brute-force group")
+        emit(phase="sponza_path", scene="sponza() (procedural atrium, "
+             "41,424 tris + quad light + emissive sphere)", nee=flag,
+             width=W, height=H, bounces=BOUNCES, rpp=1, frames=FRAMES,
+             scene_build_s=sponza_s, launches=CUDA_MEGAKERNEL.launches,
+             nee_launches=CUDA_MEGAKERNEL.nee_launches, segments=sum(segs),
+             segments_per_pixel=sum(segs) / (FRAMES * W * H),
+             shadow_segments=counts["shadow_rays"],
+             shadow_share=counts["shadow_rays"] / sum(segs),
+             timed_frames="2-5", timed_segments=sum(segs[2:]),
+             ms_per_frame=dt * 1e3 / (FRAMES - 2),
+             mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
+    zero_counts()
+    dt, segs = drive(Renderer(device="cuda"), atrium_1k,
+                     dataclasses.replace(params, nee=True))
+    tex_launches = CUDA_MEGAKERNEL.tex_launches
+    counts = CUDA_MEGAKERNEL.read_counts()
+    check(CUDA_MEGAKERNEL.launches == CUDA_MEGAKERNEL.nee_launches
+          == tex_launches == FRAMES,
+          f"textured path: {tex_launches} textured launches of "
+          f"{CUDA_MEGAKERNEL.launches} in {FRAMES} frames")
+    check(CUDA_SPHERES.launches == CUDA_BRUTE.launches == 0,
+          "no other kernel launched on the textured path")
+    emit(phase="textured_path", scene="textured_atrium_scene(size=1024) "
+         "with next-event estimation", width=W, height=H, bounces=BOUNCES,
+         rpp=1, frames=FRAMES, scene_build_s=atrium_1k_s,
+         atlas_bytes=atlas_bytes, atlas_mb=atlas_bytes / 1e6,
+         texels=atlas_bytes // 16, launches=CUDA_MEGAKERNEL.launches,
+         tex_launches=tex_launches, segments=sum(segs),
+         segments_per_pixel=sum(segs) / (FRAMES * W * H),
+         shadow_segments=counts["shadow_rays"],
+         shadow_share=counts["shadow_rays"] / sum(segs),
+         timed_frames="2-5", timed_segments=sum(segs[2:]),
+         ms_per_frame=dt * 1e3 / (FRAMES - 2),
+         mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
+
+    # ---- 6d. time to 1024 samples a pixel on room, NEE off and on
     spp = {}
     for flag in (False, True):
         zero_counts()
@@ -833,6 +1002,8 @@ def main() -> int:
     room2_b = megakernel_bound(room2, room2_cmp)
     nee_b = megakernel_bound(room2, nee_cmp[-1], nee_mode=2)
     room_nee_b = megakernel_bound(room, nee_cmp[1], nee_mode=1)
+    tex_b = megakernel_bound(atrium_1k, tex_big_cmp, nee_mode=2,
+                             taps=tex_big_cmp["texture_taps_plain"])
 
     def sphere_cell(scene, r, **more):
         return dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
@@ -889,6 +1060,25 @@ def main() -> int:
                  max_abs_err=nee_cmp[1]["max_abs_err"],
                  shadow_rays=nee_cmp[1]["shadow_rays_kernel"],
                  **room_nee_b)),
+        # textures and normal maps: the textured forms of megakernel.cu; in
+        # the reference they run in the XLA boundary (megakernel.py:796-884),
+        # beside the TPU kernel the megakernel replaces, which refuses them
+        dict(name="megakernel_tex", route="cuda",
+             source="ray_tracer_2_tpu_torch/csrc/megakernel.cu",
+             replaces="ray_tracer_2_tpu/kernels/pallas_boundary.py:236",
+             reference="ray_tracer_2_tpu/kernels/megakernel.py:796",
+             launches=tex_launches, launches_per_frame=tex_launches / FRAMES,
+             max_abs_err=tex_big_cmp["max_abs_err"],
+             ms=tex_big_cmp["kernel_ms"], plain_ms=tex_big_cmp["plain_ms"],
+             bound_ms=tex_b["bound_ms"], bound_by=tex_b["bound_by"],
+             bound_nofma_ms=tex_b["bound_nofma_ms"], library_ms=None,
+             ops=tex_b["ops"], bytes=tex_b["bytes"],
+             lane_occupancy=tex_big_cmp["lane_occupancy"],
+             segments=tex_big_cmp["segments_kernel"],
+             shadow_rays=tex_big_cmp["shadow_rays_kernel"],
+             texture_taps=tex_big_cmp["texture_taps_plain"],
+             atlas_bytes=atlas_bytes, forms=len(tex_forms),
+             max_abs_err_128x72=max(r["max_abs_err"] for r in tex_cmp)),
         dict(name="spheres", route="cuda",
              source="ray_tracer_2_tpu_torch/csrc/spheres.cu",
              replaces="ray_tracer_2_tpu/kernels/pallas_spheres.py:149",

@@ -2,23 +2,20 @@
 reference's ``ray_tracer_2_tpu/accel/native``; ref: the rayon-parallel Rust
 builder, bvh.rs:152-207).
 
-Compiled with g++ at first use into the package's ``_build/`` directory,
-keyed by a hash of the source; a failed compile raises with the compiler's
-output.
+Compiled with g++ at first use (``host_build.build_library``); a failed
+compile raises with the compiler's output.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from ray_tracer_2_tpu_torch.host_build import build_library
+
 _SRC = Path(__file__).resolve().parent / "bvh_builder.cpp"
-_BUILD = Path(__file__).resolve().parents[2] / "_build"
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
           "-pthread"]
 _lock = threading.Lock()
@@ -31,19 +28,7 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-        so = _BUILD / f"bvh_builder_{tag}.so"
-        if not so.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            res = subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"g++ failed on {_SRC.name}:\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(build_library(_SRC, "bvh_builder", _FLAGS)))
         lib.rt2_build_bvh.restype = ctypes.c_int32
         lib.rt2_build_bvh.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # v0 v1 v2

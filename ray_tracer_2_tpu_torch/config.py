@@ -1,8 +1,8 @@
 """Render configuration (port of ``ray_tracer_2_tpu/config.py``; the Params
 uniform of app.rs:27-91).
 
-The same frozen dataclass as the reference, with the fields this slice
-reads; motion degradation waits for the engine slice.
+The same frozen dataclass as the reference, with the fields the ported
+slices read; motion degradation waits for the engine slice.
 """
 from __future__ import annotations
 
@@ -11,6 +11,10 @@ import enum
 
 # Internal framebuffer (engine.rs:202): 1920x1080 RGBA float32.
 RENDER_SIZE = (1920, 1080)
+
+# Texture slots of the atlas (ray_tracer.rs:15-19): the asset manager loads
+# at most this many textures, and the atlas has this many slot rows.
+MAX_TEXTURES = 64
 
 
 class DebugMode(enum.IntEnum):

@@ -61,6 +61,16 @@
 // traversal phase) or after a shadow segment of its own (kNeeSegments),
 // which counts as a segment and keeps the bounce; the next hit then adds
 // no emission.
+// With textures (the textured forms, render_general_tex; reference
+// resolve_and_shade :796-884, which its fused boundary refuses,
+// pallas_boundary.py:84-86,102): a textured material's diffuse colour is
+// the bilinear sample of its slot of the texel atlas at the hit's UV (a
+// mesh's interpolated, a sphere's from its normal), wherever the colour is
+// read, the light sample's contribution included; with normal maps, a mesh
+// hit whose material has a normal map shades with the sampled normal
+// rotated out of the triangle's tangent frame. The sample is the
+// reference's explicit wrap addressing and blend in float32 (sample_quads),
+// not a texture unit's fixed-point filter.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,6 +168,16 @@ constexpr int kNeeSup = 1;
 constexpr int kNeeShadow = 2;
 constexpr int kNeeGoesOn = 4;
 
+// Textures (kernels/texture.py, kernels/megakernel.py kernel_tables): the
+// texel atlas as one int4 per texel, the reference's quad row unpacked
+// (the texel's word, its wrapped x, y and xy neighbours'; a word is R | G
+// << 8 | B << 16 | A << 24), and 64 slot rows of offset, height, width, 0.
+constexpr float kFlagTexture = 2.0f;  // material flag of a textured one
+constexpr float kInv255 = 0.003921569f;  // float32(1/255): see sample_quads
+constexpr float kPi = 3.1415926f;         // the reference's pi, not M_PI
+constexpr float kInvTwoPi = 0.15915495f;  // float32(1 / float32(2 kPi))
+constexpr float kInvPi = 0.3183099f;      // float32(1 / kPi)
+
 struct Params {
   const float* wide_rows;
   const float* tri_attr;
@@ -206,6 +226,14 @@ __device__ __forceinline__ int sphere_root(const Params& p) {
   return p.sph;
 }
 
+// What only the textured forms take, as a kernel parameter of its own
+// (Params stays the other forms').
+struct TexParams {
+  const int4* texels;  // one per texel of the atlas
+  const float* meta;   // 64 slot rows: offset, height, width, 0
+  int normal_maps;     // 1: mesh hits take their material's normal map
+};
+
 // Visits of one segment's traversals (folded into 64-bit sums per lane)
 struct Visits {
   uint32_t rows, leaves, boxes;
@@ -219,6 +247,9 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float clamp01(float t) {
   return nan_min(nan_max(t, 0.0f), 1.0f);
+}
+__device__ __forceinline__ float clamp_pm1(float t) {
+  return nan_min(nan_max(t, -1.0f), 1.0f);
 }
 // jnp.sign: -1, +-0 or 1; NaN stays NaN
 __device__ __forceinline__ float sign_of(float x) {
@@ -779,6 +810,52 @@ __device__ __forceinline__ void segment_prepass(
   }
 }
 
+// Floor modulo of i by n > 0 (jnp.mod): -1 wraps to n - 1
+__device__ __forceinline__ int wrap(int i, int n) {
+  int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// Bilinear sample with repeat wrap of atlas slot `slot` (clamped to >= 0)
+// at (u, v) (kernels/texture.py sample_bilinear_quads; reference
+// kernels/texture.py:98-133): the slot row's float32 offset, height and
+// width, the texel-centred position, one 16-byte load of the quad, the
+// bytes of each word times float32(1/255) (what the reference's / 255.0
+// compiles to), and the blend in the reference's order.
+__device__ __forceinline__ void sample_quads(const TexParams& tex, int slot,
+                                             const float uv[2],
+                                             float out[4]) {
+  const float* m = tex.meta + 4 * max(slot, 0);
+  float hf = __ldg(m + 1), wf = __ldg(m + 2);
+  int off = (int)__ldg(m), h = (int)hf, w = (int)wf;
+  float u = uv[0] - floorf(uv[0]);
+  float v = uv[1] - floorf(uv[1]);
+  float xf = u * wf - 0.5f;
+  float yf = v * hf - 0.5f;
+  float x0 = floorf(xf), y0 = floorf(yf);
+  float tx = xf - x0, ty = yf - y0;
+  int t = off + wrap((int)y0, h) * w + wrap((int)x0, w);
+  int4 q = __ldg(tex.texels + t);
+  for (int c = 0; c < 4; ++c) {
+    float c00 = (float)((q.x >> (8 * c)) & 0xFF) * kInv255;
+    float c01 = (float)((q.y >> (8 * c)) & 0xFF) * kInv255;
+    float c10 = (float)((q.z >> (8 * c)) & 0xFF) * kInv255;
+    float c11 = (float)((q.w >> (8 * c)) & 0xFF) * kInv255;
+    float top = c00 * (1.0f - tx) + c01 * tx;
+    float bot = c10 * (1.0f - tx) + c11 * tx;
+    out[c] = top * (1.0f - ty) + bot * ty;
+  }
+}
+
+// Spherical UV from a sphere hit's (flipped-inside) unit normal
+// (intersect.py sphere_uv; ray_tracer.wgsl:246-251)
+__device__ __forceinline__ void sphere_uv(const float n[3], float uv[2]) {
+  float theta = acosf(clamp_pm1(-n[1]));
+  float phi = atan2f(-n[2], -n[0]) + kPi;
+  uv[0] = phi * kInvTwoPi;
+  uv[1] = theta * kInvPi;
+}
+
 // One light sample from a diffuse vertex (megakernel.py resolve_and_shade
 // :924-1000, in its op order): the shadow ray's direction, the distance to
 // the light point, the light's contribution if it is unoccluded, and
@@ -794,7 +871,9 @@ struct NeeSample {
 // before the last that the draw reaches; a point on a triangle by the sqrt
 // warp (cos_l * total_area / (2 pi d^2)), or a direction in the cone a
 // sphere subtends ((1 - cos_max) * total_area / (4 pi r^2)). `color` is the
-// material's, `trans` the path's before this vertex.
+// material's row (kTex: the diffuse colour, a textured one's sample, in
+// registers), `trans` the path's before this vertex.
+template <bool kTex>
 __device__ __forceinline__ void sample_light(const NeeParams& nee,
                                              uint32_t& seed,
                                              const float point[3],
@@ -857,8 +936,14 @@ __device__ __forceinline__ void sample_light(const NeeParams& nee,
     front = cos_l > 0.0f;
   }
   s.takes = dot3(normal, s.d) > 0.0f && front;
-  for (int c = 0; c < 3; ++c)
-    s.c3[c] = ((trans[c] * __ldg(color + c)) * __ldg(L + 13 + c)) * geom;
+  for (int c = 0; c < 3; ++c) {
+    float col;
+    if constexpr (kTex)
+      col = color[c];
+    else
+      col = __ldg(color + c);
+    s.c3[c] = ((trans[c] * col) * __ldg(L + 13 + c)) * geom;
+  }
 }
 
 // One segment of the lane's path: {the prepass; each wide-BVH instance;
@@ -875,9 +960,13 @@ __device__ __forceinline__ void sample_light(const NeeParams& nee,
 // and then banks the contribution if the light was unoccluded and takes
 // the stashed ray up again, without shading or drawing (the bounce stays
 // meanwhile: render_kernel).
-template <bool kGeneral, bool kGlass, int kSph, bool kNee>
+//
+// With kTex, textures and normal maps (megakernel.py _albedo,
+// _normal_mapped; reference resolve_and_shade :796-884).
+template <bool kGeneral, bool kGlass, int kSph, bool kNee, bool kTex>
 __device__ __forceinline__ bool trace_segment(
-    const Params& p, const NeeParams& nee, const float* s_sph,
+    const Params& p, const NeeParams& nee, const TexParams& tex,
+    const float* s_sph,
     const float* s_inst, const float4* s_brute,
     std::conditional_t<kNee, NeePath, Path>& q, unsigned long long& tests,
     Visits& vis) {
@@ -954,6 +1043,7 @@ __device__ __forceinline__ bool trace_segment(
     return false;
   }
   bool backface;
+  [[maybe_unused]] float uv[2] = {0.0f, 0.0f};
   if (h.kind >= 0) {  // mesh normal through the hit instance's m2w
     const float* at = p.tri_attr + (size_t)(h.kind >> 2) * kRow +
                       (h.kind & 3) * 32;
@@ -969,10 +1059,52 @@ __device__ __forceinline__ bool trace_segment(
              normal);
     normalize3(normal);
     backface = h.det < 0.0f;
+    if constexpr (kTex) {  // the interpolated UV
+      for (int r = 0; r < 2; ++r)
+        uv[r] = (__ldg(at + 9 + r) * wb + __ldg(at + 11 + r) * h.u) +
+                __ldg(at + 13 + r) * h.v;
+    }
   } else {
     backface = h.flag > 0;
+    if constexpr (kTex) sphere_uv(normal, uv);
   }
   const float* m = p.mat_rows + (size_t)h.mat * 32;
+  [[maybe_unused]] float albedo[4];
+  if constexpr (kTex) {
+    // normal map (:805-824): the map decoded as 2 n - 1 in the tangent
+    // frame, the instance's tangent made orthogonal to the normal, the
+    // bitangent cross(normal, tangent) times the handedness
+    if (tex.normal_maps && h.kind >= 0 && __ldg(m + 23) != -1.0f) {
+      const float* at = p.tri_attr + (size_t)(h.kind >> 2) * kRow +
+                        (h.kind & 3) * 32;
+      float texel[4], tm[3], tw[3], bw[3], nt[3];
+      sample_quads(tex, (int)__ldg(m + 23), uv, texel);
+      for (int r = 0; r < 3; ++r) {
+        nt[r] = texel[r] * 2.0f - 1.0f;
+        tm[r] = __ldg(at + 15 + r);
+      }
+      apply3x3(s_inst + (kGeneral ? h.flag : 0) * kInstCols + kInM2w, tm,
+               tw);
+      normalize3(tw);
+      float tn = dot3(tw, normal);
+      for (int r = 0; r < 3; ++r) tw[r] = tw[r] - normal[r] * tn;
+      normalize3(tw);
+      cross3(normal, tw, bw);
+      float hand = __ldg(at + 18);
+      float np[3];
+      for (int r = 0; r < 3; ++r)
+        np[r] = (tw[r] * nt[0] + (bw[r] * hand) * nt[1]) +
+                normal[r] * nt[2];
+      normalize3(np);
+      for (int r = 0; r < 3; ++r) normal[r] = np[r];
+    }
+    // the diffuse colour (:869-884): a textured material's sample
+    if (__ldg(m + 21) == kFlagTexture && __ldg(m + 22) != -1.0f) {
+      sample_quads(tex, (int)__ldg(m + 22), uv, albedo);
+    } else {
+      for (int c = 0; c < 4; ++c) albedo[c] = __ldg(m + c);
+    }
+  }
   float nd[3], no[3];
   [[maybe_unused]] NeeSample ns;
   [[maybe_unused]] bool sup = false, shadow = false;
@@ -1039,7 +1171,10 @@ __device__ __forceinline__ bool trace_segment(
     float emis = __ldg(m + 17);
     [[maybe_unused]] bool sampled = false, lit = false;
     if constexpr (kNee) {
-      sample_light(nee, seed, h.point, normal, trans, m, ns);
+      if constexpr (kTex)
+        sample_light<true>(nee, seed, h.point, normal, trans, albedo, ns);
+      else
+        sample_light<false>(nee, seed, h.point, normal, trans, m, ns);
       sampled = !is_spec && ns.may && q.bounce + 1 <= p.bounces;
       shadow = sampled && ns.takes;
       q.shadows += shadow ? 1 : 0;
@@ -1053,7 +1188,10 @@ __device__ __forceinline__ bool trace_segment(
     }
     for (int c = 0; c < 4; ++c) {
       inc[c] = inc[c] + (sup ? 0.0f : __ldg(m + 4 + c) * emis) * trans[c];
-      trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
+      if constexpr (kTex)
+        trans[c] = trans[c] * (is_spec ? __ldg(m + 8 + c) : albedo[c]);
+      else
+        trans[c] = trans[c] * __ldg(m + (is_spec ? 8 : 0) + c);
     }
     if constexpr (kNee) {
       if (lit)
@@ -1103,11 +1241,13 @@ __device__ __forceinline__ bool trace_segment(
 // compiles out the glass branch; kSph says how spheres are tested (kSph*);
 // kStaged is false when the scene's tables pass kDynSmemBytes and are read
 // from global memory instead of being staged; kNee compiles in next-event
-// estimation (trace_segment), whose lanes carry NeePath.
+// estimation (trace_segment), whose lanes carry NeePath; kTex textures and
+// normal maps.
 template <bool kGeneral, bool kGlass, int kSph, bool kStaged,
-          bool kNee = false>
+          bool kNee = false, bool kTex = false>
 __device__ __forceinline__ void render_kernel(
-    const Params& p, const NeeParams& nee = NeeParams()) {
+    const Params& p, const NeeParams& nee = NeeParams(),
+    const TexParams& tex = TexParams()) {
   __shared__ float s_scal[kScal];
   __shared__ unsigned long long s_warp[kThreads / 32];
   extern __shared__ __align__(16) float s_dyn[];
@@ -1186,8 +1326,8 @@ __device__ __forceinline__ void render_kernel(
     if (has_path) {
       ++segs;
       Visits vis = {0u, 0u, 0u};
-      bool goes_on = trace_segment<kGeneral, kGlass, kSph, kNee>(
-          p, nee, s_sph, s_inst, s_brute, q, tests, vis);
+      bool goes_on = trace_segment<kGeneral, kGlass, kSph, kNee, kTex>(
+          p, nee, tex, s_sph, s_inst, s_brute, q, tests, vis);
       rows += vis.rows;
       leaves += vis.leaves;
       boxes += vis.boxes;
@@ -1232,7 +1372,11 @@ __device__ __forceinline__ void render_kernel(
 // compiled with the glass branch only: nine kernels. Next-event estimation
 // has its own general forms, one for each way spheres are tested and for
 // staged or global tables, each with the glass branch, taking NeeParams
-// beside Params: fifteen kernels in all.
+// beside Params: fifteen kernels. The textured forms (textures, normal
+// maps) are general, with the glass branch, on tables in global memory,
+// one for each way spheres are tested, with and without next-event
+// estimation, taking NeeParams and TexParams beside Params: twenty-one
+// kernels in all.
 constexpr int kGeneralMinBlocks = 7;
 
 template <bool kGlass>
@@ -1252,8 +1396,15 @@ render_general_nee(Params p, NeeParams nee) {
   render_kernel<true, true, kSph, kStaged, true>(p, nee);
 }
 
+template <int kSph, bool kNee>
+__global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
+render_general_tex(Params p, NeeParams nee, TexParams tex) {
+  render_kernel<true, true, kSph, false, kNee, true>(p, nee, tex);
+}
+
 using Kernel = void (*)(Params);
 using NeeKernel = void (*)(Params, NeeParams);
+using TexKernel = void (*)(Params, NeeParams, TexParams);
 
 // The compiled form for a scene class; nullptr for a class without one.
 Kernel pick_kernel(bool general, bool glass, int sph, bool staged) {
@@ -1280,6 +1431,18 @@ NeeKernel pick_nee_kernel(int sph, bool staged) {
   return sph == kSphExact  ? render_general_nee<kSphExact, false>
          : sph == kSphFast ? render_general_nee<kSphFast, false>
                            : render_general_nee<kSphBvh, false>;
+}
+
+// The textured form for a scene class: general, glass compiled in, tables
+// in global memory.
+TexKernel pick_tex_kernel(int sph, bool nee) {
+  if (nee)
+    return sph == kSphExact  ? render_general_tex<kSphExact, true>
+           : sph == kSphFast ? render_general_tex<kSphFast, true>
+                             : render_general_tex<kSphBvh, true>;
+  return sph == kSphExact  ? render_general_tex<kSphExact, false>
+         : sph == kSphFast ? render_general_tex<kSphFast, false>
+                           : render_general_tex<kSphBvh, false>;
 }
 
 template <typename K, typename... Args>
@@ -1339,6 +1502,23 @@ cudaError_t make_params(
   p.antialias = antialias;
   p.frame_seed = frame_seed;
   return cudaSuccess;
+}
+
+// The light table's arguments as NeeParams; false where they are out of
+// range for `spheres_mode` (kNeeInline has no shadow segments to walk the
+// sphere BVH in).
+bool make_nee(const float* lights, const float* cdf, int n_lights,
+              int nee_mode, float c_tri, float c_area, int spheres_mode,
+              NeeParams& nee) {
+  nee.lights = lights;
+  nee.cdf = cdf;
+  nee.n_lights = n_lights;
+  nee.mode = nee_mode;
+  nee.c_tri = c_tri;
+  nee.c_area = c_area;
+  return n_lights >= 1 && n_lights <= kMaxLights &&
+         (nee_mode == kNeeInline || nee_mode == kNeeSegments) &&
+         !(nee_mode == kNeeInline && spheres_mode == kSphBvh);
 }
 
 }  // namespace
@@ -1409,17 +1589,49 @@ extern "C" int rt2_render_persistent_nee(
       antialias, spheres_mode, staged, sphere_root, frame_seed, out, scratch,
       counts, p, smem);
   if (err != cudaSuccess) return (int)err;
-  if (n_lights < 1 || n_lights > kMaxLights ||
-      (nee_mode != kNeeInline && nee_mode != kNeeSegments) ||
-      (nee_mode == kNeeInline && spheres_mode == kSphBvh))
-    return (int)cudaErrorInvalidValue;
   NeeParams nee;
-  nee.lights = lights;
-  nee.cdf = cdf;
-  nee.n_lights = n_lights;
-  nee.mode = nee_mode;
-  nee.c_tri = c_tri;
-  nee.c_area = c_area;
+  if (!make_nee(lights, cdf, n_lights, nee_mode, c_tri, c_area, spheres_mode,
+                nee))
+    return (int)cudaErrorInvalidValue;
   return (int)launch(pick_nee_kernel(spheres_mode, staged != 0), smem,
                      (cudaStream_t)stream, p, nee);
+}
+
+// The same through the textured forms (general, glass compiled in, tables
+// in global memory: `brute` holds the rows as stage_row makes them), with
+// next-event estimation when `nee_mode` is kNeeInline or kNeeSegments (the
+// light arguments as rt2_render_persistent_nee takes them) and without it
+// when `nee_mode` is 0 (they are then not read). `texels` holds `n_texels`
+// int4 texels (TorchScene.tex_quads: a texel's word and its wrapped x, y
+// and xy neighbours' in one 16-byte word), 16-byte aligned; `tex_meta` 64 slot rows of 4 floats; `normal_maps` 1 makes mesh
+// hits take their material's normal map.
+extern "C" int rt2_render_persistent_tex(
+    const float* wide_rows, const float* tri_attr, const float* mat_rows,
+    const float* spheres, const float* scal, const float* inst,
+    const float* brute, int n_spheres, int n_inst, int n_brute, int width,
+    int height, int row_start, int rows, int bounces, int rpp, int skybox,
+    int antialias, int spheres_mode, int sphere_root,
+    unsigned int frame_seed, const float* lights, const float* cdf,
+    int n_lights, int nee_mode, float c_tri, float c_area, const int* texels,
+    int n_texels, const float* tex_meta, int normal_maps, float* out,
+    unsigned long long* scratch, unsigned long long* counts, void* stream) {
+  Params p;
+  size_t smem;
+  cudaError_t err = make_params(
+      wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
+      n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
+      antialias, spheres_mode, 0, sphere_root, frame_seed, out, scratch,
+      counts, p, smem);
+  if (err != cudaSuccess) return (int)err;
+  NeeParams nee;
+  if ((!make_nee(lights, cdf, n_lights, nee_mode, c_tri, c_area,
+                 spheres_mode, nee) && nee_mode != 0) ||
+      n_texels < 64 || ((uintptr_t)texels & 15u) != 0u)
+    return (int)cudaErrorInvalidValue;
+  TexParams tex;
+  tex.texels = reinterpret_cast<const int4*>(texels);
+  tex.meta = tex_meta;
+  tex.normal_maps = normal_maps;
+  return (int)launch(pick_tex_kernel(spheres_mode, nee_mode != 0), smem,
+                     (cudaStream_t)stream, p, nee, tex);
 }

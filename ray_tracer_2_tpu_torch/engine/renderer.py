@@ -9,15 +9,16 @@ Routing (reference ``render_sample`` and ``Renderer._use_pallas_spheres``):
 a small scene (``kernels/spheres.eligible``: spheres plus at most 64
 untextured triangles) renders through ``render_spheres``, unless it asks
 for antialias, which that path does not take, or was instantiated with the
-sphere BVH, which only the megakernel walks, or for next-event estimation,
-which the reference keeps off its small-scene kernel
+sphere BVH, which only the megakernel walks, or for next-event estimation
+or normal maps, which the reference keeps off its small-scene kernel
 (``ray_tracer_2_tpu/engine/renderer.py:278-281``); every other frame goes
-through ``render_persistent`` (the megakernel), which raises only for a
-scene outside the ported slices (textures). The reference also capped the
-small path at 128 spheres, a choice between two TPU implementations; the
-port has no such cap. Both kernels now take every small scene, and what
-each measured on the H100 is in PERF.md, section 6; the routing waits for a
-benchmark to be changed against (ROADMAP, perf_opt queue).
+through ``render_persistent`` (the megakernel), textured scenes included.
+Only the debug modes raise (ROADMAP Queue 1 item 4). The reference also
+capped the small path at 128 spheres, a choice between two TPU
+implementations; the port has no such cap. Both kernels now take every
+small scene, and what each measured on the H100 is in PERF.md, section 6;
+the routing waits for a benchmark to be changed against (ROADMAP, perf_opt
+queue).
 """
 from __future__ import annotations
 
@@ -56,20 +57,20 @@ def small_scene(scene: TorchScene) -> bool:
 def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
                  *, width: int, height: int, bounces: int,
                  rays_per_pixel: int, skybox: bool, antialias: bool = False,
-                 nee: bool = False):
+                 nee: bool = False, normal_maps: bool = False):
     """Render + accumulate one frame into ``framebuffer`` ((height, width, 4)
     float32, updated in place). Returns (framebuffer, segment count).
-    ``nee`` (next-event estimation) sends the frame to the megakernel
-    whatever the scene; on a scene without lights it renders there as
-    without ``nee``."""
+    ``nee`` (next-event estimation) and ``normal_maps`` send the frame to
+    the megakernel whatever the scene; on a scene without lights or normal
+    maps it renders there as without them."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox)
-    if small_scene(scene) and not antialias and not nee:
+    if small_scene(scene) and not (antialias or nee or normal_maps):
         sample, segments = spheres.render_spheres(scene, frames, **kw)
     else:
         sample, segments = render_persistent(scene, frames,
                                              antialias=antialias, nee=nee,
-                                             **kw)
+                                             normal_maps=normal_maps, **kw)
     # the reference's float32 weight: 1 / (f + 1), and 1 - w, each rounded
     w = np.float32(1.0) / np.float32(frames + 1) if frames >= 1 \
         else np.float32(1.0)
@@ -107,9 +108,6 @@ class Renderer:
         if params.debug_mode != DebugMode.OFF:
             raise NotImplementedError(
                 "debug modes wait for their slice (ROADMAP Queue 1 item 4)")
-        if params.normal_maps:
-            raise NotImplementedError(
-                "normal maps wait for their slice (ROADMAP Queue 1 item 3)")
         self.ensure_framebuffer(params.width, params.height)
         self.framebuffer, self.last_segments = render_frame(
             scene, self.framebuffer, int(params.frames),
@@ -117,7 +115,7 @@ class Renderer:
             bounces=int(params.bounces),
             rays_per_pixel=int(params.rays_per_pixel),
             skybox=bool(params.skybox), antialias=bool(params.antialias),
-            nee=bool(params.nee))
+            nee=bool(params.nee), normal_maps=bool(params.normal_maps))
         return self.framebuffer
 
     def read_framebuffer(self) -> np.ndarray:

@@ -43,8 +43,20 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
   brute-force groups, read from global memory) against ``groups4``
   (staged), and ``groups4+global``;
 * next-event estimation (flag ``+nee``): ``room2_scene+nee`` (shadow
-  segments) and ``room+nee`` (the shadow ray tested inline) at bounces 5,
-  beside the same scenes without it; a tree without NEE skips them;
+  segments), ``room+nee`` (the shadow ray tested inline) and
+  ``sunlit_balls+bvh+nee`` (shadow segments through the sphere BVH) at
+  bounces 5, beside the same scenes without it; a tree without NEE skips
+  them;
+* scenes from asset files and textures at bounces 5 (a tree without them
+  skips them): ``sponza`` and ``bugatti`` through their procedural
+  substitutes, with and without NEE; ``textured_atrium`` (the atrium's
+  ten parts textured from a 168 MB atlas of seeded 1024 x 1024 images,
+  ``scenes.textured_atrium_scene``), with and without NEE, beside
+  ``sponza``'s untextured forms on the same geometry; ``texture_sphere``
+  (``texture_test`` pulled back, a 512 x 256 image) and ``normal_map+nm``
+  (the normal-map quad, flag ``+nm``: normal maps on); ``flat_atrium`` and
+  ``flat_atrium_untextured`` (``_flat_atrium``: the same paths with and
+  without texture taps), with and without NEE;
 * the standalone brute-force kernel on 2,073,600 seeded rays x 256
   triangles (kernel ``brute``), and on the first 256, 512 and all 600
   triangles of a 600-triangle table (three staged chunks): what staging a
@@ -104,7 +116,14 @@ def _cells():
         yield "spheres", name, 5
     for name in ("random_balls", "room", "balls"):
         yield "megakernel", name, 0
-    for name in ("room2_scene+nee", "room+nee"):
+    for name in ("room2_scene+nee", "room+nee", "sunlit_balls+bvh",
+                 "sunlit_balls+bvh+nee"):
+        yield "megakernel", name, 5
+    for name in ("sponza", "sponza+nee", "bugatti", "bugatti+nee",
+                 "textured_atrium", "textured_atrium+nee", "texture_sphere",
+                 "normal_map", "normal_map+nm", "flat_atrium",
+                 "flat_atrium_untextured", "flat_atrium+nee",
+                 "flat_atrium_untextured+nee"):
         yield "megakernel", name, 5
     yield "spheres", "balls", 0
 
@@ -123,28 +142,74 @@ _SCENES = {
     "groups4": lambda sc: sc.groups_scene(4),
     "groups5": lambda sc: sc.groups_scene(5),
 }
+# scenes that take the tree's asset manager (textures made in memory)
+_TEX_SCENES = {
+    "textured_atrium": lambda sc, a: sc.textured_atrium_scene(a),
+    "texture_sphere": lambda sc, a: sc.texture_sphere_scene(a),
+    "normal_map": lambda sc, a: sc.normal_map_scene(a),
+    "flat_atrium": lambda sc, a: _flat_atrium(sc, a, textured=True),
+    "flat_atrium_untextured": lambda sc, a: _flat_atrium(sc, a,
+                                                         textured=False),
+}
+#: the flat atrium's colour, a byte: 179 / 255 = 0.702 (sponza's parts 0.7)
+FLAT = 179
+
+
+def _flat_atrium(sc, assets, textured: bool):
+    """``textured_atrium_scene``'s parts, lights and camera with one colour,
+    ``FLAT`` / 255, in every part: through textures of 1024 x 1024 texels
+    of that colour (an atlas as large as ``textured_atrium``'s, read at the
+    same addresses) or, untextured, as the material's colour. A constant
+    image samples to that colour within an ulp, so the two trace the same
+    paths to within a few segments: what they differ by is the taps' cost."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    c = float(np.float32(FLAT) / np.float32(255.0))
+    img = np.full((1024, 1024, 4), c, np.float32)
+    img[..., 3] = 1.0
+    definition = sc.textured_atrium_scene(AssetManager(), size=1)
+    for e in definition.entities:
+        m = e.material
+        if m.diffuse_texture is None:
+            continue
+        if textured:
+            assets.add_texture(m.diffuse_texture, img)
+        e.material = dataclasses.replace(
+            m, color=(c, c, c, 1.0),
+            **({} if textured else dict(diffuse_texture=None)))
+    return definition
 
 
 def _build_scene(name: str):
     """The cell's scene on the card and its render options. Raises
-    ``TypeError``/``AttributeError``/``NotImplementedError`` where the
-    imported tree lacks the scene or the option."""
+    ``TypeError``/``AttributeError``/``ImportError``/``NotImplementedError``
+    where the imported tree lacks the scene or the option."""
     from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables
     from ray_tracer_2_tpu_torch.scene import scenes
     from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
     base, *flags = name.split("+")
     base, _, doubled = base.partition("-")
-    definition = _SCENES[base](scenes) if base in _SCENES \
-        else getattr(scenes, base)()
+    kw = dict(sphere_bvh=True) if "bvh" in flags else {}
+    if base in _TEX_SCENES:
+        from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+        kw["assets"] = AssetManager()
+        definition = _TEX_SCENES[base](scenes, kw["assets"])
+    else:
+        definition = _SCENES[base](scenes) if base in _SCENES \
+            else getattr(scenes, base)()
     if doubled:
         definition = _doubled_groups(definition)
-    kw = dict(sphere_bvh=True) if "bvh" in flags else {}
     scene = instantiate_scene(definition, **kw).to("cuda")
     if "global" in flags and kernel_tables(scene, budget=0)["staged"]:
         raise NotImplementedError("tables are always staged")
     over = dict(antialias=True) if "aa" in flags else {}
     if "nee" in flags:
         over["nee"] = True
+    if "nm" in flags:
+        over["normal_maps"] = True
     return scene, over
 
 
@@ -243,7 +308,7 @@ def _worker(tree: str, label: str, reps: int, only: str) -> None:
             scene, over = built[sname]
             kw = dict(kw0, **over)
             k(scene, 0, bounces=b, **kw)
-        except (TypeError, AttributeError, KeyError,
+        except (TypeError, AttributeError, KeyError, ImportError,
                 NotImplementedError) as e:
             emit(phase="skipped", kernel=kname, scene=sname, bounces=b,
                  reason=f"{type(e).__name__}: {e}"[:200])

@@ -101,12 +101,35 @@ def closest_sphere(origin, direction, centre, radius, k, elems: int):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+#: the reference's pi (``jnp.float32(3.1415926)``, not M_PI) and the
+#: float32 reciprocals its divisions by 2 pi and pi compile to (XLA turns a
+#: division by a constant into a multiply by the constant's reciprocal)
+PI = float(np.float32(3.1415926))
+INV_TWO_PI = float(np.float32(1.0) / (np.float32(2.0) * np.float32(PI)))
+INV_PI = float(np.float32(1.0) / np.float32(PI))
+
+
 def sphere_normal(hit_point, centre, is_inside):
-    """Outward (or flipped-inside) unit normal (ray_tracer.wgsl:246-251;
-    the spherical UV waits for the texture slice)."""
+    """Outward (or flipped-inside) unit normal (ray_tracer.wgsl:246-251)."""
     n = hit_point - centre
     n = n / torch.sqrt(dot(n, n, keepdim=True))
     return torch.where(is_inside[..., None], -n, n)
+
+
+def sphere_uv(n):
+    """Spherical UV of a sphere hit from its (flipped-inside) unit normal
+    (ray_tracer.wgsl:246-251; reference ``sphere_normal_uv``):
+    ``(atan2(-z, -x) + pi) / 2 pi`` and ``acos(clip(-y, -1, 1)) / pi``."""
+    theta = torch.arccos(torch.clamp(-n[..., 1], -1.0, 1.0))
+    phi = torch.atan2(-n[..., 2], -n[..., 0]) + PI
+    return torch.stack([phi * INV_TWO_PI, theta * INV_PI], dim=-1)
+
+
+def sphere_normal_uv(hit_point, centre, is_inside):
+    """``sphere_normal`` and its ``sphere_uv`` (reference
+    ``sphere_normal_uv``)."""
+    n = sphere_normal(hit_point, centre, is_inside)
+    return n, sphere_uv(n)
 
 
 def ray_triangle(origin, direction, v0, v1, v2, cull_backface):

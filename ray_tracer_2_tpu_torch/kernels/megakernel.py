@@ -8,7 +8,11 @@ material-id deltas included), each traversed in its wide BVH, or, at
 segment prepass (``kernels/brute.py``); spheres, tested densely (up to
 ``MAX_SPHERES``; from ``SPHERE_FAST_MIN`` with the shared-term formula) or,
 where the scene carries a sphere BVH, traversed in it; diffuse, specular,
-emissive and glass materials. A segment is the reference's: the dense
+emissive and glass materials, textured ones (the reference's XLA boundary,
+resolve_and_shade :796-884: the diffuse colour sampled from the texel atlas
+at the hit's UV, a mesh's interpolated or a sphere's spherical one) and,
+with ``normal_maps``, normal maps on mesh hits (the sampled normal rotated
+out of the triangle's tangent frame). A segment is the reference's: the dense
 sphere prepass, each brute-force group in instance order, then each
 wide-BVH instance with its pruning limit seeded from the best world
 distance so far, every merge on a strict ``<`` of the world distance; then,
@@ -32,7 +36,9 @@ tensors live on, never by a switch:
   (``csrc/megakernel.cu``, its brute-force loop in ``csrc/brute.cuh``):
   persistent blocks whose lanes trace one segment per turn and refill from
   a per-launch pixel cursor (``csrc/claim.cuh``). It serves CUDA tensors;
-  there is no fallback to the plain version.
+  there is no fallback to the plain version. A scene that samples a
+  texture (a textured material, or normal maps asked for on a scene that
+  has them) runs the kernel's textured forms.
 
 Both count the traversal's work: interior wide-row visits, leaf visits and
 child boxes tested (``COUNTS``; on the card the two versions' counts are
@@ -72,8 +78,9 @@ from ray_tracer_2_tpu_torch.kernels.cuda_build import (
 )
 from ray_tracer_2_tpu_torch.kernels.intersect import (
     EPS_DET, EPS_SPHERE, EPSILON, INF, SPHERE_FAST_MIN, closest_sphere,
-    sphere_k, sphere_normal,
+    sphere_k, sphere_normal, sphere_uv,
 )
+from ray_tracer_2_tpu_torch.kernels.texture import sample_bilinear_quads
 from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
     gather_material, reflectance
 from ray_tracer_2_tpu_torch.math.vec import cross, dot, lerp, normalize, \
@@ -186,8 +193,6 @@ def smem_bytes(scene: TorchScene) -> int:
 def ineligibility(scene: TorchScene) -> str | None:
     """Why ``scene`` lies outside the ported megakernel, naming the ROADMAP
     item that lifts it where there is one; None if it is inside."""
-    if "texture" in scene.shade_classes:
-        return "textured materials (ROADMAP Queue 1 item 3)"
     if dense_spheres(scene) > MAX_SPHERES:
         return (f"{scene.n_spheres} dense spheres: from {SPHERE_BVH_MIN} a "
                 "scene is instantiated with the sphere BVH")
@@ -195,6 +200,14 @@ def ineligibility(scene: TorchScene) -> str | None:
             and scene.wide_depth + 2 > MAX_STACK:
         return f"wide BVHs deeper than {MAX_STACK - 2} levels"
     return None
+
+
+def samples_textures(scene: TorchScene, normal_maps: bool = False) -> bool:
+    """Whether shading ``scene`` samples the texel atlas: a textured
+    material, or normal maps asked for on a scene whose materials have
+    them (the kernel then runs its textured forms)."""
+    return "texture" in scene.shade_classes \
+        or (normal_maps and "normal_map" in scene.shade_classes)
 
 
 def nee_mode(scene: TorchScene, nee: bool, segments: bool = False) -> int:
@@ -252,17 +265,19 @@ def render_persistent(scene: TorchScene, frames: int, *, width: int,
                       height: int, bounces: int, rays_per_pixel: int,
                       skybox: bool, antialias: bool = False,
                       row_start: int = 0, rows: int | None = None,
-                      nee: bool = False, nee_segments: bool = False):
+                      nee: bool = False, nee_segments: bool = False,
+                      normal_maps: bool = False):
     """Render ``rows`` image rows from ``row_start`` (``width``/``height``
     describe the full image). Returns ``((rows, width, 4) float32 image,
     int64 0-d segment count)`` on the scene's device. CPU scenes take the
     plain version; CUDA scenes take the kernel. ``nee``: next-event
     estimation at diffuse vertices (``nee_mode``; ``nee_segments`` forces
-    shadow segments, for tests)."""
+    shadow segments, for tests). ``normal_maps``: the normal maps of the
+    scene's materials perturb the shading normal of mesh hits."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox,
               antialias=antialias, row_start=row_start, rows=rows, nee=nee,
-              nee_segments=nee_segments)
+              nee_segments=nee_segments, normal_maps=normal_maps)
     if scene.device.type == "cpu":
         return render_plain(scene, frames, **kw)
     if scene.device.type == "cuda":
@@ -279,7 +294,7 @@ class _Tables:
     one stays a true division on CUDA)."""
 
     def __init__(self, scene: TorchScene, width: int, height: int,
-                 nee: int = 0):
+                 nee: int = 0, normal_maps: bool = False):
         dev = scene.device
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         self.scene = scene
@@ -289,6 +304,10 @@ class _Tables:
         self.bvh = bvh_instances(scene)
         self.brute = brute_instances(scene)
         self.glass = "glass" in scene.shade_classes
+        # textured diffuse colour, normal maps: what the scene's classes
+        # and the caller compile in (reference resolve_and_shade :796-811)
+        self.tex = "texture" in scene.shade_classes
+        self.nmap = normal_maps and "normal_map" in scene.shade_classes
         self.depth = scene.wide_depth + 2
         self.w1 = f32(float(max(width - 1, 1)))
         self.h1 = f32(float(max(height - 1, 1)))
@@ -306,6 +325,9 @@ class _Tables:
         self.leaves = 0
         self.boxes = torch.zeros((), dtype=torch.int64, device=dev)
         self.shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
+        # texel quads fetched: one per textured diffuse colour and one per
+        # normal map a hit takes
+        self.taps = torch.zeros((), dtype=torch.int64, device=dev)
 
 
 def _affine(m, v, translate: bool):
@@ -545,7 +567,10 @@ def _intersect(t: _Tables, o, d):
     at the best world distance; there a sphere takes an equal distance, as
     it would have when tested first. Returns (kind: -1 miss / -2 sphere /
     >= 0 triangle id, world distance, point, normal, backface, material
-    id)."""
+    id, surface): with textures or normal maps (``t.tex``, ``t.nmap``) the
+    surface holds the hit's UV (a mesh's interpolated, a sphere's from its
+    normal) and, for normal maps, a mesh hit's tangent through its
+    instance's transform, normalised, and handedness; else None."""
     n, scene, dev = o.shape[0], t.scene, t.dev
     kind = torch.full((n,), -1, dtype=torch.int64, device=dev)
     seg_dst = torch.full((n,), INF, dtype=torch.float32, device=dev)
@@ -629,6 +654,8 @@ def _intersect(t: _Tables, o, d):
         sphere_hit(won, best, sid, inside)
 
     mesh = kind >= 0
+    surf = dict(uv=torch.zeros((n, 2), dtype=torch.float32, device=dev)) \
+        if t.tex or t.nmap else None
     if scene.n_instances:
         attr = scene.tri_attr[torch.clamp(kind, min=0) >> 2] \
             .view(n, 4, 32)[torch.arange(n, device=dev), kind & 3]
@@ -640,8 +667,19 @@ def _intersect(t: _Tables, o, d):
             torch.clamp(flag, 0, scene.n_instances - 1)]
         normal = torch.where(mesh[:, None],
                              normalize(_affine_rows(m2w, nm, False)), normal)
+        if surf is not None:
+            surf["uv"] = (attr[:, 9:11] * wb[:, None]
+                          + attr[:, 11:13] * u[:, None]) \
+                + attr[:, 13:15] * v[:, None]
+        if t.nmap:
+            surf["tangent"] = normalize(_affine_rows(m2w, attr[:, 15:18],
+                                                     False))
+            surf["hand"] = attr[:, 18]
+    if surf is not None:
+        surf["uv"] = torch.where((kind == -2)[:, None], sphere_uv(normal),
+                                 surf["uv"])
     backface = torch.where(kind == -2, flag > 0, det < 0.0)
-    return kind, seg_dst, point, normal, backface, smat
+    return kind, seg_dst, point, normal, backface, smat, surf
 
 
 def _glass(m, d, trans, seed, dst, point, normal, backface):
@@ -735,14 +773,50 @@ def _nee_sample(t: _Tables, seed, point, normal, trans, color):
             ~is_sph | sph_valid, takes)
 
 
+def _normal_mapped(t: _Tables, m, kind, normal, surf):
+    """The normal a normal map gives a mesh hit (reference resolve_and_shade
+    :805-824): the map sampled at the hit's UV, decoded as 2 n - 1, and
+    rotated out of the tangent frame — the instance's tangent made
+    orthogonal to the normal, the bitangent ``cross(normal, tangent)`` times
+    the handedness. Other hits, and materials without a map, keep
+    ``normal``."""
+    texel = sample_bilinear_quads(t.scene.tex_quads, t.scene.tex_meta,
+                                  m["normal_index"].to(torch.int64),
+                                  surf["uv"])
+    nt = texel[:, :3] * 2.0 - 1.0
+    t_w = surf["tangent"]
+    t_w = normalize(t_w - normal * dot(t_w, normal, keepdim=True))
+    b_w = cross(normal, t_w) * surf["hand"][:, None]
+    n_pert = normalize((t_w * nt[:, 0:1] + b_w * nt[:, 1:2])
+                       + normal * nt[:, 2:3])
+    has = (kind >= 0) & (m["normal_index"] != -1.0)
+    t.taps += has.sum()
+    return torch.where(has[:, None], n_pert, normal)
+
+
+def _albedo(t: _Tables, m, hit, surf):
+    """The diffuse colour: the texture's sample at the hit's UV where the
+    material is textured (flag TEXTURE and a diffuse slot; reference
+    resolve_and_shade :869-884), else the material's colour."""
+    textured = (m["flag"] == float(MaterialFlag.TEXTURE)) \
+        & (m["diffuse_index"] != -1.0)
+    t.taps += (textured & hit).sum()
+    tex = sample_bilinear_quads(t.scene.tex_quads, t.scene.tex_meta,
+                                m["diffuse_index"].to(torch.int64),
+                                surf["uv"])
+    return torch.where(textured[:, None], tex, m["color"])
+
+
 def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
-           backface, smat, skybox: bool, sup=None, sample: bool = False):
+           backface, smat, surf, skybox: bool, sup=None,
+           sample: bool = False):
     """resolve_and_shade (megakernel.py:739; ray_tracer.wgsl:398-471): sky
-    on a miss, the glass or the diffuse/specular branch, emission, Russian
-    roulette. Returns the next (o, d, trans, incoming, seed, continues) —
-    misses keep their ray — and, with next-event estimation (``t.nee``),
-    which lanes sampled a light (their next hit adds no emission) and which
-    of them traced a shadow ray; otherwise two Nones.
+    on a miss, the normal map, the glass or the diffuse/specular branch with
+    the textured colour, emission, Russian roulette. Returns the next (o, d,
+    trans, incoming, seed, continues) — misses keep their ray — and, with
+    next-event estimation (``t.nee``), which lanes sampled a light (their
+    next hit adds no emission) and which of them traced a shadow ray;
+    otherwise two Nones.
 
     Next-event estimation: ``sup`` marks the lanes whose last vertex
     sampled a light, whose emission is not added again here; ``sample``
@@ -756,6 +830,9 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
     if skybox:
         inc = torch.where(hit[:, None], inc, inc + trans * environment_light(d))
     m = gather_material(t.scene.mat_rows, smat)
+    if t.nmap:
+        normal = _normal_mapped(t, m, kind, normal, surf)
+    color = _albedo(t, m, hit, surf) if t.tex else m["color"]
     r_spec, seed_n = rng.rand(seed)
     is_spec = m["specular"] >= r_spec
     diffuse, seed_n = rng.rand_hemisphere(normal, seed_n)
@@ -766,13 +843,13 @@ def _shade(t: _Tables, o, d, trans, inc, seed, kind, dst, point, normal,
         emitted = torch.where(sup[:, None], 0.0, emitted)
     inc_n = inc + emitted * trans
     trans_n = trans * torch.where(is_spec[:, None], m["specular_color"],
-                                  m["color"])
+                                  color)
     point_n = point
     is_glass = m["flag"] == float(MaterialFlag.GLASS) if t.glass else None
     sampled = shadow = None
     if t.nee:
         seed_n, d_s, t_l, contrib, may, takes = _nee_sample(
-            t, seed_n, point, normal, trans, m["color"])
+            t, seed_n, point, normal, trans, color)
         sampled = hit & ~is_spec & may
         if t.glass:
             sampled = sampled & ~is_glass
@@ -844,16 +921,20 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
                  bounces: int, rays_per_pixel: int, skybox: bool,
                  antialias: bool = False, row_start: int = 0,
                  rows: int | None = None, nee: bool = False,
-                 nee_segments: bool = False, counts: dict | None = None):
+                 nee_segments: bool = False, normal_maps: bool = False,
+                 counts: dict | None = None):
     """The plain PyTorch version of ``render_persistent`` (any device).
     Given a dict ``counts``, fills in the traversal's work as the kernel
     counts it (``rows``, ``leaves``, ``boxes``: ints; with next-event
-    estimation also ``shadow_rays``) and the segments of each pixel
-    (``pixel_segments``: (rows, width) int64)."""
+    estimation also ``shadow_rays``; with textures or normal maps
+    ``texture_taps``, the texel quads fetched, which the kernel does not
+    count) and the segments of each pixel (``pixel_segments``: (rows,
+    width) int64)."""
     _require_eligible(scene)
     rows = height if rows is None else rows
     rpp = max(int(rays_per_pixel), 1)
-    t = _Tables(scene, width, height, nee_mode(scene, nee, nee_segments))
+    t = _Tables(scene, width, height, nee_mode(scene, nee, nee_segments),
+                normal_maps)
     total = rows * width
     out = torch.empty((total, 4), dtype=torch.float32, device=t.dev)
     pixel_segs = torch.empty(total, dtype=torch.int64, device=t.dev)
@@ -870,6 +951,8 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
                       pixel_segments=pixel_segs.reshape(rows, width))
         if t.nee:
             counts["shadow_rays"] = int(t.shadow_rays)
+        if t.tex or t.nmap:
+            counts["texture_taps"] = int(t.taps)
     return out.reshape(rows, width, 4), pixel_segs.sum()
 
 
@@ -894,11 +977,16 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
       ``budget`` (``SMEM_BYTES`` unless given: a measurement gives 0 on a
       scene's first call here to time the other form) and are staged in
       shared memory per block; if not, the kernel reads them from global
-      memory;
+      memory. Never for a scene with textures or normal maps: the textured
+      forms read their tables from global memory, and so do the other
+      forms on such a scene;
     * ``general``: unless the scene is one instance traversed in its wide
       BVH with fewer than ``SPHERE_FAST_MIN`` dense spheres, staged;
     * ``glass``: whether the glass branch is compiled in; off only for such
-      a scene, or a general one with modes 0 and ``staged``, without glass."""
+      a scene, or a general one with modes 0 and ``staged``, without glass.
+
+    The textured forms read the atlas from ``TorchScene.tex_quads``, one
+    texel a row of 4 int32 words: a bilinear quad in one 16-byte load."""
     cached = scene.derived.get("megakernel_tables")
     if cached is not None:
         return cached
@@ -919,7 +1007,9 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
                          "integers")
     mode = 2 if scene.sphere_bvh_root >= 0 \
         else int(scene.n_spheres >= SPHERE_FAST_MIN)
-    staged = smem_bytes(scene) <= (SMEM_BYTES if budget is None else budget)
+    maps = bool({"texture", "normal_map"} & set(scene.shade_classes))
+    staged = not maps and smem_bytes(scene) <= (
+        SMEM_BYTES if budget is None else budget)
     lean = mode == 0 and staged
     spheres = torch.cat([
         scene.sphere_pos,
@@ -949,9 +1039,11 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
 class CudaMegakernel(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/megakernel.cu`` at first
     use, checks every tensor it hands over, launches on the current stream
-    and counts its launches in ``launches``, those of the next-event
-    estimation forms (entry point ``rt2_render_persistent_nee``) also in
-    ``nee_launches``. The kernel itself counts its work on the device
+    and counts its launches in ``launches``, those with next-event
+    estimation also in ``nee_launches`` (entry point
+    ``rt2_render_persistent_nee``, or the textured one) and those of the
+    textured forms (entry point ``rt2_render_persistent_tex``) also in
+    ``tex_launches``. The kernel itself counts its work on the device
     (``COUNTS``, read with ``read_counts``; the brute-force prepass's with
     ``prepass_counts``)."""
 
@@ -963,24 +1055,36 @@ class CudaMegakernel(CudaKernel):
                     + [ctypes.c_uint32] + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
                     + [ctypes.c_void_p] * 4)
+    tex_symbol = "rt2_render_persistent_tex"
+    tex_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+                    + [ctypes.c_uint32] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int] + [ctypes.c_void_p] * 4)
     counts = COUNTS
 
     def __init__(self, source: Path = PKG / "csrc" / "megakernel.cu"):
         super().__init__(source)
         self.nee_launches = 0
-        self._nee_fn = None
+        self.tex_launches = 0
+        self._nee_fn = self._tex_fn = None
 
     def _load(self):
         fn = super()._load()
         lib = load_library(self.source, self.build_dir)[0]
-        self._nee_fn = getattr(lib, self.nee_symbol)
-        self._nee_fn.restype = ctypes.c_int
-        self._nee_fn.argtypes = list(self.nee_argtypes)
+        for attr, symbol, argtypes in (
+                ("_nee_fn", self.nee_symbol, self.nee_argtypes),
+                ("_tex_fn", self.tex_symbol, self.tex_argtypes)):
+            entry = getattr(lib, symbol)
+            entry.restype = ctypes.c_int
+            entry.argtypes = list(argtypes)
+            setattr(self, attr, entry)
         return fn
 
     def reset_counts(self) -> None:
         super().reset_counts()
         self.nee_launches = 0
+        self.tex_launches = 0
 
     def prepass_counts(self) -> tuple[int, int]:
         """What the kernel counted of its brute-force prepass since the last
@@ -995,7 +1099,7 @@ class CudaMegakernel(CudaKernel):
                  height: int, bounces: int, rays_per_pixel: int,
                  skybox: bool, antialias: bool = False, row_start: int = 0,
                  rows: int | None = None, nee: bool = False,
-                 nee_segments: bool = False):
+                 nee_segments: bool = False, normal_maps: bool = False):
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
@@ -1029,6 +1133,18 @@ class CudaMegakernel(CudaKernel):
             check_launch(dev, width=width, height=height, row_start=row_start,
                          rows=rows, lights=(lt["rows"], LIGHT_COLS),
                          cdf=(lt["cdf"], None))
+        tex = samples_textures(scene, normal_maps)
+        if tex:
+            texels = scene.tex_quads
+            check_launch(dev, width=width, height=height, row_start=row_start,
+                         rows=rows, tex_meta=(scene.tex_meta, 4))
+            if texels.device != dev or texels.dtype != torch.int32 \
+                    or not texels.is_contiguous() or texels.dim() != 2 \
+                    or texels.shape[1] != 4 or scene.tex_meta.shape[0] != 64:
+                raise ValueError(f"texels: expected contiguous int32 (n, 4) "
+                                 f"on {dev}, got {texels.dtype} "
+                                 f"{tuple(texels.shape)} on {texels.device}")
+            check_aligned("texels", texels, 16)
         fn = self.build()
         out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
         scratch = launch_scratch(dev)
@@ -1043,7 +1159,17 @@ class CudaMegakernel(CudaKernel):
         tail = (out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
         form = (tab["spheres_mode"], int(tab["staged"]),
                 scene.sphere_bvh_root, frame_seed(frames))
-        if mode:
+        if tex:
+            light = (lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
+                     lt["rows"].shape[0], mode, lt["c_tri"], lt["c_area"]) \
+                if mode else (None, None, 0, 0, 0.0, 0.0)
+            err = launch_on(dev, self._tex_fn, *head, form[0], *form[2:],
+                            *light, texels.data_ptr(), texels.shape[0],
+                            scene.tex_meta.data_ptr(),
+                            int(normal_maps
+                                and "normal_map" in scene.shade_classes),
+                            *tail)
+        elif mode:
             err = launch_on(dev, self._nee_fn, *head, *form,
                             lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
                             lt["rows"].shape[0], mode, lt["c_tri"],
@@ -1055,6 +1181,7 @@ class CudaMegakernel(CudaKernel):
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         self.launches += 1
         self.nee_launches += bool(mode)
+        self.tex_launches += tex
         return out, scratch[0]
 
 

@@ -93,8 +93,9 @@ def eligible(scene: TorchScene) -> bool:
 def _require_eligible(scene: TorchScene) -> None:
     if not eligible(scene):
         raise NotImplementedError(
-            "not a small scene (spheres plus <= 64 untextured triangles); "
-            "textured small scenes wait for ROADMAP Queue 1 item 3")
+            "not a small scene (spheres plus <= 64 untextured triangles): "
+            "render it through the megakernel (render_persistent), which "
+            "takes textured scenes too, as in the reference")
 
 
 @dataclasses.dataclass(frozen=True)

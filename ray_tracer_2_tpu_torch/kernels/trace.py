@@ -67,5 +67,5 @@ def gather_material(mat_rows: torch.Tensor, mat_id: torch.Tensor) -> dict:
         specular_color=row[:, 8:12], absorption=row[:, 12:16],
         absorption_strength=row[:, 16], emission_strength=row[:, 17],
         smoothness=row[:, 18], specular=row[:, 19], ior=row[:, 20],
-        flag=row[:, 21],
+        flag=row[:, 21], diffuse_index=row[:, 22], normal_index=row[:, 23],
     )

@@ -2,9 +2,9 @@
 ref: src/scene/{scene,entity}.rs).
 
 ``SceneDefinition`` collects entities (spheres / meshes with transforms and
-materials) plus a camera. Meshes from data instantiate; a mesh named by
-its file waits for the assets slice. Instantiation into tensors lives in
-``render_scene.py``.
+materials) plus a camera. A mesh is given as data or named by its OBJ file,
+which the asset manager loads (``assets/manager.py``). Instantiation into
+tensors lives in ``render_scene.py``.
 """
 from __future__ import annotations
 
@@ -39,15 +39,25 @@ class MeshData:
                         np.asarray(uvs, np.float32).reshape(-1, 2),
                         np.asarray(indices, np.uint32))
 
+    @staticmethod
+    def quad() -> "MeshData":
+        """Unit XY quad with UVs (mesh.rs:23-31); callers index [0,1,2,0,2,3]."""
+        pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                       np.float32)
+        n = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+        uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+        return MeshData(pos, n, uv, np.arange(4, dtype=np.uint32))
+
     def triangle_count(self) -> int:
         return len(self.indices) // 3
 
 
 @dataclasses.dataclass
 class MeshFromFile:
-    """A mesh named by its OBJ file. The definition API takes it as the
-    reference's does; ``instantiate_scene`` refuses it until the assets
-    slice (ROADMAP Queue 1 item 2)."""
+    """A mesh named by its OBJ file, resolved through the asset manager's
+    search paths (or, for a file the repository lacks, its procedural
+    substitute: ``assets/procedural.py``); ``use_mtl`` takes each part's
+    material from the file's MTL."""
 
     path: str
     use_mtl: bool = False

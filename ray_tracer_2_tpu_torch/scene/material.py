@@ -67,6 +67,12 @@ class MaterialDefinition:
             ior=0.0,
         )
 
+    @staticmethod
+    def texture_from_obj() -> "MaterialDefinition":
+        # Reference quirk preserved (material.rs:61-67): flag GLASS — masked in
+        # practice because use_mtl meshes take materials from the .mtl file.
+        return MaterialDefinition(flag=MaterialFlag.GLASS)
+
     def with_color(self, color) -> "MaterialDefinition":
         return dataclasses.replace(self, color=tuple(color))
 
@@ -84,10 +90,17 @@ class MaterialDefinition:
     def smooth(self, smoothness: float) -> "MaterialDefinition":
         return dataclasses.replace(self, smoothness=smoothness)
 
-    def resolve(self) -> MaterialRecord:
-        """Resolve to a record (scene.rs:204-217). Texture slots stay -1:
-        textured materials wait for the texture slice (ROADMAP Queue 1
-        item 8), and ``instantiate_scene`` refuses them."""
+    def textured(self, path: str) -> "MaterialDefinition":
+        return dataclasses.replace(self, diffuse_texture=path)
+
+    def resolve(self, diffuse_index: int = -1,
+                normal_index: int = -1) -> MaterialRecord:
+        """Resolve to a record (scene.rs:204-217) with the atlas slots the
+        asset manager gave the textures (-1: none): a loaded diffuse texture
+        forces the TEXTURE flag."""
+        flag = int(self.flag)
+        if self.diffuse_texture is not None and diffuse_index >= 0:
+            flag = int(MaterialFlag.TEXTURE)
         return MaterialRecord(
             color=tuple(self.color),
             emission_color=tuple(self.emission_color),
@@ -98,5 +111,7 @@ class MaterialDefinition:
             smoothness=self.smoothness,
             specular=self.specular,
             ior=self.ior,
-            flag=int(self.flag),
+            flag=flag,
+            diffuse_index=diffuse_index,
+            normal_index=normal_index,
         )

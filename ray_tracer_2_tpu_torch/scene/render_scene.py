@@ -9,20 +9,22 @@ numpy builders (``accel/``: SAH BVH, 32-ary wide rows with f16 child boxes,
 quad-packed triangle attributes), so a port scene and a reference scene of
 the same definition are byte-identical (``tests/test_torch_scene.py``).
 
-Scope of the ported slices: mesh instance groups from data (several, one
-per transform, sharing tables as the reference does), spheres (dense, and
-from ``SPHERE_BVH_MIN`` of them or on request also as a world-space sphere
-BVH appended to the wide rows), the static light table of next-event
-estimation (``lights``), no texture atlas, no live edits (``HostScene``).
-Meshes from files and textured materials raise ``NotImplementedError``
-naming their ROADMAP item. The per-triangle model-space tables (``tri_v0``
-... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK`` zero rows at the end)
-are what the small-scene path bakes to world space
+Scope of the ported slices: mesh instance groups from data or from OBJ
+files (several, one per transform, sharing tables as the reference does;
+files resolved by the asset manager, ``assets/manager.py``, or built by its
+procedural substitutes), spheres (dense, and from ``SPHERE_BVH_MIN`` of
+them or on request also as a world-space sphere BVH appended to the wide
+rows), the static light table of next-event estimation (``lights``), the
+texel atlas of the textures the scene's materials name (``tex_quads``, the
+reference's ``tex_texels`` one texel a row; ``tex_meta``), no live edits (``HostScene``). The per-triangle model-space
+tables (``tri_v0`` ... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK``
+zero rows at the end) are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -34,8 +36,14 @@ from ray_tracer_2_tpu_torch.accel.packed import (
 from ray_tracer_2_tpu_torch.accel.wide import (
     SPH_CHUNK, pack_sphere_wide_rows, pack_wide_rows,
 )
+from ray_tracer_2_tpu_torch.assets.textures import (
+    TextureAtlas, downsample_images_to_budget, pack_texels_u8_quads,
+)
+from ray_tracer_2_tpu_torch.kernels.texture import (
+    quads_from_rows, rows_from_quads,
+)
 from ray_tracer_2_tpu_torch.scene.definition import (
-    MeshFromData, SceneDefinition, SphereDef,
+    MeshFromFile, SceneDefinition, SphereDef,
 )
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag, MaterialRecord
 
@@ -47,14 +55,17 @@ LEAF_CHUNK = ROW_TRIS
 #: SPHERE_BVH_MIN)
 SPHERE_BVH_MIN = 2048
 
-#: the tensor fields a TorchScene carries (all of them RenderScene fields)
+#: the RenderScene fields a TorchScene carries (``tex_texels`` in its
+#: ``tex_quads`` layout)
 FIELDS = ("sphere_pos", "sphere_radius", "sphere_mat",
           "inst_world_to_model", "inst_model_to_world",
           "wide_rows", "tri_attr", "mat_rows",
           "cam_to_world", "view_params", "defocus_strength",
           "diverge_strength",
           "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
-          "tri_mat")
+          "tri_mat", "tex_texels", "tex_meta")
+#: its tensor fields
+TENSORS = tuple("tex_quads" if f == "tex_texels" else f for f in FIELDS)
 #: the static (host) fields
 STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
            "inst_mat_deltas", "sphere_bvh_root", "lights")
@@ -86,6 +97,13 @@ class TorchScene:
     tri_n1: torch.Tensor
     tri_n2: torch.Tensor
     tri_mat: torch.Tensor              # (T + LEAF_CHUNK,) i32
+    #: the texel atlas, (32 ceil(X/32), 4) i32: a texel's u8 RGBA word and
+    #: its wrapped x, y and xy neighbours' side by side, the words of the
+    #: reference's quad rows (``tex_texels``; assets/textures.py
+    #: pack_texels_u8_quads); 64 one-texel black slots when no material is
+    #: textured
+    tex_quads: torch.Tensor
+    tex_meta: torch.Tensor             # (64, 4) f32: offset, h, w, 0 a slot
     #: per-instance (node_offset, tri_offset, tri_count)
     inst_spans: tuple = ()
     #: per-instance root row in ``wide_rows`` (-1 for brute-force groups)
@@ -124,6 +142,12 @@ class TorchScene:
     def device(self) -> torch.device:
         return self.wide_rows.device
 
+    @property
+    def tex_texels(self) -> torch.Tensor:
+        """The atlas as the reference's (ceil(X/32), 128) quad rows, its
+        float32 rows byte for byte (a copy)."""
+        return rows_from_quads(self.tex_quads)
+
     def to(self, device) -> "TorchScene":
         """The same scene with every tensor on ``device`` (``self`` when
         already there)."""
@@ -131,14 +155,20 @@ class TorchScene:
         if self.device == device:
             return self
         return dataclasses.replace(self, **{
-            f: getattr(self, f).to(device) for f in FIELDS})
+            f: getattr(self, f).to(device) for f in TENSORS})
 
     @staticmethod
     def from_numpy(fields: dict, statics: dict) -> "TorchScene":
         """Build CPU tensors from numpy arrays — e.g. the reference
         ``RenderScene``'s fields through ``np.asarray`` — and its static
         fields."""
-        tensors = {f: torch.tensor(np.array(fields[f])) for f in FIELDS}
+        arrays = {f: np.array(fields[f]) for f in FIELDS}
+        # the reference keeps the texel words bit-cast to float32: take the
+        # bytes as int32, never as floats
+        rows = arrays.pop("tex_texels")
+        arrays["tex_quads"] = quads_from_rows(
+            rows.view(np.int32) if rows.dtype == np.float32 else rows)
+        tensors = {f: torch.from_numpy(a) for f, a in arrays.items()}
         st = {k: statics[k] for k in STATICS}
         st["wide_depth"] = int(st["wide_depth"])
         st["inst_spans"] = tuple(tuple(int(v) for v in s)
@@ -266,6 +296,34 @@ def _concat_soup(parts):
     return tuple(np.concatenate(c, axis=0) for c in cols)
 
 
+def _tex_budget_mb() -> int:
+    """Texel-atlas size budget in MB (``RT2_TEX_BUDGET_MB``, default 0 =
+    off = full-resolution textures, the reference's in-kernel sampling,
+    ray_tracer.wgsl:455-459): when set, an oversized texture set is
+    downscaled at instantiation to fit (reference ``_tex_budget_mb``)."""
+    try:
+        return max(int(os.environ.get("RT2_TEX_BUDGET_MB", "0")), 0)
+    except ValueError:
+        return 0
+
+
+def texture_tables(assets) -> tuple[np.ndarray, np.ndarray]:
+    """The atlas of the textures ``assets`` holds (reference
+    render_scene.py:761-774): (quad rows as int32, (64, 4) float32 slot
+    table of offset, height, width, 0). A quad row stores 16 bytes a
+    texel, which ``RT2_TEX_BUDGET_MB`` divides."""
+    images = assets.texture_images()
+    budget_mb = _tex_budget_mb()
+    if budget_mb > 0:
+        images = downsample_images_to_budget(images,
+                                             budget_mb * (1 << 20) // 16)
+    atlas = TextureAtlas.from_images(images)
+    meta = np.stack([atlas.offsets, atlas.heights, atlas.widths,
+                     np.zeros_like(atlas.offsets)], axis=1).astype(np.float32)
+    return pack_texels_u8_quads(atlas.texels, atlas.offsets, atlas.heights,
+                                atlas.widths), meta
+
+
 def sphere_bvh_engaged(n_spheres: int, sphere_bvh: bool | None) -> bool:
     """Whether a scene of ``n_spheres`` gets a sphere BVH (reference
     ``_sphere_bvh_engaged``, which reads the choice from the environment):
@@ -277,33 +335,46 @@ def sphere_bvh_engaged(n_spheres: int, sphere_bvh: bool | None) -> bool:
     return bool(sphere_bvh) and n_spheres > SPH_CHUNK
 
 
-def instantiate_scene(definition: SceneDefinition,
+def instantiate_scene(definition: SceneDefinition, assets=None,
                       sphere_bvh: bool | None = None) -> TorchScene:
-    """Entities -> BVH -> tensors on the CPU (ref: Scene::instantiate_scene,
-    scene.rs:179-271; reference ``instantiate_scene``). ``sphere_bvh``
-    forces the sphere BVH on or off (``sphere_bvh_engaged``). Move the
-    result to the card with ``.to("cuda")``."""
+    """Entities -> assets -> BVH -> tensors on the CPU (ref:
+    Scene::instantiate_scene, scene.rs:179-271; reference
+    ``instantiate_scene``). ``assets`` (an ``AssetManager``; a new one if
+    None) resolves the materials' textures and the meshes named by file,
+    and its textures make the atlas. ``sphere_bvh`` forces the sphere BVH
+    on or off (``sphere_bvh_engaged``). Move the result to the card with
+    ``.to("cuda")``."""
+    if assets is None:
+        from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+        assets = AssetManager()
     records: list[MaterialRecord] = []
     spheres = []
     groups: dict[bytes, dict] = {}
+
+    def mat_id(rec: MaterialRecord) -> int:
+        records.append(rec)
+        return len(records) - 1
+
     for e in definition.entities:
-        if e.material.diffuse_texture is not None \
-                or e.material.normal_texture is not None:
-            raise NotImplementedError(
-                "textured materials wait for the texture slice "
-                "(ROADMAP Queue 1 item 3)")
-        records.append(e.material.resolve())
-        mid = len(records) - 1
+        mat = e.material
+        diffuse = -1 if mat.diffuse_texture is None \
+            else assets.load_texture(mat.diffuse_texture)
+        normal = -1 if mat.normal_texture is None \
+            else assets.load_texture(mat.normal_texture)
+        resolved = mat.resolve(diffuse_index=diffuse, normal_index=normal)
         if isinstance(e.primitive, SphereDef):
-            spheres.append((e.primitive.centre, e.primitive.radius, mid))
+            spheres.append((e.primitive.centre, e.primitive.radius,
+                            mat_id(resolved)))
             continue
-        if not isinstance(e.primitive, MeshFromData):
-            raise NotImplementedError(
-                "meshes from files wait for the assets slice "
-                "(ROADMAP Queue 1 item 2)")
+        if isinstance(e.primitive, MeshFromFile):
+            parts = [(mesh, mat_id(rec)) for mesh, rec, _ in
+                     assets.load_model(e.primitive.path, e.primitive.use_mtl,
+                                       override=resolved)]
+        else:
+            parts = [(e.primitive.resolved(), mat_id(resolved))]
         m = e.transform.to_matrix()
         g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": []})
-        g["parts"].append((e.primitive.resolved(), mid))
+        g["parts"].extend(parts)
 
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
@@ -403,6 +474,7 @@ def instantiate_scene(definition: SceneDefinition,
         wide_depth = max(wide_depth, wd)
     wide = np.concatenate(wide_groups, axis=0) if wide_groups \
         else np.zeros((0, 128), np.float32)
+    tex_texels, tex_meta = texture_tables(assets)
     cam = definition.camera.to_uniform()
     mat44 = lambda ms: (np.stack(ms) if ms
                         else np.zeros((0, 4, 4), np.float32))
@@ -416,7 +488,8 @@ def instantiate_scene(definition: SceneDefinition,
         defocus_strength=np.float32(cam.defocus_strength),
         diverge_strength=np.float32(cam.diverge_strength),
         **{f"tri_{k}": t[k] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
-                                      "mat")})
+                                      "mat")},
+        tex_texels=tex_texels, tex_meta=tex_meta)
     statics = dict(inst_spans=tuple(spans), wide_roots=tuple(roots),
                    wide_depth=wide_depth,
                    shade_classes=_shade_classes(records),

@@ -1,4 +1,17 @@
-"""Asset-free scenes.
+"""Built-in scenes (port of ``ray_tracer_2_tpu/scene/scenes.py``) and the
+port's asset-free stand-ins.
+
+The reference's scene table is here definition for definition: ``balls``,
+``random_balls``, ``room``, ``room_2``, ``metal``, ``sponza``,
+``cornell_box``, ``texture_test``, ``obj_test`` and ``bugatti``, with
+``SceneName`` and ``build_scene_definition``. Those that name a file
+resolve it through the asset manager (``assets/manager.py``) when it is
+instantiated: ``sponza.obj`` and ``f1/f1.obj`` fall back to the procedural
+substitutes (``assets/procedural.py``), so ``sponza`` and ``bugatti``
+render without a file; ``room_2`` (``Dragon_80K.obj``, built from
+``dragon.obj``), ``cornell_box``, ``texture_test`` (``earthmap.png``) and
+``obj_test`` raise ``AssetNotFound`` until their files are in a search
+directory, as in the reference.
 
 The main path's two scenes are the lat/lon triangle soup of the reference's
 ``__graft_entry__._wide_bvh_scene``: a unit UV sphere cut into
@@ -21,14 +34,48 @@ shared-memory budget) are stand-ins for tests and measurement.
 """
 from __future__ import annotations
 
+import dataclasses
+import enum
+import math
+
 import numpy as np
 
-from ray_tracer_2_tpu_torch.math.transform import Transform, quat_rotate_y
+from ray_tracer_2_tpu_torch.math.transform import (
+    Transform, quat_rotate_x, quat_rotate_y,
+)
 from ray_tracer_2_tpu_torch.scene.camera import CameraDescriptor
 from ray_tracer_2_tpu_torch.scene.definition import (
-    MeshData, MeshFromData, SceneDefinition,
+    MeshData, MeshFromData, MeshFromFile, SceneDefinition,
 )
-from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition, \
+    MaterialFlag
+
+
+class SceneName(enum.Enum):
+    """scene.rs:34-68."""
+
+    BALLS = "Balls"
+    RANDOM_BALLS = "RandomBalls"
+    ROOM = "Room"
+    ROOM2 = "Room2"
+    METAL = "Metal"
+    SPONZA = "Sponza"
+    CORNELL_BOX = "CornellBox"
+    EMPTY = "Empty"
+
+    def next(self) -> "SceneName":
+        cycle = [SceneName.BALLS, SceneName.RANDOM_BALLS, SceneName.ROOM,
+                 SceneName.ROOM2, SceneName.METAL, SceneName.SPONZA,
+                 SceneName.CORNELL_BOX]
+        if self not in cycle:
+            return self
+        return cycle[(cycle.index(self) + 1) % len(cycle)]
+
+    @classmethod
+    def all(cls) -> list["SceneName"]:
+        """The 7 selectable scenes (scene.rs:59-67)."""
+        return [cls.BALLS, cls.RANDOM_BALLS, cls.ROOM, cls.ROOM2, cls.METAL,
+                cls.SPONZA, cls.CORNELL_BOX]
 
 
 def _quad_mesh(verts, normal, indices) -> MeshFromData:
@@ -149,6 +196,14 @@ def room() -> SceneDefinition:
     return s
 
 
+def room_2() -> SceneDefinition:
+    """scene.rs:574-757 ("infinite room": two dragons, DoF, warm area light),
+    the reference's definition: both dragons are ``Dragon_80K.obj`` (see
+    ``room2_scene`` for the asset-free stand-in)."""
+    return _room2(MeshFromFile("Dragon_80K.obj", use_mtl=False),
+                  MeshFromFile("Dragon_80K.obj", use_mtl=False))
+
+
 def metal() -> SceneDefinition:
     """scene.rs:758-801: ground, diffuse, glass and metal spheres."""
     s = SceneDefinition()
@@ -207,15 +262,10 @@ before its back wall at z = -2; the second, unscaled one floats above the
 ceiling. Chosen, not taken from the dragon."""
 
 
-def room2_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
-    """The reference's benchmark scene ``room_2``
-    (``ray_tracer_2_tpu/scene/scenes.py:156-208``; scene.rs:574-757):
-    camera with depth of field, materials, transforms, eight quads (one
-    identity-transform group of 16 triangles, a 60-strength light among
-    them) and a glass sphere, word for word. The one change: both dragons
-    are one shared ``latlon_soup(lat, lon, ROOM2_RADIUS)`` (80,000
-    triangles at the default size), so the two instances share tables as
-    the reference's two loads of one OBJ do."""
+def _room2(first, second) -> SceneDefinition:
+    """room_2 (scene.rs:574-757) with ``first`` and ``second`` as its two
+    dragons: camera, dragon material and transforms, eight quads and the
+    glass sphere."""
     s = SceneDefinition()
     s.set_camera(CameraDescriptor(
         transform=Transform.cam([0.0, 1.28, 13.5], [0.0, 1.28, 12.5]),
@@ -225,11 +275,10 @@ def room2_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
     width, depth, height = 3.0, 2.0, 4.0
     dragon_mat = (new().with_color([0.96078, 0.11372, 0.4039, 1.0])
                   .smooth(0.8).specular_([1.0] * 4, 0.015))
-    dragon = MeshFromData(latlon_soup(lat, lon, ROOM2_RADIUS))
     s.add_mesh(Transform(pos=[0.0, 1.2, -0.6], rot=quat_rotate_y(-1.5708),
-                         scale=[4.7, 4.7, 4.7]), dragon, dragon_mat)
+                         scale=[4.7, 4.7, 4.7]), first, dragon_mat)
     s.add_mesh(Transform(pos=[0.0, 7.2, 2.0], rot=quat_rotate_y(-1.5708)),
-               dragon, dragon_mat)
+               second, dragon_mat)
     t = Transform()
     s.add_mesh(t, _quad_mesh([[-10, -0.01, -10], [10, -0.01, -10],
                               [10, -0.01, 10], [-10, -0.01, 10]],
@@ -269,6 +318,19 @@ def room2_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
     s.add_sphere([0.0, 1.0, 4.4], 1.15,
                  new().specular_([1.0] * 4, 0.517).smooth(1.0).glass(1.6))
     return s
+
+
+def room2_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
+    """The reference's benchmark scene ``room_2``
+    (``ray_tracer_2_tpu/scene/scenes.py:156-208``; scene.rs:574-757):
+    camera with depth of field, materials, transforms, eight quads (one
+    identity-transform group of 16 triangles, a 60-strength light among
+    them) and a glass sphere, word for word. The one change: both dragons
+    are one shared ``latlon_soup(lat, lon, ROOM2_RADIUS)`` (80,000
+    triangles at the default size), so the two instances share tables as
+    the reference's two loads of one OBJ do."""
+    dragon = MeshFromData(latlon_soup(lat, lon, ROOM2_RADIUS))
+    return _room2(dragon, dragon)
 
 
 def instances_scene() -> SceneDefinition:
@@ -340,4 +402,209 @@ def main_path_scene(lat: int = 200, lon: int = 200) -> SceneDefinition:
                .smooth(0.8).specular_([1.0] * 4, 0.015))
     s.add_sphere([0.0, -1000.0, 0.0], 1000.0,
                  MaterialDefinition.new().with_color([0.5, 0.5, 0.5, 1.0]))
+    return s
+
+
+def _sponza_lights(s: SceneDefinition) -> None:
+    """sponza's and bugatti's big quad light and emissive sphere
+    (scene.rs:864-910, 934-983)."""
+    s.add_mesh(Transform(pos=[-15.0, 60.0, 0.0], rot=quat_rotate_x(math.pi / 2),
+                         scale=[40.0, 20.0, 1.0]),
+               MeshFromData(MeshData.quad(),
+                            indices=np.array([0, 1, 2, 0, 2, 3], np.uint32)),
+               MaterialDefinition().emissive([1.0] * 4, 4.0))
+    s.add_sphere([5.0, 2.0, 0.0], 2.0, MaterialDefinition(
+        color=(1.0, 1.0, 1.0, 1.0), emission_color=(1.0, 1.0, 1.0, 1.0),
+        emission_strength=10.0, specular_color=(1.0, 1.0, 1.0, 1.0),
+        smoothness=0.0, specular=0.0))
+
+
+def sponza() -> SceneDefinition:
+    """scene.rs:864-910 (0.05 scale sponza + big quad light + emissive
+    sphere). Without ``sponza.obj`` the mesh is the procedural atrium:
+    41,424 triangles in 10 parts, one wide-BVH instance beside the light's
+    2-triangle brute-force group and one dense sphere."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 4.0, 0.0], [0.0, 4.0, 1.0])))
+    s.add_mesh(Transform(scale=[0.05, 0.05, 0.05]),
+               MeshFromFile("sponza.obj", use_mtl=True),
+               MaterialDefinition.texture_from_obj())
+    _sponza_lights(s)
+    return s
+
+
+def cornell_box() -> SceneDefinition:
+    """scene.rs:911-933 (needs ``CornellBox-Original.obj``)."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 1.0, 2.0], [0.0, 1.0, 0.0])))
+    s.add_mesh(Transform(), MeshFromFile("CornellBox-Original.obj",
+                                         use_mtl=True),
+               MaterialDefinition.texture_from_obj())
+    return s
+
+
+def texture_test() -> SceneDefinition:
+    """scene.rs:280-309 (earthmap-textured sphere; needs ``earthmap.png``).
+    Its camera sits on the sphere's surface, as the reference's does."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.0, -1.0], [0.0, 0.0, 0.0])))
+    s.add_sphere([0.0, 0.0, 0.0], 1.0, MaterialDefinition(
+        color=(1.0, 0.0, 0.0, 1.0), specular_color=(1.0, 1.0, 1.0, 1.0),
+        smoothness=0.0, specular=0.05, ior=1.0, flag=MaterialFlag.TEXTURE,
+        diffuse_texture="earthmap.png"))
+    return s
+
+
+def obj_test() -> SceneDefinition:
+    """scene.rs:310-364 (small dragon + quad + spheres; needs
+    ``dragon.obj``)."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([5.0, 0.0, 0.0], [1.0, 0.0, 0.0]),
+        fov=45.0, near=0.1, far=100.0, focus_dist=1.0))
+    new = MaterialDefinition.new
+    s.add_mesh(Transform(), MeshFromFile("dragon.obj", use_mtl=False), new())
+    quad = MeshData.from_vertices(
+        [[0.5, 0.0, -1.0], [0.5, 1.0, -1.0], [0.0, 1.0, 1.0], [0.2, 0.0, 1.0]],
+        [[1, 0, 0]] * 4, indices=np.array([0, 1, 2, 0, 2, 3], np.uint32))
+    s.add_mesh(Transform(), MeshFromData(quad),
+               new().with_color([1.0, 1.0, 0.0, 1.0]).emissive([1, 0, 0, 1], 0.4))
+    s.add_sphere([1.8, 0.1, 1.0], 0.6, new().with_color([1.0, 0.0, 0.0, 1.0]))
+    s.add_sphere([1.0, 0.5, 1.0], 0.3, new().with_color([1.0, 0.0, 0.0, 1.0]))
+    s.add_sphere([0.0, -10.0, 0.0], 10.0, new().with_color([1.0, 0.0, 0.0, 1.0]))
+    return s
+
+
+def bugatti() -> SceneDefinition:
+    """scene.rs:934-983 (f1 car). Without ``f1/f1.obj`` the car is the
+    procedural substitute: 4,124 triangles in 5 parts."""
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.0, 0.0], [0.0, 0.0, 1.0])))
+    s.add_mesh(Transform(scale=[0.05, 0.05, 0.05]),
+               MeshFromFile("f1/f1.obj", use_mtl=True),
+               MaterialDefinition.texture_from_obj())
+    _sponza_lights(s)
+    return s
+
+
+_BUILDERS = {
+    SceneName.BALLS: balls,
+    SceneName.RANDOM_BALLS: random_balls,
+    SceneName.ROOM: room,
+    SceneName.ROOM2: room_2,
+    SceneName.METAL: metal,
+    SceneName.SPONZA: sponza,
+    SceneName.CORNELL_BOX: cornell_box,
+}
+
+
+def build_scene_definition(name: SceneName, assets=None) -> SceneDefinition:
+    """Scene::from_name (scene.rs:1003-1014)."""
+    if name == SceneName.EMPTY:
+        raise NotImplementedError("Empty scene has no constructor (scene.rs:1012)")
+    return _BUILDERS[name]()
+
+
+# ---- textured stand-ins: seeded images instead of files -------------------
+def seeded_image(size: int, seed: int, width: int | None = None) -> np.ndarray:
+    """A (size, width or size, 4) float32 image on the u8/255 grid, opaque,
+    made from ``seed``: a 16 x 16 grid of colour cells with per-texel noise
+    of up to 24/255 over it."""
+    w = size if width is None else width
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(40, 216, (16, 16, 3))
+    rgb = cells[(np.arange(size) * 16) // size][:, (np.arange(w) * 16) // w]
+    rgb = np.clip(rgb + rng.integers(-24, 25, (size, w, 3)), 0, 255)
+    img = np.full((size, w, 4), 255.0, np.float32)
+    img[..., :3] = rgb
+    return img / np.float32(255.0)
+
+
+def textured_atrium_scene(assets, size: int = 1024, seed: int = 0,
+                          every: int = 1) -> SceneDefinition:
+    """``sponza()`` with its mesh textured: the procedural atrium's ten parts
+    (``assets/sponza_builder.py:build_atrium``) as ``MeshFromData`` under
+    sponza's transform, part k with ``MaterialDefinition().textured(<its
+    material name>)`` where k % ``every`` == 0 (every part by default; with
+    ``every=10`` one of the ten) and ``MaterialDefinition()`` otherwise;
+    sponza's camera, quad light and emissive sphere. Each textured part's
+    image is ``seeded_image(size, seed + k)``, registered in ``assets``
+    (``AssetManager.add_texture``) under the material's name. At the
+    default size the ten images are 10,485,760 texels, a 168 MB quad atlas:
+    the size of the real sponza's atlas."""
+    from ray_tracer_2_tpu_torch.assets.sponza_builder import build_atrium
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 4.0, 0.0], [0.0, 4.0, 1.0])))
+    t = Transform(scale=[0.05, 0.05, 0.05])
+    for k, (name, pos, nrm, uv) in enumerate(build_atrium()):
+        mat = MaterialDefinition()
+        if k % every == 0:
+            assets.add_texture(name, seeded_image(size, seed + k))
+            mat = mat.textured(name)
+        s.add_mesh(t, MeshFromData(MeshData.from_vertices(pos, nrm, uv)), mat)
+    _sponza_lights(s)
+    return s
+
+
+def texture_sphere_scene(assets, seed: int = 0) -> SceneDefinition:
+    """``texture_test`` under the pulled-back camera of the reference's
+    texture golden (``tests/test_goldens.py:21-34``: its own camera sits on
+    the sphere), with a seeded 512 x 256 image (``seeded_image``)
+    registered in ``assets`` as ``earthmap.png`` in place of the file."""
+    assets.add_texture("earthmap.png", seeded_image(256, seed, 512))
+    s = texture_test()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.0, -3.0], [0.0, 0.0, 0.0]),
+        fov=45.0, focus_dist=3.0))
+    return s
+
+
+def normal_map_scene(assets) -> SceneDefinition:
+    """The reference's normal-map test scene (``tests/test_normal_maps.py``
+    :25-44): the unit quad before the camera with a 32 x 32 normal map,
+    its flat half (128, 128, 255) and its half tilted toward +tangent x
+    (255, 128, 128), registered in ``assets`` as ``test_nm`` as the loader
+    would give the PNG: flipped horizontally."""
+    img = np.zeros((32, 32, 4), np.float32)
+    img[:, :16, :3] = (128, 128, 255)
+    img[:, 16:, :3] = (255, 128, 128)
+    img[..., 3] = 255
+    assets.add_texture("test_nm", img[:, ::-1] / np.float32(255.0))
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 0.0, 3.0], [0.0, 0.0, 0.0]),
+        fov=40.0, focus_dist=3.0))
+    mat = dataclasses.replace(
+        MaterialDefinition.new().with_color([0.7, 0.7, 0.7, 1.0]),
+        normal_texture="test_nm")
+    s.add_mesh(Transform(), MeshFromData(MeshData.quad(),
+                                         indices=[0, 1, 2, 0, 2, 3]), mat)
+    return s
+
+
+def textured_variant(definition: SceneDefinition, assets, every: int = 1,
+                     size: int = 64, seed: int = 0,
+                     images: int = 8) -> SceneDefinition:
+    """``definition`` with the material of every ``every``-th entity (from
+    the first) textured: a textured counterpart of any scene, e.g. textured
+    spheres among hundreds for the megakernel's sphere forms. The j-th
+    textured entity samples ``texture<j % images>``, a seeded image of
+    ``size`` x 2 ``size`` texels (``seeded_image(size, seed + j % images,
+    2 * size)``) registered in ``assets``. The entities themselves are
+    shared with ``definition``."""
+    s = SceneDefinition()
+    s.camera = definition.camera
+    for k, e in enumerate(definition.entities):
+        mat = e.material
+        if k % every == 0:
+            j = (k // every) % images
+            name = f"texture{j}"
+            assets.add_texture(name, seeded_image(size, seed + j, 2 * size))
+            mat = mat.textured(name)
+        s.entities.append(dataclasses.replace(e, material=mat))
     return s

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions there.
 
 The main path's kernel (``csrc/megakernel.cu``, on the wide-BVH scene, on
-room2 and on four shared instances), the small-scene kernel (``csrc/spheres.cu``), the brute-force
+room2 and on four shared instances, with next-event estimation, and its
+textured forms on textured scenes and normal maps), the small-scene kernel (``csrc/spheres.cu``), the brute-force
 kernel (``csrc/brute.cu``) and the probe kernels (``csrc/probe_*.cu``). These tests need a CUDA card (the kernels have
 no CPU mode) and skip without one. The file imports neither JAX nor the JAX package, so it also runs on
 the GPU machine, which has no JAX; there, skip the JAX-importing conftest:
@@ -836,9 +837,10 @@ _PTXAS = {
 
 @pytest.mark.cuda
 def test_forms_without_nee_keep_their_registers(tmp_path):
-    """A fresh build of ``megakernel.cu``: fifteen kernels, the nine that
+    """A fresh build of ``megakernel.cu``: twenty-one kernels, the nine that
     predate next-event estimation with their registers and spills, six NEE
-    forms held to the general forms' 72 registers."""
+    forms and six textured forms held to the general forms' 72
+    registers."""
     _need_card()
     from ray_tracer_2_tpu_torch.kernels.cuda_build import (
         load_library, ptxas_summary,
@@ -847,5 +849,128 @@ def test_forms_without_nee_keep_their_registers(tmp_path):
     assert {k: (v["registers"], v["spill_stores"], v["spill_loads"])
             for k, v in got.items() if k in _PTXAS} == _PTXAS
     nee = {k: v for k, v in got.items() if k.startswith("render_general_nee")}
-    assert len(nee) == 6 and len(got) == 15
-    assert all(v["registers"] <= 72 for v in nee.values())
+    tex = {k: v for k, v in got.items() if k.startswith("render_general_tex")}
+    assert len(nee) == len(tex) == 6 and len(got) == 21
+    assert all(v["registers"] <= 72 for v in (*nee.values(), *tex.values()))
+
+
+# ------------------------------------------------- textures and normal maps --
+def _textured(build, every=7):
+    """``build()`` with every ``every``-th entity's material textured."""
+    return lambda a: scenes.textured_variant(build(), a, every=every)
+
+
+def _textured_normal_map(a):
+    """The normal-map quad with a diffuse texture too: one material with
+    both maps."""
+    return scenes.textured_variant(scenes.normal_map_scene(a), a)
+
+
+# name -> (definition from an AssetManager, sphere_bvh, render options,
+# spheres_mode, NEE mode)
+_TEX_CELLS = {
+    "sphere": (scenes.texture_sphere_scene, None, {}, 0, 0),
+    "atrium": (lambda a: scenes.textured_atrium_scene(a, size=32), None, {},
+               0, 0),
+    "atrium_few": (lambda a: scenes.textured_atrium_scene(a, size=32,
+                                                          every=10),
+                   None, {}, 0, 0),
+    "atrium_nee": (lambda a: scenes.textured_atrium_scene(a, size=32), None,
+                   dict(nee=True), 0, 2),
+    "room_nee": (_textured(scenes.room, every=2), None, dict(nee=True), 0, 1),
+    "normal_map": (scenes.normal_map_scene, None, dict(normal_maps=True), 0,
+                   0),
+    "textured_normal_map": (_textured_normal_map, None,
+                            dict(normal_maps=True), 0, 0),
+    "balls_fast": (_textured(scenes.random_balls), None, {}, 1, 0),
+    "balls_bvh": (_textured(scenes.random_balls), True, {}, 2, 0),
+    "sunlit_fast_nee": (_textured(scenes.sunlit_balls), None,
+                        dict(nee=True), 1, 1),
+    "sunlit_bvh_nee": (_textured(scenes.sunlit_balls), True, dict(nee=True),
+                       2, 2),
+}
+
+
+def _tex_cell(name, device="cuda"):
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    from ray_tracer_2_tpu_torch.kernels.megakernel import (
+        kernel_tables, nee_mode, samples_textures,
+    )
+    make, bvh, opts, sph, mode = _TEX_CELLS[name]
+    assets = AssetManager()
+    scene = instantiate_scene(make(assets), assets, sphere_bvh=bvh).to(device)
+    tab = kernel_tables(scene)
+    assert samples_textures(scene, opts.get("normal_maps", False)), name
+    assert (tab["spheres_mode"], tab["staged"],
+            nee_mode(scene, opts.get("nee", False))) == (sph, False, mode), \
+        name
+    return scene, opts
+
+
+def test_textured_cells_pick_their_forms():
+    """Runs anywhere: each textured cell samples the atlas and takes the
+    textured form it is named for (tables in global memory); together they
+    cover the six."""
+    forms = set()
+    for name in _TEX_CELLS:
+        _tex_cell(name, "cpu")
+        _, _, opts, sph, mode = _TEX_CELLS[name]
+        forms.add((sph, mode > 0))
+    assert forms == {(m, n) for m in range(3) for n in (False, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [1, 5])
+@pytest.mark.parametrize("name", list(_TEX_CELLS))
+def test_textured_forms_match_plain(name, bounces):
+    """Every textured form against ``render_plain`` at 128x72: textured
+    spheres (sphere UVs) and meshes (interpolated UVs, past [0, 1]), every
+    material textured or one in ten, normal maps alone and beside a
+    diffuse texture, NEE in mode 1 and 2, the dense exact and fast loops
+    and the sphere BVH. Bit-equal images, segments exact, row, leaf, box
+    and shadow-ray counts equal, one launch of a textured form."""
+    _need_card()
+    scene, opts = _tex_cell(name)
+    kw = dict(width=128, height=72, bounces=bounces, rays_per_pixel=1,
+              skybox=True, **opts)
+    CUDA_MEGAKERNEL.reset_counts()
+    ki, ks = CUDA_MEGAKERNEL(scene, 1, **kw)
+    kc = CUDA_MEGAKERNEL.read_counts()
+    pc = {}
+    pi, ps = render_plain(scene, 1, counts=pc, **kw)
+    torch.cuda.synchronize()
+    assert CUDA_MEGAKERNEL.tex_launches == CUDA_MEGAKERNEL.launches == 1
+    assert int(ks) == int(ps) == kc["active_lanes"]
+    keys = ("rows", "leaves", "boxes") + (("shadow_rays",) if "nee" in opts
+                                          else ())
+    assert [kc[k] for k in keys] == [pc[k] for k in keys]
+    assert pc["texture_taps"] > 0
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+def test_textured_frames_go_through_the_megakernel():
+    """``Renderer.render`` on a textured small scene and with normal maps on
+    the normal-map quad (a small scene too) launches the megakernel's
+    textured forms, never the small-scene kernel; the same quad without
+    normal maps the small-scene kernel."""
+    _need_card()
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    renderer = Renderer(device="cuda")
+    CUDA_MEGAKERNEL.reset_counts()
+    before = CUDA_SPHERES.launches
+    a = AssetManager()
+    metal = instantiate_scene(scenes.textured_variant(scenes.metal(), a), a)
+    b = AssetManager()
+    quad = instantiate_scene(scenes.normal_map_scene(b), b).to("cuda")
+    params = RenderParams(width=64, height=36, bounces=3)
+    renderer.render(metal.to("cuda"), params)
+    renderer.render(quad, RenderParams(width=64, height=36, bounces=3,
+                                       normal_maps=True))
+    torch.cuda.synchronize()
+    assert (CUDA_MEGAKERNEL.launches, CUDA_MEGAKERNEL.tex_launches) == (2, 2)
+    assert CUDA_SPHERES.launches == before
+    renderer.render(quad, params)
+    torch.cuda.synchronize()
+    assert CUDA_SPHERES.launches == before + 1
+    assert bool(torch.isfinite(renderer.framebuffer).all())

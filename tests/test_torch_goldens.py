@@ -9,7 +9,11 @@ twice: through ``Renderer(device="cpu")`` (so the routing and the
 progressive blend are under test; every golden's scene is a small one, so
 all but ``metal_aa`` go through ``render_spheres``) and as the mean of its
 frames through ``render_persistent`` (the megakernel's plain version; for
-``metal_aa`` the two are one path). Either way it must satisfy:
+``metal_aa`` the two are one path). ``bugatti`` (96x54, 3 bounces, 6
+frames: the procedural substitute of ``f1/f1.obj``, 4,124 triangles in a
+wide BVH, its quad light a brute-force group, an emissive sphere) is no
+small scene: ``Renderer`` sends it to ``render_persistent``, so it has the
+one path. Either way it must satisfy:
 
 * the band: the RMSE between the port's mean image and the golden (both
   clipped to [0, 4], as ``tests/test_goldens.py`` clips) is at most
@@ -17,7 +21,11 @@ frames through ``render_persistent`` (the megakernel's plain version; for
   variance of the port's own N frames: what two independent N-frame means of
   one estimator would show. The two share their random streams, so the
   measured RMSE lies far inside the band (7e-8 on ``room``, 0.002-0.014 on
-  the others, against bands of 0.095-0.18);
+  the others, against bands of 0.095-0.18). The band is at least 1e-6, the
+  float rounding between the two packages: ``bugatti``'s frames are one
+  image (its camera sees the small car against the sky, and its 148 extra
+  segments end the same way every frame), so its sigma is rounding alone
+  (2e-8; measured RMSE 3e-8);
 * no bias: the two images' means agree within 1% (measured: within 0.04%);
 * the chaos class: because the streams are shared, most pixels agree
   outright: >= 95% within 1e-5 (measured: 97.5% on ``random_balls``, 99.2%
@@ -54,7 +62,9 @@ GOLDEN_DIR = Path(__file__).parent / "goldens"
 #: golden -> the function that makes its scene in the port
 SCENES = {"balls": scenes.balls, "metal": scenes.metal,
             "metal_aa": scenes.metal, "room": scenes.room,
-            "random_balls": scenes.random_balls}
+            "random_balls": scenes.random_balls, "bugatti": scenes.bugatti}
+#: goldens whose scene is not a small one: one path, through the renderer
+ONE_PATH = ("metal_aa", "bugatti")
 
 
 def _clip(img):
@@ -70,7 +80,7 @@ def _sample_fn(scene, antialias):
 
 @pytest.mark.parametrize("name,path", [(n, "renderer") for n in sorted(SCENES)]
                          + [(n, "render_persistent") for n in sorted(SCENES)
-                            if n != "metal_aa"])
+                            if n not in ONE_PATH])
 def test_golden_statistically(name, path):
     with np.load(GOLDEN_DIR / f"{name}.npz") as z:
         golden = _clip(z["framebuffer"])
@@ -78,7 +88,7 @@ def test_golden_statistically(name, path):
         antialias = bool(int(z["antialias"])) if "antialias" in z else False
     n = cfg.pop("frames")
     scene = instantiate_scene(SCENES[name]())
-    assert small_scene(scene)
+    assert small_scene(scene) == (name != "bugatti")
     params = RenderParams(rays_per_pixel=1, skybox=True, antialias=antialias,
                           **cfg)
     r = Renderer(device="cpu")
@@ -96,7 +106,7 @@ def test_golden_statistically(name, path):
     frames = [_clip(s) for s in frames]
     assert port.shape == golden.shape and np.isfinite(port).all()
     sigma = float(np.sqrt(np.var(np.stack(frames), axis=0, ddof=1).mean()))
-    band = np.sqrt(2.0) * sigma / np.sqrt(n)
+    band = max(np.sqrt(2.0) * sigma / np.sqrt(n), 1e-6)
     err = float(np.sqrt(np.mean((port - golden) ** 2)))
     assert 0.0 < sigma and err <= band, (err, band)
     assert abs(port.mean() - golden.mean()) <= 0.01 * golden.mean(), \

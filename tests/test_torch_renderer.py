@@ -8,9 +8,11 @@ reference's weight 1/(frames+1); each frame's image must agree with JAX
 ``render_persistent`` and agree with JAX ``render_persistent`` (XLA
 boundary) in the primary and the chaos class (measured: every pixel within
 1e-5, segments exact, in both); so does ``room`` with next-event
-estimation. On the CPU no kernel is launched, and scenes or options outside
-the ported slices raise ``NotImplementedError`` (``random_balls`` with antialias, which
-did, renders: ``tests/test_torch_spheres_renderer.py``).
+estimation. On the CPU no kernel is launched. Textured scenes and normal
+maps, which raised ``NotImplementedError`` until their slice, render
+through the megakernel's path, small scenes included; only the debug modes
+raise (``random_balls`` with antialias, which did, renders:
+``tests/test_torch_spheres_renderer.py``).
 """
 import dataclasses
 
@@ -79,21 +81,58 @@ def _textured(ts):
 
 
 def test_outside_the_slice_raises(scenes_):
-    """Outside every ported path: a textured material, with and without
-    antialias, and the debug modes and normal maps; each names its ROADMAP
-    item."""
+    """Only the debug modes are outside every ported path now, and raise
+    naming their ROADMAP item (4). A textured material, with and without
+    antialias, renders as ``render_plain`` renders it, and normal maps on a
+    scene without them render the image without them (both raised,
+    naming item 3, until their slice)."""
     _, ts = scenes_
     renderer = Renderer(device="cpu")
-    for over in ({}, dict(antialias=True)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3"):
-            renderer.render(_textured(ts),
-                            dataclasses.replace(PARAMS, **over))
-    for over, item in ((dict(debug_mode=DebugMode.NORMALS), 4),
-                       (dict(normal_maps=True), 3)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            renderer.render(ts, dataclasses.replace(PARAMS, **over))
+    params = dataclasses.replace(PARAMS, bounces=2)
+    kw = dict(width=W, height=H, bounces=2, rays_per_pixel=1, skybox=True)
+    textured = _textured(ts)
+    for aa in (False, True):
+        out = renderer.render(textured, dataclasses.replace(
+            params, antialias=aa)).numpy()
+        want, _ = render_plain(textured, 0, antialias=aa, **kw)
+        assert np.array_equal(out, want.numpy())
+    plain, _ = render_plain(ts, 0, **kw)
+    assert not np.array_equal(plain.numpy(), out)
+    out = renderer.render(ts, dataclasses.replace(params, normal_maps=True))
+    assert np.array_equal(out.numpy(), plain.numpy())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        renderer.render(ts, dataclasses.replace(
+            PARAMS, debug_mode=DebugMode.NORMALS))
+
+
+@pytest.mark.parametrize("which", ["textured", "normal_maps"])
+def test_small_scene_with_textures_goes_through_the_megakernel(
+        monkeypatch, which):
+    """A small scene (spheres, <= 64 triangles) with a textured material,
+    or rendered with normal maps, goes through ``render_persistent``: the
+    small-scene kernel is untextured, as the reference's ``eligible`` and
+    its routing keep it. The frame is the plain version's."""
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    assets = AssetManager()
+    if which == "textured":
+        ts = instantiate_scene(scenes.textured_variant(scenes.metal(), assets,
+                                                       every=2), assets)
+        opts = {}
+    else:
+        ts = instantiate_scene(scenes.normal_map_scene(assets), assets)
+        opts = dict(normal_maps=True)
+    assert renderer_mod.small_scene(ts) == (which == "normal_maps")
+    calls = []
+    real = renderer_mod.render_persistent
+    monkeypatch.setattr(renderer_mod, "render_persistent",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    monkeypatch.setattr(renderer_mod.spheres, "render_spheres", None)
+    params = dataclasses.replace(PARAMS, bounces=2, **opts)
+    out = Renderer(device="cpu").render(ts, params).numpy()
+    want, _ = render_plain(ts, 0, width=W, height=H, bounces=2,
+                           rays_per_pixel=1, skybox=True, **opts)
+    assert len(calls) == 1 and calls[0]["normal_maps"] == bool(opts)
+    assert np.array_equal(out, want.numpy())
 
 
 def test_nee_goes_through_the_megakernel(monkeypatch):

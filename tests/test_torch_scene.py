@@ -2,8 +2,14 @@
 
 Both packages turn the same scene definition into the same host tables
 (SAH BVH, 32-ary wide rows with f16 child boxes, quad-packed attributes,
-packed materials, camera): every slice field must be ``np.array_equal``
-with the same dtype, and the static fields equal.
+packed materials, camera, texel atlas): every slice field must be
+``np.array_equal`` with the same dtype, and the static fields equal. The
+atlas words, which the reference keeps bit-cast to float32 and the port as
+int32, are compared as bytes. Scenes from asset files go through each
+package's own asset manager: the procedural substitutes of sponza and
+bugatti, an OBJ with an MTL and a ``map_Kd`` texture written to
+``tmp_path``, two instances of one file (one table between them), and the
+textured atrium.
 """
 import dataclasses
 
@@ -11,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tracer_2_tpu.assets.manager as ref_manager
 import ray_tracer_2_tpu.math.transform as ref_transform
 import ray_tracer_2_tpu.scene.camera as ref_camera
 import ray_tracer_2_tpu.scene.definition as ref_definition
@@ -22,6 +29,7 @@ import ray_tracer_2_tpu_torch.math.transform as port_transform
 import ray_tracer_2_tpu_torch.scene.camera as port_camera
 import ray_tracer_2_tpu_torch.scene.definition as port_definition
 import ray_tracer_2_tpu_torch.scene.material as port_material
+import ray_tracer_2_tpu_torch.assets.manager as port_manager
 from ray_tracer_2_tpu_torch.accel.bvh import NATIVE_MIN_TRIS
 from ray_tracer_2_tpu_torch.math.transform import Transform
 from ray_tracer_2_tpu_torch.scene import scenes
@@ -111,7 +119,7 @@ def _fields(ts: TorchScene) -> dict:
 def _assert_same(rs, ts: TorchScene):
     got = _fields(ts)
     for f in FIELDS:
-        want = np.asarray(getattr(rs, f))
+        want = torch_bridge.ref_field(rs, f)
         assert got[f].dtype == want.dtype, f
         assert got[f].shape == want.shape, f
         assert np.array_equal(got[f], want), f
@@ -227,16 +235,24 @@ def _textured(s):
         s.entities[0].material, diffuse_texture="earthmap.png"))
 
 
+#: ROADMAP Queue 1 item that lifted the refusal -> the file that is missing
+_MISSING = {2: "dragon.obj", 3: "earthmap.png"}
+
+
 @pytest.mark.parametrize("add,item", [(_from_file, 2), (_textured, 3)])
 def test_outside_the_slice_raises(add, item):
-    """What the scene slices still leave out raises, naming its ROADMAP
-    item: a mesh from a file, a textured material. (The sphere BVH, which
-    did, is built: ``tests/test_torch_sphere_bvh.py``.)"""
+    """A file the repository lacks raises ``AssetNotFound`` in the port where
+    it raises in the reference: ``Dragon_80K.obj`` (its substitute needs
+    ``dragon.obj``) and ``earthmap.png``. Meshes from files (item 2) and
+    textured materials (item 3) raised ``NotImplementedError`` until they
+    were ported; they instantiate (the tests below)."""
+    name = _MISSING[item]
     s = scenes.wide_bvh_scene()
     add(s)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
+    with pytest.raises(port_manager.AssetNotFound, match=name):
         instantiate_scene(s)
+    with pytest.raises(ref_manager.AssetNotFound, match=name):
+        ref_instantiate(torch_bridge.ref_definition(s))
 
 
 def test_random_balls_recipe_scales():
@@ -256,3 +272,104 @@ def test_random_balls_recipe_scales():
     ts = instantiate_scene(big)
     assert ts.sphere_bvh_root == 0 and ts.n_instances == 0
     assert ts.wide_rows.shape[0] > ts.n_spheres // 8
+
+
+@pytest.mark.parametrize("name", ["sponza", "bugatti"])
+def test_substitute_scenes_match_reference(name):
+    """sponza and bugatti through the procedural substitutes of their OBJ
+    files (no file in the repository): the atrium of 41,424 triangles in 10
+    parts with ``MaterialRecord()`` (no ``sponza.mtl``), the car of 4,124 in
+    5; each one wide-BVH instance beside the quad light's brute-force group
+    and an emissive sphere, a 3-row light table."""
+    rs = ref_instantiate(getattr(ref_scenes, name)()).render_scene
+    ts = instantiate_scene(getattr(scenes, name)())
+    _assert_same(rs, ts)
+    tris = {"sponza": 41_424, "bugatti": 4_124}[name]
+    assert ts.inst_spans[0][2] == tris and ts.inst_spans[1][2] == 2
+    assert ts.n_spheres == 1 and len(ts.lights) == 3
+    assert ts.shade_classes == ()
+
+
+_CUBE = """
+mtllib cube.mtl
+v -1 -1 -1
+v 1 -1 -1
+v 1 1 -1
+v -1 1 -1
+v -1 -1 1
+v 1 -1 1
+v 1 1 1
+v -1 1 1
+vt 0 0
+vt 2 0
+vt 2 2
+vt 0 2
+o cube
+usemtl checker
+f 5/1 6/2 7/3 8/4
+f 2/1 1/2 4/3 3/4
+f 1/1 5/2 8/3 4/4
+usemtl plain
+f 6/1 2/2 3/3 7/4
+f 8/1 7/2 3/3 4/4
+f 1/1 2/2 6/3 5/4
+"""
+
+
+def _cube_files(tmp_path):
+    from PIL import Image
+    (tmp_path / "cube.obj").write_text(_CUBE)
+    (tmp_path / "cube.mtl").write_text(
+        "newmtl checker\nKd 0.9 0.9 0.9\nmap_Kd checker.png\n"
+        "newmtl plain\nKd 0.2 0.5 0.3\nNs 100\n")
+    rgb = np.random.default_rng(0).integers(0, 256, (16, 24, 3), np.uint8)
+    Image.fromarray(rgb).save(tmp_path / "checker.png")
+
+
+def test_obj_file_scene_matches_reference(tmp_path):
+    """An OBJ with an MTL and a ``map_Kd`` texture, twice: the two
+    instances share one table (the asset caches hand back the same meshes),
+    the second with a material-id delta; the atlas holds the decoded,
+    flipped image."""
+    _cube_files(tmp_path)
+    mat = port_material.MaterialDefinition.texture_from_obj()
+    s = scenes.wide_bvh_scene()
+    s.add_mesh(Transform(pos=[-1.0, 0.5, -1.0], scale=[0.3] * 3),
+               MeshFromFile("cube.obj", use_mtl=True), mat)
+    s.add_mesh(Transform(pos=[1.0, 0.5, -1.0], scale=[0.3] * 3),
+               MeshFromFile("cube.obj", use_mtl=True), mat)
+    ts = instantiate_scene(s, port_manager.AssetManager([tmp_path]))
+    rs = ref_instantiate(torch_bridge.ref_definition(s),
+                         assets=ref_manager.AssetManager([tmp_path])) \
+        .render_scene
+    _assert_same(rs, ts)
+    assert ts.inst_spans[1] == ts.inst_spans[2] == (ts.inst_spans[1][0],
+                                                    1496, 12)
+    assert ts.inst_mat_deltas == (0, 0, 2)
+    assert ts.shade_classes == ("texture",)
+    assert ts.tex_meta[0].tolist() == [0.0, 16.0, 24.0, 0.0]
+
+
+def test_textured_atrium_matches_reference():
+    """``textured_atrium_scene(size=16)``: the ten parts textured from
+    seeded images registered in the asset manager, mirrored into the
+    reference's."""
+    assets = port_manager.AssetManager()
+    rs, ts = torch_bridge.ref_scene_pair(
+        scenes.textured_atrium_scene(assets, size=16), assets)
+    _assert_same(rs, ts)
+    assert ts.shade_classes == ("texture", "texture_dominant")
+    assert ts.tex_texels.shape == (10 * 16 * 16 // 32 + 2, 128)
+
+
+def test_texture_budget_matches_reference(monkeypatch):
+    """``RT2_TEX_BUDGET_MB`` read at instantiation in both packages: ten
+    128 x 128 images (2.6 MB of quad rows) under a 1 MB budget are scaled
+    down alike, atlas and slot table byte for byte."""
+    monkeypatch.setenv("RT2_TEX_BUDGET_MB", "1")
+    assets = port_manager.AssetManager()
+    rs, ts = torch_bridge.ref_scene_pair(
+        scenes.textured_atrium_scene(assets, size=128), assets)
+    _assert_same(rs, ts)
+    assert ts.tex_texels.numel() * 4 <= (1 << 20) * 1.05
+    assert ts.tex_meta[0, 1:3].tolist() == [81.0, 81.0]

@@ -47,7 +47,8 @@ from ray_tracer_2_tpu_torch.scene.render_scene import (
     FIELDS, SPHERE_BVH_MIN, STATICS, instantiate_scene, sphere_bvh_engaged,
 )
 from torch_bridge import (
-    frac_within, port_render, ref_definition, ref_render, torch_scene,
+    frac_within, port_render, ref_definition, ref_field, ref_render,
+    torch_scene,
 )
 from torch_bridge import one_torch_thread  # noqa: F401 (autouse)
 
@@ -98,7 +99,7 @@ def test_sphere_bvh_tables_match_reference(name, monkeypatch):
     through an interior root row."""
     rs, ts = _pair(name, monkeypatch)
     for f in FIELDS:
-        want = np.asarray(getattr(rs, f))
+        want = ref_field(rs, f)
         got = getattr(ts, f).numpy()
         assert got.dtype == want.dtype and got.shape == want.shape, f
         assert np.array_equal(got, want), f

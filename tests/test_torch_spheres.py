@@ -155,7 +155,7 @@ def test_eligibility():
         rows = ts.mat_rows.clone()
         rows[1, col] = value
         assert not eligible(dataclasses.replace(ts, mat_rows=rows))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="megakernel"):
         render_spheres(instantiate_scene(scenes.main_path_scene(8, 8)), 0,
                        width=8, height=4, bounces=0, rays_per_pixel=1,
                        skybox=True)

@@ -37,24 +37,31 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
+def ref_field(rs, f: str) -> np.ndarray:
+    """Field ``f`` of a reference ``RenderScene`` as the port holds it: the
+    texel words, which the reference keeps bit-cast to float32, as int32."""
+    a = np.asarray(getattr(rs, f))
+    return a.view(np.int32) if f == "tex_texels" else a
+
+
 def torch_scene(rs) -> TorchScene:
     """The port's scene for a reference ``RenderScene`` (CPU tensors)."""
-    return TorchScene.from_numpy({f: np.asarray(getattr(rs, f))
-                                  for f in FIELDS},
+    return TorchScene.from_numpy({f: ref_field(rs, f) for f in FIELDS},
                                  {k: getattr(rs, k) for k in STATICS})
 
 
 def ref_definition(port):
     """The JAX package's ``SceneDefinition`` for a port one: the same
-    camera, entities, transforms and materials. A ``MeshData`` that several
-    port entities share maps to one reference ``MeshData``, so instances
-    that share tables in the port share them in the reference too."""
+    camera, entities, transforms and materials (texture names included). A
+    ``MeshData`` that several port entities share maps to one reference
+    ``MeshData``, so instances that share tables in the port share them in
+    the reference too; a mesh named by its file stays named by it."""
     from ray_tracer_2_tpu.math.transform import Transform
     from ray_tracer_2_tpu.scene import definition as rd
     from ray_tracer_2_tpu.scene.material import MaterialDefinition, \
         MaterialFlag
     from ray_tracer_2_tpu_torch.scene.definition import MeshFromData, \
-        SphereDef
+        MeshFromFile, SphereDef
 
     def transform(t):
         return Transform(pos=t.pos, rot=t.rot, scale=t.scale)
@@ -84,9 +91,40 @@ def ref_definition(port):
             s.add_mesh(transform(e.transform),
                        rd.MeshFromData(meshes[id(p.data)], p.indices),
                        material(e.material))
+        elif isinstance(p, MeshFromFile):
+            s.add_mesh(transform(e.transform),
+                       rd.MeshFromFile(p.path, p.use_mtl),
+                       material(e.material))
         else:
             raise TypeError(f"no reference counterpart for {p!r}")
     return s
+
+
+def ref_assets(port_assets=None, search_dirs=None):
+    """A reference ``AssetManager`` holding the images of a port one under
+    the same names and slots (the two dicts both keep: ``loaded_textures``,
+    ``cpu_textures``), so that both packages build one atlas from them."""
+    from ray_tracer_2_tpu.assets.manager import AssetManager
+    ref = AssetManager(search_dirs)
+    if port_assets is not None:
+        ref.loaded_textures.update(port_assets.loaded_textures)
+        ref.cpu_textures.update(port_assets.cpu_textures)
+    return ref
+
+
+def ref_scene_pair(definition, assets=None, **port_kw):
+    """(reference RenderScene, port TorchScene) of one port definition,
+    each package instantiating it with its own asset manager (the
+    reference's mirroring ``assets``' textures)."""
+    from ray_tracer_2_tpu.scene.render_scene import \
+        instantiate_scene as ref_instantiate
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
+    assets = AssetManager() if assets is None else assets
+    ts = instantiate_scene(definition, assets, **port_kw)
+    rs = ref_instantiate(ref_definition(definition),
+                         assets=ref_assets(assets)).render_scene
+    return rs, ts
 
 
 def wide_bvh_render_scene():
@@ -268,4 +306,80 @@ def nee_definition(name: str):
     if name not in ("traversal", "view", "view_far", "plain_light",
                     "mirrored_light"):
         raise KeyError(name)
+    return s
+
+
+# ---- a textured scene at unit scale, written against the port's API
+def _grid(cells: int, size: float, uv_span: tuple):
+    """A square floor at y = 0 facing +y, ``cells`` x ``cells`` quads of two
+    triangles, its UVs from ``uv_span[0]`` to ``uv_span[1]`` (past [0, 1]:
+    the sampler's wrap)."""
+    from ray_tracer_2_tpu_torch.scene.definition import MeshData
+    s = np.linspace(-size / 2, size / 2, cells + 1)
+    t = np.linspace(uv_span[0], uv_span[1], cells + 1)
+    tris, uvs = [], []
+    for i in range(cells):
+        for j in range(cells):
+            p = [[s[i], 0.0, s[j]], [s[i + 1], 0.0, s[j]],
+                 [s[i + 1], 0.0, s[j + 1]], [s[i], 0.0, s[j + 1]]]
+            q = [[t[i], t[j]], [t[i + 1], t[j]], [t[i + 1], t[j + 1]],
+                 [t[i], t[j + 1]]]
+            for a, b, c in ((0, 2, 1), (0, 3, 2)):   # facing +y
+                tris += [p[a], p[b], p[c]]
+                uvs += [q[a], q[b], q[c]]
+    pos = np.asarray(tris, np.float32)
+    return MeshData.from_vertices(pos, np.tile([0.0, 1.0, 0.0], (len(pos), 1)),
+                                  np.asarray(uvs, np.float32))
+
+
+def textured_box(assets, textured=("floor", "wall", "sphere"), cells=12,
+                 floor_normal_map=False) -> SceneDefinition:
+    """A floor grid (``cells`` x ``cells`` quads; 288 triangles at 12, a
+    wide BVH, with the light's 2 triangles in its group), a wall quad
+    (``MeshData.quad``, a brute-force group), a sphere and a quad light;
+    the parts named in ``textured`` sample seeded images, and with
+    ``floor_normal_map`` the floor a seeded normal map."""
+    from ray_tracer_2_tpu_torch.math.transform import Transform
+    from ray_tracer_2_tpu_torch.scene import scenes
+    from ray_tracer_2_tpu_torch.scene.camera import CameraDescriptor
+    from ray_tracer_2_tpu_torch.scene.definition import (
+        MeshData, MeshFromData, SceneDefinition,
+    )
+    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+    images = {"floor": (64, 1, 64), "wall": (32, 2, 64), "sphere": (64, 3, 128)}
+    mats = {}
+    for part, base in (("floor", [0.7, 0.7, 0.7, 1.0]),
+                       ("wall", [0.6, 0.6, 0.8, 1.0]),
+                       ("sphere", [0.8, 0.5, 0.4, 1.0])):
+        mat = MaterialDefinition.new().with_color(base)
+        if part in textured:
+            size, seed, width = images[part]
+            assets.add_texture(f"box_{part}",
+                               scenes.seeded_image(size, seed, width))
+            mat = mat.textured(f"box_{part}")
+        mats[part] = mat
+    if floor_normal_map:
+        rng = np.random.default_rng(9)
+        n = rng.normal(size=(32, 32, 3)) * [0.35, 0.35, 0.0] + [0, 0, 1]
+        n /= np.linalg.norm(n, axis=-1, keepdims=True)
+        img = np.ones((32, 32, 4), np.float32)
+        img[..., :3] = np.round((n * 0.5 + 0.5) * 255.0) / 255.0
+        assets.add_texture("box_floor_nm", img)
+        mats["floor"].normal_texture = "box_floor_nm"
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0.0, 1.5, 3.5], [0.0, 0.5, 0.0]),
+        fov=50.0, focus_dist=3.5))
+    s.add_mesh(Transform(), MeshFromData(_grid(cells, 4.0, (-0.5, 2.5))),
+               mats["floor"])
+    s.add_mesh(Transform(pos=[0.0, 1.0, -2.0], scale=[2.0, 1.0, 1.0]),
+               MeshFromData(MeshData.quad(), indices=[0, 1, 2, 0, 2, 3]),
+               mats["wall"])
+    s.add_sphere([0.6, 0.5, 0.0], 0.5, mats["sphere"])
+    light = MeshData.from_vertices(
+        [[-0.6, 2.5, -0.6], [0.6, 2.5, 0.6], [0.6, 2.5, -0.6],
+         [-0.6, 2.5, -0.6], [-0.6, 2.5, 0.6], [0.6, 2.5, 0.6]],
+        [[0.0, -1.0, 0.0]] * 6)
+    s.add_mesh(Transform(), MeshFromData(light),
+               MaterialDefinition.new().emissive([1.0, 0.9, 0.8, 1.0], 6.0))
     return s
