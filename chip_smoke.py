@@ -60,6 +60,25 @@ antialias through the dense fast loop and through the sphere BVH,
 ``groups_scene(5)`` (tables past the shared-memory budget, read from global
 memory).
 
+The debug modes 1-7 (``csrc/debug.cu``: one unjittered primary ray a
+pixel, the megakernel's segment hit from ``csrc/trace.cuh``, a colour per
+mode) are held against their plain version in every mode
+(``debug_kernel_vs_plain``: the main path's scene at 1920x1080; ``room``,
+``metal``, ``random_balls`` with the sphere BVH, ``sponza()``, the
+normal-map quad and the texture sphere at 128x72; colours of modes 1-4 on
+NEED_FRAC of pixels within PIXEL_TOL, modes 5-7 equal, the per-ray counts
+of child boxes and triangles tested equal), then driven through
+``Renderer.render`` on ``sponza()`` at 1080p (``debug_path``: one debug
+launch a frame, no megakernel launch). The README's two entry points run
+on the card: ``engine_path`` drives ``Engine(1920, 1080,
+initial_scene=SceneName.SPONZA)`` (the scene loaded in the background,
+still frames, a camera move through the controller at 960x540 and one
+bounce, still frames again; the first still frame after the move must be
+bit-equal to a fresh scene rendered at that pose), and ``cli_path`` runs
+``python3 -m ray_tracer_2_tpu_torch --scene sponza --spp 16`` at 1080p
+straight through, stopped at 8 with ``--checkpoint`` and resumed, and with
+``--batch 4``: the three checkpoints' framebuffers must be bit-equal.
+
 Both render kernels are persistent: lanes refill from a pixel cursor and
 count their own work on the device. Each comparison also holds the
 megakernel's interior-row, leaf and child-box visits equal to the plain
@@ -132,6 +151,7 @@ OPS_NEE_TRI = 62        # megakernel.cu sample_light, a triangle light
 OPS_NEE_SPHERE = 126    # megakernel.cu sample_light, a sphere light
 # (each plus one compare per light but the last, for the pick)
 OPS_TAP = 76            # megakernel.cu sample_quads, per texel quad fetched
+OPS_DEBUG_PIXEL = 60    # debug.cu camera ray, hit normal and UV, colour
 TAP_BYTES = 16          # one int4 texel quad a tap
 SPP = 1024              # samples a pixel of the time-to-quality phase
 SPP_VAR_FRAMES = 32     # frames whose deltas give the per-sample variance
@@ -429,6 +449,88 @@ def compare_brute(seed: int = 0):
     return r
 
 
+def compare_debug(name, scene, width, height, modes=range(1, 8),
+                  plain_mode=None):
+    """``csrc/debug.cu`` against its plain version on one cell in every
+    mode of ``modes`` (the plain colours of all of them from one hit
+    record): modes 1-4 held to NEED_FRAC of pixels within PIXEL_TOL, 5-7
+    equal, the per-ray counts (child boxes, triangles tested) equal in
+    every mode. The kernel is timed in mode 1 over repeated launches;
+    with ``plain_mode`` the plain version is also timed alone in that
+    mode. Returns the cell's record."""
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG, \
+        render_debug_plain
+    kw = dict(width=width, height=height, debug_scale=100.0)
+    (plain, pc), p_all_ms = timed(lambda: render_debug_plain(
+        scene, debug_mode=modes[0], modes=modes, **kw))
+    where = f"debug {name} ({width}x{height})"
+    per_mode = {}
+    for m in modes:
+        img, kc = CUDA_DEBUG(scene, debug_mode=m, **kw)
+        err = (img - plain[m]).abs().amax(dim=-1)
+        r = dict(frac_within_tol=float((err < PIXEL_TOL).float().mean()),
+                 max_abs_err=float(err.max()),
+                 bit_equal=bool(torch.equal(img, plain[m])),
+                 counts_equal=bool(torch.equal(kc, pc)))
+        per_mode[m] = r
+        check(bool(torch.isfinite(img).all()), f"{where}, mode {m}: finite")
+        check(r["counts_equal"], f"{where}, mode {m}: per-ray box and "
+                                 "triangle counts equal")
+        if m <= 4:
+            check(r["frac_within_tol"] >= NEED_FRAC,
+                  f"{where}, mode {m}: {r['frac_within_tol']:.5f} of pixels "
+                  f"within {PIXEL_TOL} (need {NEED_FRAC})")
+        else:
+            check(r["bit_equal"], f"{where}, mode {m}: colours equal")
+    hit = float((plain[modes[0]][..., 3] > 0).float().mean()) \
+        if modes[0] <= 4 else None
+    k_ms = kernel_ms(lambda: CUDA_DEBUG(scene, debug_mode=modes[0], **kw),
+                     reps=10)
+    out = dict(width=width, height=height, modes=per_mode, kernel_ms=k_ms,
+               plain_all_modes_ms=p_all_ms, hit_share=hit,
+               boxes=int(pc[..., 0].sum()), tris=int(pc[..., 1].sum()),
+               max_abs_err=max(r["max_abs_err"] for r in per_mode.values()))
+    if plain_mode is not None:
+        _, out["plain_ms"] = timed(lambda: render_debug_plain(
+            scene, debug_mode=plain_mode, **kw))
+    emit(phase="debug_kernel_vs_plain", scene=name, need_frac=NEED_FRAC,
+         **out)
+    return out
+
+
+def debug_bound(scene, r) -> dict:
+    """Bound of the debug kernel on a compared cell: its counted child boxes
+    and triangle tests (only the leaves' real triangles, so a lower bound),
+    and per pixel the dense spheres, one instance ray each, the camera ray
+    and the colour; its tables read once, colours and counts written
+    once."""
+    from ray_tracer_2_tpu_torch.kernels.megakernel import dense_spheres
+    from ray_tracer_2_tpu_torch.probes.common import bound, nbytes
+    pixels = r["width"] * r["height"]
+    per_pixel = (OPS_DEBUG_PIXEL + dense_spheres(scene) * OPS_SPHERE
+                 + scene.n_instances * OPS_INSTANCE)
+    return bound(r["boxes"] * OPS_BOX + r["tris"] * OPS_BRUTE
+                 + pixels * per_pixel,
+                 nbytes(scene.wide_rows, scene.tri_attr, scene.mat_rows)
+                 + pixels * (16 + 8))
+
+
+def run_cli(args, cwd) -> tuple[float, str]:
+    """``python3 -m ray_tracer_2_tpu_torch`` with ``args`` in a subprocess
+    from the checkout's root; returns (wall seconds, its log). Raises on a
+    non-zero exit."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(cwd))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "ray_tracer_2_tpu_torch",
+                          *args], cwd=cwd, env=env, capture_output=True,
+                         text=True)
+    sec = time.perf_counter() - t0
+    check(res.returncode == 0, f"cli {' '.join(args)}: exit "
+                               f"{res.returncode}\n{res.stderr[-2000:]}")
+    return sec, res.stderr
+
+
 def probe_entry(name, wrapper, replaces, launches, records) -> dict:
     """The kernels-line entry of a probe kernel, from the probe phase's
     first line for it (trav also gives its global-memory and scheduled
@@ -539,6 +641,7 @@ def main() -> int:
     from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
     from ray_tracer_2_tpu_torch.kernels.cuda_build import build_all, \
         ptxas_lines
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG
     from ray_tracer_2_tpu_torch.kernels.megakernel import (
         CUDA_MEGAKERNEL, brute_instances, kernel_tables, nee_mode,
         render_plain, samples_textures,
@@ -563,7 +666,7 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, side by side ---------------------
     t0 = time.perf_counter()
-    kernels = (CUDA_MEGAKERNEL, CUDA_SPHERES, CUDA_BRUTE)
+    kernels = (CUDA_MEGAKERNEL, CUDA_SPHERES, CUDA_BRUTE, CUDA_DEBUG)
     probes = load_all()
     from ray_tracer_2_tpu_torch.probes.trav import TRAV_SCHED
     probe_wrappers = [w for w, _ in probes.KERNELS.values()] + [TRAV_SCHED]
@@ -766,6 +869,29 @@ def main() -> int:
         [("textured_atrium_scene(size=1024), NEE", atrium_1k, W, H, BOUNCES,
           nee)], CUDA_MEGAKERNEL, render_plain, kernel="megakernel")[0]
 
+    # ---- 3d. the debug modes: csrc/debug.cu against its plain version in
+    # every mode
+    t0 = time.perf_counter()
+    sponza = instantiate_scene(scenes.sponza()).to("cuda")
+    sponza_s = time.perf_counter() - t0
+    debug_main = compare_debug("main_path_scene", main_scene, W, H,
+                               plain_mode=1)
+    for name, sc, modes in (
+            ("room", room, range(1, 8)),
+            ("metal", instantiate_scene(scenes.metal()).to("cuda"),
+             range(1, 8)),
+            ("random_balls, sphere BVH", rballs_bvh, range(1, 8)),
+            ("sponza()", sponza, range(1, 8)),
+            ("normal_map_scene, TEXTURE flag", with_assets(
+                lambda a: scenes.normal_map_scene(a, mapped_flag=True)),
+             range(1, 2)),
+            ("texture_sphere_scene", with_assets(
+                scenes.texture_sphere_scene), range(3, 4))):
+        r = compare_debug(name, sc, SMALL_W, SMALL_H, modes)
+        check(r["hit_share"] is None or r["hit_share"] > 0.05,
+              f"debug {name}: the scene fills part of the view")
+    debug_b = debug_bound(main_scene, debug_main)
+
     # ---- 4. the main path -------------------------------------------------
     params = RenderParams(width=W, height=H, bounces=BOUNCES,
                           rays_per_pixel=1, skybox=True)
@@ -881,9 +1007,6 @@ def main() -> int:
 
     # ---- 6c. sponza: Renderer -> the megakernel on the atrium substitute,
     # without and with NEE; then the same geometry textured, with NEE
-    t0 = time.perf_counter()
-    sponza = instantiate_scene(scenes.sponza()).to("cuda")
-    sponza_s = time.perf_counter() - t0
     check(sponza.inst_spans[0][2] == 41_424 and sponza.n_spheres == 1,
           f"sponza substitute: {sponza.inst_spans}, {sponza.n_spheres} "
           "spheres")
@@ -965,6 +1088,152 @@ def main() -> int:
          variance_ratio=spp[False]["variance"] / spp[True]["variance"],
          card=card)
 
+    # ---- 6e. the debug modes through Renderer.render: the debug kernel
+    # only, one launch a frame
+    from ray_tracer_2_tpu_torch.config import DebugMode
+    zero_counts()
+    renderer = Renderer(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for mode in range(1, 8):
+        renderer.render(sponza, dataclasses.replace(
+            params, debug_mode=DebugMode(mode), frames=0))
+        check(int(renderer.last_segments) == 0, "a debug frame traces no "
+                                                "path segments")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    debug_launches = CUDA_DEBUG.launches
+    check(debug_launches == 7, f"debug kernel launched {debug_launches} "
+                               "times in 7 debug frames")
+    check(CUDA_MEGAKERNEL.launches == CUDA_SPHERES.launches
+          == CUDA_BRUTE.launches == 0, "no other kernel on the debug path")
+    check(bool(torch.isfinite(renderer.framebuffer).all()),
+          "debug framebuffer finite")
+    emit(phase="debug_path", scene="sponza() with debug modes 1-7",
+         width=W, height=H, frames=7, launches=debug_launches,
+         megakernel_launches=CUDA_MEGAKERNEL.launches,
+         ms_per_frame=dt * 1e3 / 7, card=card)
+
+    # ---- 6f. the Engine: async load, still frames, a camera move at half
+    # resolution, still frames; the first still frame after the move
+    # against a fresh scene at that pose
+    from ray_tracer_2_tpu_torch.engine import Engine
+    from ray_tracer_2_tpu_torch.scene.scenes import SceneName
+    zero_counts()
+    t0 = time.perf_counter()
+    eng = Engine(W, H, initial_scene=SceneName.SPONZA, device="cuda")
+    while eng.update(dt=0.016) is None:
+        check(time.perf_counter() - t0 < 120, "sponza loaded in the "
+                                              "background")
+        time.sleep(0.01)
+    load_s = time.perf_counter() - t0
+    host = eng.scene_manager.scene
+
+    def still(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        segs = []
+        for _ in range(n):
+            eng.update(dt=0.016)
+            segs.append(eng.renderer.last_segments)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        return sec, sum(int(x) for x in segs)
+
+    sec, segs_8 = still(8)
+    check(CUDA_MEGAKERNEL.launches == 9 and eng.params.frames == 8,
+          f"engine: {CUDA_MEGAKERNEL.launches} megakernel launches, frame "
+          f"{eng.params.frames} after 9 still frames")
+    host.camera.controller.process_mouse(0.4, -0.1)
+    host.camera.controller.process_keyboard("w", True)
+    moving = eng.update(dt=0.05, sync=True)
+    moving_stats = eng.stats    # a synchronous frame: its exact time
+    host.camera.controller.process_keyboard("w", False)
+    mp = eng._last_params
+    check((mp.width, mp.height, mp.bounces) == (W // 2, H // 2, 1)
+          and tuple(moving.shape) == (H // 2, W // 2, 4)
+          and eng.params.frames == -1,
+          f"engine: the moving frame at {mp.width}x{mp.height}, "
+          f"{mp.bounces} bounce(s), counter {eng.params.frames}")
+    first = eng.update(dt=0.016, sync=True).clone()
+    fresh_def = scenes.sponza()
+    fresh_def.camera.transform = host.camera.transform.copy()
+    fresh = instantiate_scene(fresh_def).to("cuda")
+    want = Renderer(device="cuda").render(
+        fresh, dataclasses.replace(eng.params, frames=0))
+    check(eng.params.frames == 0 and torch.equal(first, want),
+          "engine: the first still frame after the move bit-equal to a "
+          "fresh scene at the new pose")
+    sec2, segs_after = still(4)
+    stats = dataclasses.asdict(eng.stats)
+    eng.scene_manager.shutdown()
+    # 9 still frames, the moving one, the first still one after it, the
+    # fresh scene's frame, 4 still frames
+    check(CUDA_MEGAKERNEL.launches == 9 + 1 + 1 + 1 + 4
+          and CUDA_DEBUG.launches == 0, "engine: every frame through the "
+                                        "megakernel")
+    emit(phase="engine_path", scene="Engine(1920, 1080, SPONZA)",
+         width=W, height=H, bounces=BOUNCES, load_s=load_s,
+         launches=CUDA_MEGAKERNEL.launches,
+         still_ms_per_frame=sec * 1e3 / 8, still_mrays_per_s=segs_8 / sec / 1e6,
+         after_move_ms_per_frame=sec2 * 1e3 / 4,
+         after_move_mrays_per_s=segs_after / sec2 / 1e6,
+         moving_frame=dict(width=mp.width, height=mp.height,
+                           bounces=mp.bounces,
+                           ms=moving_stats.frame_time_ms,
+                           mrays_per_s=moving_stats.mrays_per_s),
+         first_still_frame_equals_fresh_scene=True, frame_stats=stats,
+         card=card)
+
+    # ---- 6g. the CLI in a subprocess: straight, checkpointed and resumed,
+    # batched; the three checkpoints' framebuffers bit-equal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    root = Path(__file__).resolve().parent
+    cli = ["--scene", "sponza", "--width", str(W), "--height", str(H),
+           "--log-every", "16"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def ck(name):
+            return ["--checkpoint", str(Path(tmp) / f"{name}.npz"), "-o",
+                    str(Path(tmp) / f"{name}.png")]
+
+        runs["straight"] = run_cli([*cli, "--spp", "16", *ck("straight")],
+                                   root)
+        runs["first_8"] = run_cli([*cli, "--spp", "8", *ck("resumed")],
+                                  root)
+        runs["resumed_to_16"] = run_cli(
+            [*cli, "--spp", "16", "--resume", *ck("resumed")], root)
+        check("resumed sponza at frame 8" in runs["resumed_to_16"][1],
+              "cli: the second run resumed at frame 8")
+        runs["batch_4"] = run_cli([*cli, "--spp", "16", "--batch", "4",
+                                   *ck("batched")], root)
+        fbs = {}
+        for name in ("straight", "resumed", "batched"):
+            with np.load(Path(tmp) / f"{name}.npz") as z:
+                fbs[name] = z["framebuffer"]
+            check((Path(tmp) / f"{name}.png").stat().st_size > 0,
+                  f"cli: {name}.png written")
+    check(fbs["straight"].shape == (H, W, 4)
+          and np.isfinite(fbs["straight"]).all()
+          and fbs["straight"].max() > 0, "cli: framebuffer finite, lit")
+    check(fbs["straight"].tobytes() == fbs["resumed"].tobytes()
+          == fbs["batched"].tobytes(), "cli: straight, resumed and batched "
+                                       "framebuffers bit-equal")
+
+    def s_per_frame(log):
+        for ln in reversed(log.splitlines()):
+            if "s/frame" in ln:
+                return float(ln.split("s/frame")[0].split()[-1])
+        return None
+
+    emit(phase="cli_path", scene="sponza", spp=16, width=W, height=H,
+         runs={k: dict(seconds=v[0], s_per_frame=s_per_frame(v[1]))
+               for k, v in runs.items()},
+         framebuffers_bit_equal=True, card=card)
+
     # ---- 7. the probes ------------------------------------------------------
     zero_counts()
     for w in probe_wrappers:
@@ -992,8 +1261,9 @@ def main() -> int:
     emit(phase="probes", probes=len(ctx.records),
          seconds=time.perf_counter() - t0, launches=probe_launches,
          card=card)
-    check(CUDA_MEGAKERNEL.launches == CUDA_SPHERES.launches == 0,
-          "no render kernel launched by the probes")
+    check(CUDA_MEGAKERNEL.launches == CUDA_SPHERES.launches
+          == CUDA_DEBUG.launches == 0, "no render kernel launched by the "
+                                       "probes")
 
     # bounds from this run's counted work on the timed 1080p cells; no one
     # PyTorch call computes a path-traced frame or a closest hit over a
@@ -1108,6 +1378,22 @@ def main() -> int:
              bytes=brute_cmp["bytes"],
              rays_per_thread=brute_cmp["rays_per_thread"],
              ptxas=brute_cmp["ptxas"]),
+        # the debug modes: a kernel of its own, where the reference computes
+        # in XLA apart from its brute-force groups (pallas_brute, whose
+        # loop runs here inside the kernel)
+        dict(name="debug", route="cuda",
+             source="ray_tracer_2_tpu_torch/csrc/debug.cu",
+             replaces="ray_tracer_2_tpu/kernels/trace.py:384",
+             reference="ray_tracer_2_tpu/kernels/trace.py:384",
+             tpu_kernel_on_path="ray_tracer_2_tpu/kernels/pallas_brute.py:32",
+             launches=debug_launches, launches_per_frame=debug_launches / 7,
+             max_abs_err=debug_main["max_abs_err"],
+             ms=debug_main["kernel_ms"], plain_ms=debug_main["plain_ms"],
+             bound_ms=debug_b["bound_ms"], bound_by=debug_b["bound_by"],
+             bound_nofma_ms=debug_b["bound_nofma_ms"], library_ms=None,
+             ops=debug_b["ops"], bytes=debug_b["bytes"],
+             cell="main_path_scene 1920x1080, mode 1",
+             boxes=debug_main["boxes"], triangle_tests=debug_main["tris"]),
         *[probe_entry(name, w, replaces, probe_launches, ctx.records)
           for name, (w, replaces) in probes.KERNELS.items()]])
     emit(ok=True, device=dict(platform="gpu",

@@ -11,24 +11,28 @@ substitutes; ``config.py``), and the tests pin that both build
 byte-identical tables.
 
 Layer map (mirrors the reference package):
-  config.py  RenderParams, DebugMode, MAX_TEXTURES
+  __main__.py  python -m ray_tracer_2_tpu_torch: progressive render to PNG
+             with checkpoints
+  config.py  RenderParams (+ the frame protocol), DebugMode, MAX_TEXTURES
   accel/     SAH BVH (+ its C++ builder), wide rows, attribute rows
   assets/    OBJ/MTL loading (+ its C++ tokenizer), textures and the texel
              atlas, the asset manager, procedural substitutes for files the
              repository lacks (sponza, the f1 car)
   rng.py     counter-hash RNG, bit-exact u32 emulation on int64 tensors
   math/      vector helpers on (..., 3) tensors; numpy transforms
-  scene/     scene definition, camera, materials, TorchScene + instantiation
+  scene/     scene definition, camera and controller, materials,
+             TorchScene + HostScene + instantiation, the background loader
   kernels/   intersection, shading helpers, texture sampling, the persistent
              render (``kernels/megakernel.py``: plain PyTorch version + the
              hand-written CUDA kernel in ``csrc/megakernel.cu``), the
-             small-scene render and the brute-force kernel
-  engine/    Renderer (progressive accumulation) and PNG export
+             small-scene render, the brute-force kernel and the debug modes
+             (``kernels/debug.py``, ``csrc/debug.cu``)
+  engine/    Renderer (progressive accumulation, batched frames), Engine
+             (the frame loop), checkpoints, PNG export
   probes/    the TPU probe scripts' kernels on the card
 
-Not ported yet: the debug modes (``NotImplementedError`` naming their
-ROADMAP item), batched frames, the engine shell, several cards, the front
-ends (ROADMAP Queue 1).
+Not ported yet: ``HostScene``'s live edits, several cards, the viewer
+(ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """SAH BVH builder (ref: src/core/bvh.rs).
 
-The high-quality build of ``ray_tracer_2_tpu/accel/bvh.py`` (numpy only),
+The build of ``ray_tracer_2_tpu/accel/bvh.py`` (numpy only),
 copied so the port never imports the JAX package;
 ``tests/test_torch_scene.py`` pins that both build byte-identical tables.
 
@@ -11,6 +11,10 @@ accepted when ``SAH cost < half_area(parent) * count`` (bvh.rs:68-74,
 binned SAH instead of the reference's per-triangle sweep of <= 50 planes per
 axis (bvh.rs:323-347). Leaves are force-split down to ``max_leaf``
 triangles so a leaf is one fixed-width chunk of the traversal's leaf test.
+``BVHQuality`` picks the splitter as the reference's does: ``HIGH`` the
+binned SAH, ``LOW`` the midpoint of the node's longest axis (bvh.rs:314-322),
+``DISABLED`` median splits only (the reference's one giant leaf, bounded by
+the leaf width). ``bvh_stats`` gives the reference's ``BVHStats`` of a tree.
 
 Meshes of 4096 triangles or more go to the C++ builder (accel/native), as
 in the reference.
@@ -18,13 +22,39 @@ in the reference.
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 
 MAX_DEPTH = 32          # bvh.rs:141
 N_BINS = 32             # binned-SAH resolution (ref uses <=50 swept planes)
 NATIVE_MIN_TRIS = 4096  # meshes at least this big use the C++ builder
-_QUALITY_HIGH = 2       # the C++ builder's code for binned SAH
+
+
+class BVHQuality(enum.Enum):
+    LOW = "low"            # midpoint of longest axis (bvh.rs:314-322)
+    HIGH = "high"          # binned SAH (bvh.rs:323-347)
+    DISABLED = "disabled"  # median splits only (bvh.rs:270-273)
+
+
+#: the C++ builder's code for each quality
+_NATIVE_QUALITY = {BVHQuality.DISABLED: 0, BVHQuality.LOW: 1,
+                   BVHQuality.HIGH: 2}
+
+
+@dataclasses.dataclass
+class BVHStats:
+    """bvh.rs:474-530 (reference ``BVHStats``, without the build time)."""
+
+    node_count: int = 0
+    leaf_count: int = 0
+    leaf_min_depth: int = 0
+    leaf_max_depth: int = 0
+    mean_depth: float = 0.0
+    min_tris: int = 0
+    max_tris: int = 0
+    mean_tris: float = 0.0
+    total_tris: int = 0
 
 
 @dataclasses.dataclass
@@ -47,12 +77,13 @@ class BVH:
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-              max_leaf: int) -> BVH:
+              max_leaf: int, quality: BVHQuality = BVHQuality.HIGH) -> BVH:
     """Build over a triangle soup given as three (T, 3) vertex arrays."""
     n = len(v0)
     if n >= NATIVE_MIN_TRIS:
         from ray_tracer_2_tpu_torch.accel import native
-        arrs = native.build_native(v0, v1, v2, max_leaf, _QUALITY_HIGH)
+        arrs = native.build_native(v0, v1, v2, max_leaf,
+                                   _NATIVE_QUALITY[quality])
         if arrs is not None:
             return BVH(**arrs)
     if n == 0:
@@ -64,11 +95,12 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     tri_min = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
     tri_max = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
     centroid = ((v0 + v1 + v2) * (1.0 / 3.0)).astype(np.float32)
-    return build_bvh_bounds(tri_min, tri_max, centroid, max_leaf)
+    return build_bvh_bounds(tri_min, tri_max, centroid, max_leaf, quality)
 
 
 def build_bvh_bounds(tri_min: np.ndarray, tri_max: np.ndarray,
-                     centroid: np.ndarray, max_leaf: int) -> BVH:
+                     centroid: np.ndarray, max_leaf: int,
+                     quality: BVHQuality = BVHQuality.HIGH) -> BVH:
     """Build over the boxes and centroids of any primitives (reference
     ``build_bvh_bounds``): the sphere BVH is built from the spheres' boxes
     with the triangle machinery. ``tri_order`` is the permutation of the
@@ -105,9 +137,12 @@ def build_bvh_bounds(tri_min: np.ndarray, tri_max: np.ndarray,
             continue
 
         split = None
-        if depth < MAX_DEPTH:
+        if depth < MAX_DEPTH and quality is BVHQuality.HIGH:
             split = _best_binned_split(centroid[sel], tri_min[sel],
                                        tri_max[sel])
+        elif depth < MAX_DEPTH and quality is BVHQuality.LOW:
+            split = _midpoint_split(centroid[sel], tri_min[sel],
+                                    tri_max[sel], bb_min, bb_max)
 
         must_split = depth < hard_depth
         good_split = (split is not None and split[0] < parent_cost
@@ -158,6 +193,36 @@ def build_bvh_bounds(tri_min: np.ndarray, tri_max: np.ndarray,
     )
 
 
+def bvh_stats(bvh: BVH) -> BVHStats:
+    """The tree's ``BVHStats`` from its node arrays (reference
+    ``_stats_from_arrays``): leaf depths by a level sweep, since parents
+    precede their children."""
+    count, left, right = bvh.node_count, bvh.node_left, bvh.node_right
+    n = len(count)
+    depth = np.zeros(n, np.int32)
+    internal = count == 0
+    cur = np.zeros(n, bool)
+    cur[0] = True
+    d = 0
+    while cur.any():
+        parents = cur & internal
+        nxt = np.zeros(n, bool)
+        nxt[left[parents]] = True
+        nxt[right[parents]] = True
+        depth[left[parents]] = d + 1
+        depth[right[parents]] = d + 1
+        cur = nxt
+        d += 1
+    lt, ld = count[~internal], depth[~internal]
+    if not len(lt):
+        return BVHStats(node_count=n)
+    return BVHStats(
+        node_count=n, leaf_count=len(lt), leaf_min_depth=int(ld.min()),
+        leaf_max_depth=int(ld.max()), mean_depth=float(ld.mean()),
+        min_tris=int(lt.min()), max_tris=int(lt.max()),
+        mean_tris=float(lt.mean()), total_tris=int(lt.sum()))
+
+
 def _half_area(bmin, bmax) -> float:
     e = np.maximum(bmax - bmin, 0.0)
     return float(e[0] * e[1] + e[1] * e[2] + e[0] * e[2])
@@ -206,3 +271,21 @@ def _best_binned_split(c, tmin, tmax):
             best = (float(cost[k]), mask, axis, lmin[k].copy(),
                     lmax[k].copy(), rmin[k].copy(), rmax[k].copy())
     return best
+
+
+def _midpoint_split(c, tmin, tmax, bb_min, bb_max):
+    """Quality LOW: the midpoint of the node's longest axis
+    (bvh.rs:314-322). Returns what ``_best_binned_split`` returns."""
+    e = bb_max - bb_min
+    axis = int(np.argmax(e))
+    pos = bb_min[axis] + e[axis] * 0.5
+    mask = c[:, axis] < pos
+    if not mask.any() or mask.all():
+        return float("inf"), mask, axis, None, None, None, None
+    lmin = tmin[mask].min(axis=0)
+    lmax = tmax[mask].max(axis=0)
+    rmin = tmin[~mask].min(axis=0)
+    rmax = tmax[~mask].max(axis=0)
+    cost = mask.sum() * _half_area(lmin, lmax) \
+        + (~mask).sum() * _half_area(rmin, rmax)
+    return float(cost), mask, axis, lmin, lmax, rmin, rmax

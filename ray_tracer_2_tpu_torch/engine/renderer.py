@@ -13,7 +13,11 @@ sphere BVH, which only the megakernel walks, or for next-event estimation
 or normal maps, which the reference keeps off its small-scene kernel
 (``ray_tracer_2_tpu/engine/renderer.py:278-281``); every other frame goes
 through ``render_persistent`` (the megakernel), textured scenes included.
-Only the debug modes raise (ROADMAP Queue 1 item 4). The reference also
+A frame with a debug mode goes to ``render_debug`` (``kernels/debug.py``:
+one unjittered primary ray a pixel, ``csrc/debug.cu`` on the card) and
+blends with the same weight; it traces no path segments, so its segment
+count is 0, as the reference's. ``Renderer.render_batch`` renders several
+frames with no host synchronisation between them. The reference also
 capped the small path at 128 spheres, a choice between two TPU
 implementations; the port has no such cap. Both kernels now take every
 small scene, and what each measured on the H100 is in PERF.md, section 6;
@@ -27,6 +31,7 @@ import torch
 
 from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.kernels import spheres
+from ray_tracer_2_tpu_torch.kernels.debug import render_debug
 from ray_tracer_2_tpu_torch.kernels.megakernel import render_persistent
 from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
 
@@ -57,15 +62,22 @@ def small_scene(scene: TorchScene) -> bool:
 def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
                  *, width: int, height: int, bounces: int,
                  rays_per_pixel: int, skybox: bool, antialias: bool = False,
-                 nee: bool = False, normal_maps: bool = False):
+                 nee: bool = False, normal_maps: bool = False,
+                 debug_mode: int = 0, debug_scale: float = 100.0):
     """Render + accumulate one frame into ``framebuffer`` ((height, width, 4)
     float32, updated in place). Returns (framebuffer, segment count).
     ``nee`` (next-event estimation) and ``normal_maps`` send the frame to
     the megakernel whatever the scene; on a scene without lights or normal
-    maps it renders there as without them."""
+    maps it renders there as without them. A ``debug_mode`` other than
+    ``OFF`` renders that mode at ``debug_scale`` instead (segments 0)."""
     kw = dict(width=width, height=height, bounces=bounces,
               rays_per_pixel=rays_per_pixel, skybox=skybox)
-    if small_scene(scene) and not (antialias or nee or normal_maps):
+    if debug_mode != DebugMode.OFF:
+        sample, _ = render_debug(scene, width=width, height=height,
+                                 debug_mode=int(debug_mode),
+                                 debug_scale=debug_scale)
+        segments = torch.zeros((), dtype=torch.int64, device=sample.device)
+    elif small_scene(scene) and not (antialias or nee or normal_maps):
         sample, segments = spheres.render_spheres(scene, frames, **kw)
     else:
         sample, segments = render_persistent(scene, frames,
@@ -105,18 +117,46 @@ class Renderer:
             raise ValueError(
                 f"scene is on {scene.device} but the renderer on "
                 f"{self.device}; move it once with scene.to(device)")
-        if params.debug_mode != DebugMode.OFF:
-            raise NotImplementedError(
-                "debug modes wait for their slice (ROADMAP Queue 1 item 4)")
         self.ensure_framebuffer(params.width, params.height)
         self.framebuffer, self.last_segments = render_frame(
-            scene, self.framebuffer, int(params.frames),
-            width=params.width, height=params.height,
-            bounces=int(params.bounces),
-            rays_per_pixel=int(params.rays_per_pixel),
-            skybox=bool(params.skybox), antialias=bool(params.antialias),
-            nee=bool(params.nee), normal_maps=bool(params.normal_maps))
+            scene, self.framebuffer, int(params.frames), **self._frame_kw(
+                params))
         return self.framebuffer
+
+    def render_batch(self, scene: TorchScene, params: RenderParams,
+                     n_frames: int) -> torch.Tensor:
+        """Render ``n_frames`` progressive frames, RNG frames
+        ``params.frames .. params.frames + n_frames - 1``, with no host
+        synchronisation between them (reference ``render_batch``): the same
+        launches on the same stream as ``n_frames`` calls of ``render``, so
+        the result is bit-identical. ``last_segments`` holds the batch's
+        total as a device tensor."""
+        if not _same_device(scene.device, self.device):
+            raise ValueError(
+                f"scene is on {scene.device} but the renderer on "
+                f"{self.device}; move it once with scene.to(device)")
+        self.ensure_framebuffer(params.width, params.height)
+        kw = self._frame_kw(params)
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for f in range(int(params.frames), int(params.frames) + n_frames):
+            self.framebuffer, segs = render_frame(scene, self.framebuffer, f,
+                                                  **kw)
+            total = total + segs
+        self.last_segments = total
+        return self.framebuffer
+
+    @staticmethod
+    def _frame_kw(params: RenderParams) -> dict:
+        """``render_frame``'s options from ``params`` (the debug scale at
+        least 1, as the reference clamps it)."""
+        return dict(width=params.width, height=params.height,
+                    bounces=int(params.bounces),
+                    rays_per_pixel=int(params.rays_per_pixel),
+                    skybox=bool(params.skybox),
+                    antialias=bool(params.antialias), nee=bool(params.nee),
+                    normal_maps=bool(params.normal_maps),
+                    debug_mode=int(params.debug_mode),
+                    debug_scale=float(max(params.debug_scale, 1)))
 
     def read_framebuffer(self) -> np.ndarray:
         """Device -> host copy of the accumulation buffer."""

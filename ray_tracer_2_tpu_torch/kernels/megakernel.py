@@ -81,13 +81,13 @@ from ray_tracer_2_tpu_torch.kernels.intersect import (
     sphere_k, sphere_normal, sphere_uv,
 )
 from ray_tracer_2_tpu_torch.kernels.texture import sample_bilinear_quads
-from ray_tracer_2_tpu_torch.kernels.trace import environment_light, \
-    gather_material, reflectance
+from ray_tracer_2_tpu_torch.kernels.trace import camera_ray_basis, \
+    environment_light, gather_material, reflectance
 from ray_tracer_2_tpu_torch.math.vec import cross, dot, lerp, normalize, \
     reflect, refract, sign
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
-    TorchScene
+    TorchScene, camera_scal
 
 #: dense prepass capacity: scenes at ``SPHERE_BVH_MIN`` spheres and above
 #: carry the sphere BVH (as ``kernels/spheres.py:MAX_SPHERES``)
@@ -294,13 +294,12 @@ class _Tables:
     one stays a true division on CUDA)."""
 
     def __init__(self, scene: TorchScene, width: int, height: int,
-                 nee: int = 0, normal_maps: bool = False):
+                 nee: int = 0, normal_maps: bool = False,
+                 surface: bool = False):
         dev = scene.device
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         self.scene = scene
         self.dev = dev
-        self.cam = scene.cam_to_world
-        self.view = scene.view_params
         self.bvh = bvh_instances(scene)
         self.brute = brute_instances(scene)
         self.glass = "glass" in scene.shade_classes
@@ -308,7 +307,11 @@ class _Tables:
         # and the caller compile in (reference resolve_and_shade :796-811)
         self.tex = "texture" in scene.shade_classes
         self.nmap = normal_maps and "normal_map" in scene.shade_classes
+        # a hit's UV: what textures and normal maps read, and the debug
+        # modes (``surface``)
+        self.surface = self.tex or self.nmap or surface
         self.depth = scene.wide_depth + 2
+        self.width, self.height = width, height
         self.w1 = f32(float(max(width - 1, 1)))
         self.h1 = f32(float(max(height - 1, 1)))
         self.inv_w = float(np.float32(1.0) / np.float32(width))
@@ -340,14 +343,9 @@ def _affine(m, v, translate: bool):
 def _camera_ray(t: _Tables, x, y, seed, antialias: bool):
     """frag() camera rays (megakernel.py camera_ray; ray_tracer.wgsl:473-500):
     two disk draws, plus two jitter draws with ``antialias``."""
-    cam, vp = t.cam, t.view
-    u0 = x.to(torch.float32) / t.w1
-    u1 = y.to(torch.float32) / t.h1
-    lf0 = (u0 - 0.5) * vp[0]
-    lf1 = (u1 - 0.5) * vp[1]
-    fp = torch.stack([((lf0 * cam[r, 0] + lf1 * cam[r, 1]) + vp[2] * cam[r, 2])
-                      + cam[r, 3] for r in range(3)], dim=1)
-    right, up, origin = cam[:3, 0], cam[:3, 1], cam[:3, 3]
+    vp = t.scene.view_params
+    origin, right, up, fp = camera_ray_basis(t.scene, x, y, t.width,
+                                             t.height)
     if antialias:
         ju, seed = rng.rand(seed)
         jv, seed = rng.rand(seed)
@@ -462,7 +460,7 @@ def _sphere_leaf_test(rows, o, d, best, best_id):
     return better, mn, idmn.to(torch.int64)
 
 
-def _traverse(t: _Tables, root, om, dm, limit, spheres: bool = False):
+def _traverse(t: _Tables, root, om, dm, limit, vis, spheres: bool = False):
     """Closest hit of model-space rays in the wide BVH whose root row is
     ``root``, pruned at
     ``limit`` (megakernel.py wide_enter + traversal_step): enter the nearest
@@ -471,7 +469,9 @@ def _traverse(t: _Tables, root, om, dm, limit, spheres: bool = False):
     index first. Returns (dst, u, v, det, tri (-1 = none), mat). With
     ``spheres`` the tree is the sphere BVH and the rays are world-space:
     its leaves take ``_sphere_leaf_test``, ``tri`` is the winning sphere's
-    id (``SPH_SENT`` = none) and u, v, det and mat stay 0."""
+    id (``SPH_SENT`` = none) and u, v, det and mat stay 0. Adds each ray's
+    child boxes tested to ``vis[:, 0]`` and the triangles of the triangle
+    leaves it visited to ``vis[:, 1]``."""
     n, dev, depth = om.shape[0], om.device, t.depth
     inv = 1.0 / dm
     best = limit.clone()
@@ -495,7 +495,9 @@ def _traverse(t: _Tables, root, om, dm, limit, spheres: bool = False):
         mask, c_min, dn2 = _wide_eval(rows, om[lanes], inv[lanes],
                                       best[lanes])
         t.rows += lanes.numel()
-        t.boxes += rows[:, COL_K].to(torch.int64).clamp(0, MAX_ARITY).sum()
+        k = rows[:, COL_K].to(torch.int64).clamp(0, MAX_ARITY)
+        t.boxes += k.sum()
+        vis[lanes, 0] += k
         base = rows[:, COL_BASE].to(torch.int64)
         has = mask != 0
         rem = mask & ~(1 << c_min)
@@ -525,6 +527,7 @@ def _traverse(t: _Tables, root, om, dm, limit, spheres: bool = False):
             bl = lf[better]
             best[bl], tri[bl] = d_[better], id_[better]
         elif lf.numel():
+            vis[lf, 1] += rows[leaf][:, COL_COUNT].to(torch.int64)
             better, d_, u_, v_, det_, tri_, mat_ = _leaf_test(
                 rows[leaf], om[lf], dm[lf], best[lf])
             bl = lf[better]
@@ -570,8 +573,12 @@ def _intersect(t: _Tables, o, d):
     id, surface): with textures or normal maps (``t.tex``, ``t.nmap``) the
     surface holds the hit's UV (a mesh's interpolated, a sphere's from its
     normal) and, for normal maps, a mesh hit's tangent through its
-    instance's transform, normalised, and handedness; else None."""
+    instance's transform, normalised, and handedness; else None. Last, the
+    per-ray counts of the debug modes' heat maps, (n, 2) int64: child boxes
+    tested, and triangles tested (each brute-force group's count, and the
+    triangles of every triangle leaf visited)."""
     n, scene, dev = o.shape[0], t.scene, t.dev
+    vis = torch.zeros((n, 2), dtype=torch.int64, device=dev)
     kind = torch.full((n,), -1, dtype=torch.int64, device=dev)
     seg_dst = torch.full((n,), INF, dtype=torch.float32, device=dev)
     point = torch.zeros_like(o)
@@ -626,6 +633,7 @@ def _intersect(t: _Tables, o, d):
         _, tri_off, count = scene.inst_spans[i]
         om, dm = instance_ray(i)
         r = brute_force_intersect_plain(scene, om, dm, tri_off, count)
+        vis[:, 1] += count
         merge(i, om, dm, r["dst"], r["tri"], r["mat"], r["u"], r["v"],
               r["det"])
     for i in t.bvh:
@@ -634,13 +642,13 @@ def _intersect(t: _Tables, o, d):
         slack = _SLACK * (1.0 + torch.sqrt(dot(o, o)))
         limit = (seg_dst * _REL + slack) / torch.sqrt(dot(wv, wv))
         best, bu, bv, bdet, tri, mat = _traverse(
-            t, scene.wide_rows[scene.wide_roots[i]], om, dm, limit)
+            t, scene.wide_rows[scene.wide_roots[i]], om, dm, limit, vis)
         merge(i, om, dm, best, tri, mat, bu, bv, bdet)
     if scene.sphere_bvh_root >= 0:
         # the winner's inside flag by the dense quadratic (reference
         # _sphere_merge), centre and radius from the dense tables
         best, _, _, _, sid, _ = _traverse(
-            t, scene.wide_rows[scene.sphere_bvh_root], o, d, seg_dst,
+            t, scene.wide_rows[scene.sphere_bvh_root], o, d, seg_dst, vis,
             spheres=True)
         won = sid != SPH_SENT
         sid = torch.where(won, sid, 0)
@@ -655,7 +663,7 @@ def _intersect(t: _Tables, o, d):
 
     mesh = kind >= 0
     surf = dict(uv=torch.zeros((n, 2), dtype=torch.float32, device=dev)) \
-        if t.tex or t.nmap else None
+        if t.surface else None
     if scene.n_instances:
         attr = scene.tri_attr[torch.clamp(kind, min=0) >> 2] \
             .view(n, 4, 32)[torch.arange(n, device=dev), kind & 3]
@@ -679,7 +687,7 @@ def _intersect(t: _Tables, o, d):
         surf["uv"] = torch.where((kind == -2)[:, None], sphere_uv(normal),
                                  surf["uv"])
     backface = torch.where(kind == -2, flag > 0, det < 0.0)
-    return kind, seg_dst, point, normal, backface, smat, surf
+    return kind, seg_dst, point, normal, backface, smat, surf, vis
 
 
 def _glass(m, d, trans, seed, dst, point, normal, backface):
@@ -902,7 +910,7 @@ def _render_pixels(t: _Tables, pix, frames, *, width, bounces, rpp, skybox,
                 break
             segs[idx] += 1
             oi, di = o[idx], d[idx]
-            hit = _intersect(t, oi, di)
+            *hit, _ = _intersect(t, oi, di)
             o[idx], d[idx], trans[idx], inc[idx], seed[idx], cont, sampled, \
                 shadow = _shade(t, oi, di, trans[idx], inc[idx], seed[idx],
                                 *hit, skybox, sup=sup[idx] if t.nee else None,
@@ -961,8 +969,9 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
 # --------------------------------------------------------------------------
 def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
     """The small tables the kernel reads per segment, on the scene's device,
-    once per scene (kept in ``scene.derived``): ``scal`` (cam[:3, :4],
-    view_params, defocus, diverge), ``spheres`` (one ``SPHERE_COLS`` row per
+    once per scene (kept in ``scene.derived``): ``scal`` (the camera,
+    ``camera_scal``; ``TorchScene.set_camera`` rewrites it in place),
+    ``spheres`` (one ``SPHERE_COLS`` row per
     sphere, see there), ``inst`` (one ``INST_COLS`` row per instance, see
     there) and ``brute`` (the rows of each distinct brute-force group:
     packed, ``kernels/brute.py:pack_brute_table``, where the kernel stages
@@ -1019,10 +1028,7 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
     brute = torch.cat([pack_brute_table(scene, *key) for key in ranges]) \
         if ranges else torch.zeros((1, 16), dtype=torch.float32, device=dev)
     tables = dict(
-        scal=torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
-                        scene.view_params.reshape(-1),
-                        scene.defocus_strength.reshape(1),
-                        scene.diverge_strength.reshape(1)]).contiguous(),
+        scal=camera_scal(scene),
         spheres=spheres.contiguous() if scene.n_spheres
         else torch.zeros((1, SPHERE_COLS), dtype=torch.float32, device=dev),
         inst=torch.from_numpy(inst).to(dev),

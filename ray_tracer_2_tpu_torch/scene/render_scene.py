@@ -16,7 +16,10 @@ procedural substitutes), spheres (dense, and from ``SPHERE_BVH_MIN`` of
 them or on request also as a world-space sphere BVH appended to the wide
 rows), the static light table of next-event estimation (``lights``), the
 texel atlas of the textures the scene's materials name (``tex_quads``, the
-reference's ``tex_texels`` one texel a row; ``tex_meta``), no live edits (``HostScene``). The per-triangle model-space
+reference's ``tex_texels`` one texel a row; ``tex_meta``). ``HostScene``
+pairs a scene with its host camera and its counts; the camera moves in
+place (``TorchScene.set_camera``); live edits of spheres, materials and
+instances are not ported yet. The per-triangle model-space
 tables (``tri_v0`` ... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK``
 zero rows at the end) are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
@@ -29,7 +32,9 @@ import os
 import numpy as np
 import torch
 
-from ray_tracer_2_tpu_torch.accel.bvh import build_bvh, build_bvh_bounds
+from ray_tracer_2_tpu_torch.accel.bvh import (
+    BVHQuality, BVHStats, build_bvh, build_bvh_bounds, bvh_stats,
+)
 from ray_tracer_2_tpu_torch.accel.packed import (
     ROW_TRIS, pack_attr_quads, pack_tri_attributes,
 )
@@ -42,6 +47,7 @@ from ray_tracer_2_tpu_torch.assets.textures import (
 from ray_tracer_2_tpu_torch.kernels.texture import (
     quads_from_rows, rows_from_quads,
 )
+from ray_tracer_2_tpu_torch.scene.camera import Camera
 from ray_tracer_2_tpu_torch.scene.definition import (
     MeshFromFile, SceneDefinition, SphereDef,
 )
@@ -148,6 +154,25 @@ class TorchScene:
         float32 rows byte for byte (a copy)."""
         return rows_from_quads(self.tex_quads)
 
+    def set_camera(self, camera: Camera) -> None:
+        """Point the scene at ``camera``, in place: its four camera tensors
+        and the kernels' copy of them where one was made
+        (``camera_scal``, kept in ``derived["megakernel_tables"]``), written
+        on the scene's device in stream order, so that frames queued before
+        render the old view and later ones the new. In place because a
+        ``dataclasses.replace`` drops ``derived``, and with it every table
+        built for the scene."""
+        u = camera.to_uniform()
+        new = dict(cam_to_world=u.cam_to_world, view_params=u.view_params,
+                   defocus_strength=u.defocus_strength,
+                   diverge_strength=u.diverge_strength)
+        for f, v in new.items():
+            getattr(self, f).copy_(torch.from_numpy(
+                np.asarray(v, np.float32)))
+        tables = self.derived.get("megakernel_tables")
+        if tables is not None:
+            tables["scal"].copy_(camera_scal(self))
+
     def to(self, device) -> "TorchScene":
         """The same scene with every tensor on ``device`` (``self`` when
         already there)."""
@@ -179,6 +204,42 @@ class TorchScene:
         st["sphere_bvh_root"] = int(st["sphere_bvh_root"])
         st["lights"] = tuple(tuple(row) for row in st["lights"])
         return TorchScene(**tensors, **st)
+
+
+def camera_scal(scene: TorchScene) -> torch.Tensor:
+    """The camera as the kernels read it, 17 float32 on the scene's device:
+    ``cam_to_world[:3, :4]`` row-major, ``view_params``, defocus,
+    diverge."""
+    return torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
+                      scene.view_params.reshape(-1),
+                      scene.defocus_strength.reshape(1),
+                      scene.diverge_strength.reshape(1)]).contiguous()
+
+
+@dataclasses.dataclass
+class HostScene:
+    """A scene with its host-side state (reference ``HostScene``; ref
+    ``Scene``, scene.rs:148-156): the mutable camera, the ``TorchScene``
+    it renders, the ``BVHStats`` of each tree built and its counts.
+    ``refresh_camera`` after moving ``camera`` points the scene at it.
+    The reference's live edits (``edit_sphere``, ``edit_material``,
+    ``edit_instance_transform``) are not ported yet."""
+
+    camera: Camera
+    scene: TorchScene
+    bvh_stats: list
+    n_spheres: int
+    n_instances: int
+    n_triangles: int
+    #: binary BVH nodes of every table built (shared tables once)
+    n_nodes: int
+
+    def refresh_camera(self) -> None:
+        self.scene.set_camera(self.camera)
+
+    def to(self, device) -> "HostScene":
+        """The same host state over the scene moved to ``device``."""
+        return dataclasses.replace(self, scene=self.scene.to(device))
 
 
 def _shade_classes(records) -> tuple:
@@ -336,14 +397,27 @@ def sphere_bvh_engaged(n_spheres: int, sphere_bvh: bool | None) -> bool:
 
 
 def instantiate_scene(definition: SceneDefinition, assets=None,
-                      sphere_bvh: bool | None = None) -> TorchScene:
+                      sphere_bvh: bool | None = None,
+                      quality: BVHQuality = BVHQuality.HIGH) -> TorchScene:
     """Entities -> assets -> BVH -> tensors on the CPU (ref:
     Scene::instantiate_scene, scene.rs:179-271; reference
     ``instantiate_scene``). ``assets`` (an ``AssetManager``; a new one if
     None) resolves the materials' textures and the meshes named by file,
     and its textures make the atlas. ``sphere_bvh`` forces the sphere BVH
-    on or off (``sphere_bvh_engaged``). Move the result to the card with
-    ``.to("cuda")``."""
+    on or off (``sphere_bvh_engaged``); ``quality`` is the BVH builds' (the
+    reference's debug-panel tiers). Move the result to the card with
+    ``.to("cuda")``; ``instantiate_host_scene`` also keeps the camera and
+    the counts."""
+    return instantiate_host_scene(definition, assets, sphere_bvh,
+                                  quality).scene
+
+
+def instantiate_host_scene(definition: SceneDefinition, assets=None,
+                           sphere_bvh: bool | None = None,
+                           quality: BVHQuality = BVHQuality.HIGH
+                           ) -> HostScene:
+    """``instantiate_scene`` as the reference returns it: a ``HostScene``
+    whose camera is the definition's (the same object)."""
     if assets is None:
         from ray_tracer_2_tpu_torch.assets.manager import AssetManager
         assets = AssetManager()
@@ -383,6 +457,7 @@ def instantiate_scene(definition: SceneDefinition, assets=None,
     wide_groups = []
     wide_cursor = tri_cursor = node_cursor = 0
     wide_depth = 1
+    stats: list[BVHStats] = []
 
     # Instanced-geometry sharing (reference render_scene.py:594-690): a
     # group whose parts are the SAME MeshData objects as an earlier group's,
@@ -421,7 +496,8 @@ def instantiate_scene(definition: SceneDefinition, assets=None,
         if soup is None:
             continue
         v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mats = soup
-        bvh = build_bvh(v0, v1, v2, max_leaf=LEAF_CHUNK)
+        bvh = build_bvh(v0, v1, v2, max_leaf=LEAF_CHUNK, quality=quality)
+        stats.append(bvh_stats(bvh))
         o = bvh.tri_order
         cull = (mat_flags[mats[o]] != MaterialFlag.GLASS).astype(np.float32)
         rows, n_rows, wd = pack_wide_rows(
@@ -465,7 +541,9 @@ def instantiate_scene(definition: SceneDefinition, assets=None,
     if sphere_bvh_engaged(len(spheres), sphere_bvh):
         sbvh = build_bvh_bounds(sphere_pos - sphere_radius[:, None],
                                 sphere_pos + sphere_radius[:, None],
-                                sphere_pos, max_leaf=SPH_CHUNK)
+                                sphere_pos, max_leaf=SPH_CHUNK,
+                                quality=quality)
+        stats.append(bvh_stats(sbvh))
         o = sbvh.tri_order
         rows, n_rows, wd = pack_sphere_wide_rows(
             sbvh, sphere_pos[o], sphere_radius[o], row_offset=wide_cursor)
@@ -497,4 +575,8 @@ def instantiate_scene(definition: SceneDefinition, assets=None,
                    sphere_bvh_root=sphere_bvh_root,
                    lights=_extract_lights(records, t, spans, m2w, deltas,
                                           spheres))
-    return TorchScene.from_numpy(fields, statics)
+    return HostScene(camera=definition.camera,
+                     scene=TorchScene.from_numpy(fields, statics),
+                     bvh_stats=stats, n_spheres=len(spheres),
+                     n_instances=len(spans), n_triangles=tri_cursor,
+                     n_nodes=node_cursor)

@@ -564,12 +564,14 @@ def texture_sphere_scene(assets, seed: int = 0) -> SceneDefinition:
     return s
 
 
-def normal_map_scene(assets) -> SceneDefinition:
+def normal_map_scene(assets, mapped_flag: bool = False) -> SceneDefinition:
     """The reference's normal-map test scene (``tests/test_normal_maps.py``
     :25-44): the unit quad before the camera with a 32 x 32 normal map,
     its flat half (128, 128, 255) and its half tilted toward +tangent x
     (255, 128, 128), registered in ``assets`` as ``test_nm`` as the loader
-    would give the PNG: flipped horizontally."""
+    would give the PNG: flipped horizontally. ``mapped_flag`` flags the
+    quad's material TEXTURE (no diffuse texture), as a material whose
+    normal map debug mode 1 shows must be."""
     img = np.zeros((32, 32, 4), np.float32)
     img[:, :16, :3] = (128, 128, 255)
     img[:, 16:, :3] = (255, 128, 128)
@@ -582,6 +584,8 @@ def normal_map_scene(assets) -> SceneDefinition:
     mat = dataclasses.replace(
         MaterialDefinition.new().with_color([0.7, 0.7, 0.7, 1.0]),
         normal_texture="test_nm")
+    if mapped_flag:
+        mat = dataclasses.replace(mat, flag=MaterialFlag.TEXTURE)
     s.add_mesh(Transform(), MeshFromData(MeshData.quad(),
                                          indices=[0, 1, 2, 0, 2, 3]), mat)
     return s

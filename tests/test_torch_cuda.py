@@ -3,12 +3,16 @@
 The main path's kernel (``csrc/megakernel.cu``, on the wide-BVH scene, on
 room2 and on four shared instances, with next-event estimation, and its
 textured forms on textured scenes and normal maps), the small-scene kernel (``csrc/spheres.cu``), the brute-force
-kernel (``csrc/brute.cu``) and the probe kernels (``csrc/probe_*.cu``). These tests need a CUDA card (the kernels have
+kernel (``csrc/brute.cu``), the debug kernel (``csrc/debug.cu``, every mode),
+the probe kernels (``csrc/probe_*.cu``), and on the card ``render_batch``
+and ``Engine``'s camera move. These tests need a CUDA card (the kernels have
 no CPU mode) and skip without one. The file imports neither JAX nor the JAX package, so it also runs on
 the GPU machine, which has no JAX; there, skip the JAX-importing conftest:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -974,3 +978,80 @@ def test_textured_frames_go_through_the_megakernel():
     torch.cuda.synchronize()
     assert CUDA_SPHERES.launches == before + 1
     assert bool(torch.isfinite(renderer.framebuffer).all())
+
+
+# ---- the debug modes (csrc/debug.cu), batched frames and the Engine ------
+_DEBUG_CELLS = {
+    "room": lambda: instantiate_scene(scenes.room()),
+    "wide_bvh": lambda: instantiate_scene(scenes.wide_bvh_scene()),
+    "random_balls_bvh": lambda: instantiate_scene(scenes.random_balls(),
+                                                  sphere_bvh=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_DEBUG_CELLS))
+def test_debug_kernel_matches_plain(name):
+    """Every mode of ``csrc/debug.cu`` against the plain version at 96x54:
+    colours of modes 1-4 on 99.9% of pixels within 1e-5, modes 5-7 equal,
+    the per-ray counts of child boxes and triangles tested equal."""
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG, \
+        render_debug_plain
+    _need_card()
+    sc = _DEBUG_CELLS[name]().to("cuda")
+    kw = dict(width=96, height=54, debug_scale=100.0)
+    plain, pc = render_debug_plain(sc, debug_mode=1, modes=range(1, 8), **kw)
+    for m in range(1, 8):
+        img, kc = CUDA_DEBUG(sc, debug_mode=m, **kw)
+        assert torch.equal(kc, pc), m
+        if m <= 4:
+            assert _frac_within(img, plain[m]) >= 0.999, m
+        else:
+            assert torch.equal(img, plain[m]), m
+
+
+@pytest.mark.cuda
+def test_render_batch_on_the_card():
+    """``render_batch`` bit-identical to single frames on the card, with the
+    batch's segments as a device tensor."""
+    _need_card()
+    sc = instantiate_scene(scenes.wide_bvh_scene()).to("cuda")
+    p = RenderParams(width=96, height=54, bounces=3)
+    seq = Renderer(device="cuda")
+    segs = 0
+    for f in range(4):
+        fb = seq.render(sc, dataclasses.replace(p, frames=f))
+        segs += int(seq.last_segments)
+    bat = Renderer(device="cuda")
+    out = bat.render_batch(sc, p, 4)
+    assert torch.equal(fb, out)
+    assert bat.last_segments.is_cuda and int(bat.last_segments) == segs
+
+
+@pytest.mark.cuda
+def test_engine_camera_move_on_the_card():
+    """``Engine`` on the card (``sponza``, the megakernel's scene): a
+    camera move renders at half resolution
+    with one bounce, and the first still frame after it is bit-equal to a
+    fresh scene's at the new pose (the megakernel reads the camera row
+    ``refresh_camera`` rewrote in place)."""
+    from ray_tracer_2_tpu_torch.engine import Engine
+    from ray_tracer_2_tpu_torch.scene.scenes import SceneName, \
+        build_scene_definition
+    _need_card()
+    eng = Engine(96, 54, initial_scene=SceneName.SPONZA,
+                 block_on_initial_scene=True, device="cuda")
+    for _ in range(3):
+        eng.update(dt=0.016)
+    host = eng.scene_manager.scene
+    host.camera.controller.process_mouse(0.3, 0.1)
+    eng.update(dt=0.05, sync=True)
+    assert (eng._last_params.width, eng._last_params.bounces) == (48, 1)
+    first = eng.update(dt=0.016, sync=True).clone()
+    definition = build_scene_definition(SceneName.SPONZA)
+    definition.camera.transform = host.camera.transform.copy()
+    fresh = instantiate_scene(definition).to("cuda")
+    want = Renderer(device="cuda").render(
+        fresh, dataclasses.replace(eng.params, frames=0))
+    assert torch.equal(first, want)
+    eng.scene_manager.shutdown()

@@ -26,7 +26,7 @@ import torch
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
 from ray_tracer_2_tpu_torch.kernels import megakernel, spheres
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    LAUNCH_SCRATCH, PKG, check_aligned, launch_scratch,
+    LAUNCH_SCRATCH, PKG, check_aligned, launch_scratch, source_bytes,
 )
 from ray_tracer_2_tpu_torch.scene import scenes
 from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
@@ -132,7 +132,9 @@ def test_plain_visit_counts_are_deterministic():
 
 
 def _constants(path, prefix: str) -> dict:
-    src = path.read_text()
+    """``constexpr int`` constants of a C source and the headers it
+    includes (``csrc/trace.cuh`` holds most of the megakernel's)."""
+    src = source_bytes(path).decode()
     return {m.group(1): int(m.group(2)) for m in re.finditer(
         rf"constexpr int {prefix}(\w+) = (\d+);", src)}
 
@@ -322,7 +324,7 @@ def test_staged_row_matches_the_kernel_source():
     words = _constants(CSRC / "brute.cuh", "k")["RowWords"]
     assert 4 * words == megakernel.BRUTE_STAGED == 16
     m = re.search(r"constexpr int kDynSmemBytes = (\d+) \* 1024;",
-                  (CSRC / "megakernel.cu").read_text())
+                  source_bytes(CSRC / "megakernel.cu").decode())
     assert int(m.group(1)) * 1024 == megakernel.SMEM_BYTES
     assert megakernel.SMEM_BYTES <= 227 * 1024 - 2048
     assert _constants(CSRC / "megakernel.cu", "k")["SphStride"] == \

@@ -10,9 +10,9 @@ boundary) in the primary and the chaos class (measured: every pixel within
 1e-5, segments exact, in both); so does ``room`` with next-event
 estimation. On the CPU no kernel is launched. Textured scenes and normal
 maps, which raised ``NotImplementedError`` until their slice, render
-through the megakernel's path, small scenes included; only the debug modes
-raise (``random_balls`` with antialias, which did, renders:
-``tests/test_torch_spheres_renderer.py``).
+through the megakernel's path, small scenes included; so do the debug
+modes now, through the plain debug path (``random_balls`` with antialias,
+which raised too, renders: ``tests/test_torch_spheres_renderer.py``).
 """
 import dataclasses
 
@@ -32,6 +32,7 @@ from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
 from ray_tracer_2_tpu_torch.kernels.brute import CUDA_BRUTE
+from ray_tracer_2_tpu_torch.kernels.debug import render_debug_plain
 from ray_tracer_2_tpu_torch.kernels.megakernel import CUDA_MEGAKERNEL, \
     render_plain
 from ray_tracer_2_tpu_torch.kernels.spheres import CUDA_SPHERES
@@ -81,11 +82,12 @@ def _textured(ts):
 
 
 def test_outside_the_slice_raises(scenes_):
-    """Only the debug modes are outside every ported path now, and raise
-    naming their ROADMAP item (4). A textured material, with and without
-    antialias, renders as ``render_plain`` renders it, and normal maps on a
-    scene without them render the image without them (both raised,
-    naming item 3, until their slice)."""
+    """Nothing is outside the ported paths now. A debug frame (which raised,
+    naming ROADMAP Queue 1 item 4, until its slice) renders as the plain
+    debug path renders it, with no segments. A textured material, with and
+    without antialias, renders as ``render_plain`` renders it, and normal
+    maps on a scene without them render the image without them (both
+    raised, naming item 3, until their slice)."""
     _, ts = scenes_
     renderer = Renderer(device="cpu")
     params = dataclasses.replace(PARAMS, bounces=2)
@@ -100,9 +102,12 @@ def test_outside_the_slice_raises(scenes_):
     assert not np.array_equal(plain.numpy(), out)
     out = renderer.render(ts, dataclasses.replace(params, normal_maps=True))
     assert np.array_equal(out.numpy(), plain.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        renderer.render(ts, dataclasses.replace(
-            PARAMS, debug_mode=DebugMode.NORMALS))
+    out = renderer.render(ts, dataclasses.replace(
+        PARAMS, debug_mode=DebugMode.NORMALS))
+    want, _ = render_debug_plain(ts, width=W, height=H, debug_mode=1,
+                                 debug_scale=100.0)
+    assert np.array_equal(out.numpy(), want.numpy())
+    assert int(renderer.last_segments) == 0
 
 
 @pytest.mark.parametrize("which", ["textured", "normal_maps"])

@@ -373,3 +373,35 @@ def test_texture_budget_matches_reference(monkeypatch):
     _assert_same(rs, ts)
     assert ts.tex_texels.numel() * 4 <= (1 << 20) * 1.05
     assert ts.tex_meta[0, 1:3].tolist() == [81.0, 81.0]
+
+
+@pytest.mark.parametrize("quality", ["low", "disabled"])
+@pytest.mark.parametrize("which", ["wide_bvh", "random_6000", "two_groups"])
+def test_bvh_quality_matches_reference(which, quality):
+    """The lower BVH tiers of the reference's debug panel (``BVHQuality``
+    LOW: midpoint splits, DISABLED: median splits only), in the numpy
+    builder (1,496 triangles) and the C++ one (6,000), byte-identical to
+    the reference's; ``instantiate_host_scene`` keeps the reference
+    ``HostScene``'s counts and per-tree statistics."""
+    from ray_tracer_2_tpu.accel.bvh import BVHQuality as RefQuality
+    from ray_tracer_2_tpu_torch.accel.bvh import BVHQuality
+    from ray_tracer_2_tpu_torch.scene.render_scene import \
+        instantiate_host_scene
+    if which == "random_6000":
+        pos, nrm = MESHES[which]()
+        ref_def = _dragon_bench_definition(REF, pos, nrm)
+        port_def = _dragon_bench_definition(PORT, pos, nrm)
+    else:
+        port_def = scenes.wide_bvh_scene() if which == "wide_bvh" \
+            else _two_groups()
+        ref_def = torch_bridge.ref_definition(port_def)
+    ref = ref_instantiate(ref_def, quality=RefQuality(quality))
+    host = instantiate_host_scene(port_def, quality=BVHQuality(quality))
+    _assert_same(ref.render_scene, host.scene)
+    assert host.camera is port_def.camera
+    for f in ("n_spheres", "n_instances", "n_triangles", "n_nodes"):
+        assert getattr(host, f) == getattr(ref, f), f
+    assert len(host.bvh_stats) == len(ref.bvh_stats)
+    for got, want in zip(host.bvh_stats, ref.bvh_stats):
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name), f.name

@@ -127,6 +127,23 @@ def ref_scene_pair(definition, assets=None, **port_kw):
     return rs, ts
 
 
+def host_scene_pair(definition, assets=None, **port_kw):
+    """(reference ``HostScene``, port ``HostScene``) of one port definition,
+    each package instantiating it with its own asset manager and its own
+    camera (the reference's from ``ref_definition``), so that the two
+    cameras can be moved side by side."""
+    from ray_tracer_2_tpu.scene.render_scene import \
+        instantiate_scene as ref_instantiate
+    from ray_tracer_2_tpu_torch.assets.manager import AssetManager
+    from ray_tracer_2_tpu_torch.scene.render_scene import \
+        instantiate_host_scene
+    assets = AssetManager() if assets is None else assets
+    port = instantiate_host_scene(definition, assets, **port_kw)
+    ref = ref_instantiate(ref_definition(definition),
+                          assets=ref_assets(assets))
+    return ref, port
+
+
 def wide_bvh_render_scene():
     """The reference's asset-free wide-BVH scene (__graft_entry__)."""
     root = str(Path(__file__).resolve().parents[1])
