@@ -79,6 +79,20 @@ bit-equal to a fresh scene rendered at that pose), and ``cli_path`` runs
 straight through, stopped at 8 with ``--checkpoint`` and resumed, and with
 ``--batch 4``: the three checkpoints' framebuffers must be bit-equal.
 
+Live scene edits and the browser viewer (``edit_path``, ``viewer_path``):
+each of five edits (a sphere dragged on ``random_balls`` with the sphere
+BVH, a material colour and a glass toggle on ``sponza()``, room2's box and
+light moved with NEE on, a sphere moved on ``metal``) is made on a scene
+whose kernel tables a frame has built, and the edited scene's kernel frame
+is held bit-equal to its plain version at 128x72 (segments, visits, every
+pixel); then each edit is timed at 1080p with the frame after it
+(``Renderer.render``; launches == frames, through the path's own kernel).
+``ViewerServer`` on ``sponza()`` at 960x540 serves over localhost: ``/state``,
+a PNG from ``/frame.png``, the PNG push stream read for four seconds
+(frames a second, bytes), one ``/ws`` input, one ``edit_entity`` and the E
+hotkey (frames through ``csrc/debug.cu``), then a clean shutdown; PNG
+encode ms and ``Engine``'s frame time on the same scene and size.
+
 Both render kernels are persistent: lanes refill from a pixel cursor and
 count their own work on the device. Each comparison also holds the
 megakernel's interior-row, leaf and child-box visits equal to the plain
@@ -629,6 +643,125 @@ def drive(renderer, scene, params):
     segs = [int(s) for s in segs]
     check(sum(segs) >= W * H * FRAMES, "at least one segment per pixel")
     return dt, segs
+
+
+def edit_cases(scenes, instantiate_host_scene):
+    """The ``edit_path`` cells: (name, host scene on the card, render
+    options, edit(host, tick)). Each edit is one tick of what the viewer
+    does: a sphere dragged on ``random_balls`` with the sphere BVH (its
+    rows rebuilt), a material colour and a glass toggle on ``sponza()``
+    (the toggle repacks the cull flags of 41,424 triangles and changes the
+    kernel's form), the room box of room2 (its light among its quads) moved
+    with NEE on (the light table refreshed), a sphere moved on ``metal``
+    (the small-scene kernel)."""
+    from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
+
+    def host(definition, **kw):
+        return instantiate_host_scene(definition, **kw).to("cuda")
+
+    balls = host(scenes.random_balls(), sphere_bvh=True)
+    big = balls.n_spheres - 1           # the last of the four large spheres
+    c0 = balls.scene.sphere_pos[big].cpu().numpy().copy()
+    sponza = host(scenes.sponza())
+    part = sponza.inst_material_ids[0][0]
+    flag0 = int(sponza.records[part].flag)
+    glass = host(scenes.sponza())
+    return [
+        ("random_balls + sphere BVH, sphere drag", balls, {},
+         lambda h, k: h.edit_sphere(big, centre=c0 + [0.0, 0.0,
+                                                      0.02 * (k + 1)])),
+        ("sponza(), material colour", sponza, {},
+         lambda h, k: h.edit_material(part, color=(
+             0.2 + 0.1 * (k % 5), 0.3, 0.8, 1.0))),
+        ("sponza(), glass toggle", glass, {},
+         lambda h, k: h.edit_material(part, flag=(
+             int(MaterialFlag.GLASS) if k % 2 == 0 else flag0), ior=1.5)),
+        ("room2_scene + NEE, room box moved", host(scenes.room2_scene()),
+         dict(nee=True), lambda h, k: h.edit_instance_transform(
+             2, pos=[0.0, 0.002 * (k + 1), 0.0])),
+        ("metal, sphere move (spheres.cu)", host(scenes.metal()), {},
+         lambda h, k: h.edit_sphere(1, centre=[0.05 * (k + 1), 0.0, -1.0])),
+    ]
+
+
+def ws_exchange(port: int, messages) -> list:
+    """Send ``messages`` (dicts) over the viewer's /ws input channel, each
+    followed by a ping, and return the pongs: each pong comes after its
+    message was handled."""
+    import base64
+    import os
+    import socket
+    import struct
+    s = socket.create_connection(("127.0.0.1", port), timeout=30)
+    try:
+        key = base64.b64encode(os.urandom(16)).decode()
+        s.sendall(("GET /ws HTTP/1.1\r\nHost: localhost\r\n"
+                   "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                   f"Sec-WebSocket-Key: {key}\r\n"
+                   "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            resp += s.recv(4096)
+        check(resp.startswith(b"HTTP/1.1 101"), f"ws handshake: {resp[:40]}")
+
+        def send(obj):
+            data = json.dumps(obj).encode()
+            check(len(data) < 126, "short ws message")
+            mask = os.urandom(4)
+            s.sendall(bytes([0x81, 0x80 | len(data)]) + mask + bytes(
+                c ^ mask[i % 4] for i, c in enumerate(data)))
+
+        def recv():
+            hdr = s.recv(2)
+            n = hdr[1] & 0x7F
+            if n == 126:
+                n = struct.unpack(">H", s.recv(2))[0]
+            buf = b""
+            while len(buf) < n:
+                buf += s.recv(n - len(buf))
+            return json.loads(buf)
+
+        pongs = []
+        for i, msg in enumerate(messages):
+            send(msg)
+            send({"ping": i})
+            pongs.append(recv())
+        return pongs
+    finally:
+        s.close()
+
+
+def png_size(data: bytes) -> tuple:
+    """(width, height) of a PNG, after checking its signature."""
+    import struct
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "a PNG signature")
+    return struct.unpack(">II", data[16:24])
+
+
+def stream_frames(port: int, seconds: float) -> tuple:
+    """Read the viewer's PNG push stream for ``seconds``: (parts
+    received, bytes of the last part)."""
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=30)
+    s.sendall(b"GET /stream.mpng HTTP/1.1\r\nHost: localhost\r\n\r\n")
+    buf, parts, last, t_end = b"", 0, 0, time.perf_counter() + seconds
+    try:
+        while time.perf_counter() < t_end:
+            buf += s.recv(1 << 20)
+            while True:
+                i = buf.find(b"Content-Length: ")
+                j = buf.find(b"\r\n\r\n", i)
+                if i < 0 or j < 0:
+                    break
+                n = int(buf[i + 16:j])
+                if len(buf) < j + 4 + n:
+                    break
+                png_size(buf[j + 4:j + 4 + n])
+                parts, last = parts + 1, n
+                buf = buf[j + 4 + n:]
+    finally:
+        s.close()
+    return parts, last
 
 
 def main() -> int:
@@ -1233,6 +1366,184 @@ def main() -> int:
          runs={k: dict(seconds=v[0], s_per_frame=s_per_frame(v[1]))
                for k, v in runs.items()},
          framebuffers_bit_equal=True, card=card)
+
+    # ---- 6h. live edits: each edit's kernel frame against its plain
+    # version at 128x72 (the tables built by a frame before the edit, so the
+    # edit keeps them in step), then edits and next frames at 1080p
+    from ray_tracer_2_tpu_torch.scene.render_scene import \
+        instantiate_host_scene
+    small_kw = dict(width=SMALL_W, height=SMALL_H, bounces=BOUNCES,
+                    rays_per_pixel=1, skybox=True)
+    edit_rows = []
+    for name, host, opts, edit in edit_cases(scenes, instantiate_host_scene):
+        small = name.startswith("metal")
+        kernel = CUDA_SPHERES if small else CUDA_MEGAKERNEL
+        plain = render_spheres_plain if small else render_plain
+        before = host.scene
+        kernel(host.scene, 1, **small_kw, **opts)      # tables built
+        edit(host, 0)
+        r = check_cases([(f"{name}, edited", host.scene, SMALL_W, SMALL_H,
+                          BOUNCES, opts)], kernel, plain,
+                        kernel="spheres" if small else "megakernel")[0]
+        check(r["max_abs_err"] == 0.0, f"{name}: the edited scene's kernel "
+                                       "frame bit-equal to its plain version")
+        # 1080p: still frames, then ticks of edit + the next frame (the
+        # viewer resets accumulation on an edit); the device idle before
+        # each edit, so the edit's host time is its own
+        renderer = Renderer(device="cuda")
+        params_e = dataclasses.replace(params, **opts)
+        ticks = 4 if "glass" in name else 8
+        zero_counts()
+        for f in range(3):
+            renderer.render(host.scene, dataclasses.replace(params_e,
+                                                            frames=f))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render(host.scene, dataclasses.replace(params_e, frames=3))
+        torch.cuda.synchronize()
+        still_ms = (time.perf_counter() - t0) * 1e3
+        edit_ms, next_ms, swaps = [], [], 0
+        for k in range(1, ticks + 1):
+            scene_before = host.scene
+            t0 = time.perf_counter()
+            edit(host, k)
+            t1 = time.perf_counter()
+            renderer.render(host.scene, dataclasses.replace(params_e,
+                                                            frames=0))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            edit_ms.append((t1 - t0) * 1e3)
+            next_ms.append((t2 - t1) * 1e3)
+            swaps += host.scene is not scene_before
+        frames_run = 4 + ticks
+        launched = (kernel.launches, (CUDA_MEGAKERNEL if small
+                                      else CUDA_SPHERES).launches,
+                    CUDA_DEBUG.launches, CUDA_BRUTE.launches)
+        check(launched == (frames_run, 0, 0, 0),
+              f"{name}: launches {launched} for {frames_run} frames")
+        check(bool(torch.isfinite(renderer.framebuffer).all()),
+              f"{name}: framebuffer finite")
+        row = dict(scene=name, kernel="spheres" if small else "megakernel",
+                   width=W, height=H, bounces=BOUNCES, **opts,
+                   ticks=ticks, launches=kernel.launches,
+                   new_scene_objects=swaps + (host.scene is not before),
+                   still_frame_ms=still_ms, edit_host_ms=edit_ms,
+                   next_frame_ms=next_ms,
+                   edit_host_ms_median=sorted(edit_ms)[ticks // 2],
+                   next_frame_ms_median=sorted(next_ms)[ticks // 2],
+                   max_abs_err_128x72=r["max_abs_err"],
+                   nee_launches=CUDA_MEGAKERNEL.nee_launches, card=card)
+        emit(phase="edit_path", **row)
+        edit_rows.append(row)
+
+    # ---- 6i. the viewer: ViewerServer on sponza() at 960x540 over
+    # localhost; PNG frames from the card, one /ws input, one edit, the E
+    # hotkey through the debug kernel
+    import urllib.request
+    from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb, \
+        png_bytes
+    from ray_tracer_2_tpu_torch.viewer.server import ViewerServer
+    import threading
+    VW, VH = 960, 540
+    eng = Engine(VW, VH, initial_scene=SceneName.SPONZA,
+                 block_on_initial_scene=True, device="cuda")
+    vs = ViewerServer(eng, port=0)
+    zero_counts()
+    server = threading.Thread(target=vs.serve_forever)
+    server.start()
+    t0 = time.perf_counter()
+    while vs._httpd is None or vs._frame_id < 3:
+        check(time.perf_counter() - t0 < 120, "viewer: first frames")
+        time.sleep(0.01)
+    url = f"http://127.0.0.1:{vs._httpd.server_address[1]}"
+    port = vs._httpd.server_address[1]
+    state = json.loads(urllib.request.urlopen(url + "/state",
+                                              timeout=30).read())
+    check(state["scene"] == "Sponza", f"viewer state: {state['scene']}")
+    frame = urllib.request.urlopen(url + "/frame.png", timeout=30).read()
+    check(png_size(frame) == (VW, VH), "viewer: a 960x540 PNG frame")
+    # the render loop's rate, and what a push-stream client receives
+    f0, n0 = vs._frame_id, eng._frame_counter
+    t0 = time.perf_counter()
+    parts, part_bytes = stream_frames(port, 4.0)
+    window = time.perf_counter() - t0
+    produced = vs._frame_id - f0
+    rendered = eng._frame_counter - n0
+    check(parts > 0, "viewer: PNG frames pushed to the stream client")
+    # what one of these frames costs the loop on the host: the readback,
+    # gamma in numpy, the PNG (zlib level 6) of a frame at this noise
+    loop_encode_ms = vs.encode_ms
+    fb, read_ms = timed(lambda: eng.renderer.read_framebuffer())
+    rgb, srgb_ms = timed(lambda: framebuffer_to_srgb(fb))
+    enc = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        data = png_bytes(rgb)
+        enc.append((time.perf_counter() - t1) * 1e3)
+    # one /ws input and one edit_entity over POST /input
+    pongs = ws_exchange(port, [{"set": {"bounces": 4}}])
+    check(pongs == [{"pong": 0}] and eng.params.bounces == 4,
+          f"viewer: /ws input handled ({pongs}, {eng.params.bounces})")
+    host_v = eng.scene_manager.scene
+    req = urllib.request.Request(url + "/input", method="POST", data=json.
+                                 dumps({"edit_entity": {
+                                     "kind": "sphere", "index": 0,
+                                     "centre": [5.0, 2.5, 0.0]}}).encode())
+    check(urllib.request.urlopen(req, timeout=30).status == 200,
+          "viewer: edit_entity accepted")
+    check(host_v.scene.sphere_pos[0].cpu().tolist() == [5.0, 2.5, 0.0],
+          "viewer: the edit reached the scene on the card")
+    f_edit = vs._frame_id
+    while vs._frame_id < f_edit + 3:
+        check(time.perf_counter() - t0 < 120, "viewer: frames after edit")
+        time.sleep(0.01)
+    # E: the debug modes through csrc/debug.cu, then back to the lit path
+    ws_exchange(port, [{"keys": {"e": True}}, {"keys": {"e": False}}])
+    f_dbg = vs._frame_id
+    while vs._frame_id < f_dbg + 3:
+        check(time.perf_counter() - t0 < 120, "viewer: debug frames")
+        time.sleep(0.01)
+    ws_exchange(port, [{"set": {"debug_mode": 0}}])
+    vs.shutdown()
+    server.join(timeout=60)
+    check(not server.is_alive() and not vs._render_thread.is_alive(),
+          "viewer: server and render loop stopped")
+    total_frames = eng._frame_counter     # every frame since zero_counts
+    viewer_launches = dict(megakernel=CUDA_MEGAKERNEL.launches,
+                           debug=CUDA_DEBUG.launches,
+                           spheres=CUDA_SPHERES.launches,
+                           brute=CUDA_BRUTE.launches)
+    check(viewer_launches["debug"] > 0 and viewer_launches["megakernel"] > 0
+          and viewer_launches["spheres"] == viewer_launches["brute"] == 0,
+          f"viewer: frames through the megakernel and, after E, the debug "
+          f"kernel: {viewer_launches}")
+    check(viewer_launches["megakernel"] + viewer_launches["debug"]
+          == total_frames, f"viewer: {total_frames} frames, launches "
+                           f"{viewer_launches}")
+    # Engine's own frame time on the same scene and size
+    eng.params = dataclasses.replace(eng.params, frames=0)
+    for _ in range(2):
+        eng.update(dt=0.016)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(8):
+        eng.update(dt=0.016)
+    torch.cuda.synchronize()
+    engine_ms = (time.perf_counter() - t1) * 1e3 / 8
+    eng.scene_manager.shutdown()
+    emit(phase="viewer_path", scene="ViewerServer(Engine(960, 540, SPONZA))",
+         width=VW, height=VH, bounces=BOUNCES, window_s=window,
+         frames_rendered_in_window=rendered,
+         frames_encoded_in_window=produced,
+         frames_per_s=produced / window,
+         stream_frames_delivered=parts, delivered_per_s=parts / window,
+         png_bytes=len(data), stream_part_bytes=part_bytes,
+         encode_ms=sorted(enc)[1], encode_ms_runs=enc,
+         to_srgb_ms=srgb_ms, readback_ms=read_ms,
+         loop_encode_ms=loop_encode_ms, engine_ms_per_frame=engine_ms,
+         host_ms_per_frame=read_ms + srgb_ms + sorted(enc)[1],
+         launches=viewer_launches, frames=total_frames,
+         ws_input=True, edit_entity=True, card=card)
 
     # ---- 7. the probes ------------------------------------------------------
     zero_counts()

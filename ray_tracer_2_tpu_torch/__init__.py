@@ -29,10 +29,11 @@ Layer map (mirrors the reference package):
              (``kernels/debug.py``, ``csrc/debug.cu``)
   engine/    Renderer (progressive accumulation, batched frames), Engine
              (the frame loop), checkpoints, PNG export
+  viewer/    the browser viewer (stdlib HTTP + WebSocket, PNG frames) and
+             its live scene edits
   probes/    the TPU probe scripts' kernels on the card
 
-Not ported yet: ``HostScene``'s live edits, several cards, the viewer
-(ROADMAP Queue 1).
+Not ported yet: several cards, the graft entry (ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

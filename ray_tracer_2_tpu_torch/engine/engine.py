@@ -17,6 +17,12 @@ and the frame's time and its exact segment count are read once it has
 settled. ``sync=True`` waits for the frame (``torch.cuda.synchronize``) and
 times it exactly. On the CPU every frame has settled when ``render``
 returns.
+
+Live edits (``HostScene.edit_*``, from the viewer's input threads) hold the
+scene's lock; ``update`` holds it while it writes the camera and while it
+dispatches the frame, so a frame reads one consistent scene. The edits'
+writes are queued in stream order, so the lock is not held while the card
+renders.
 """
 from __future__ import annotations
 
@@ -153,31 +159,37 @@ class Engine:
         if host is None:
             return None
 
-        moved = host.camera.update_camera(dt) or is_moving
-        if moved:
-            host.refresh_camera()
-        self.params, _ = self.params.update(moved)
+        # the scene's lock keeps live edits (HostScene.edit_*, from another
+        # thread) out of the camera write and the frame's dispatch, so that
+        # a frame reads one scene and one set of its tables; it is let go
+        # while the previous frame settles
+        with host.lock:
+            moved = host.camera.update_camera(dt) or is_moving
+            if moved:
+                host.refresh_camera()
+            self.params, _ = self.params.update(moved)
 
         # settle the previous frame first (before for_render, so that the
         # adaptive ladder sees the last moving frame's time)
         self._settle_pending()
 
-        motion_scale = 2  # the reference's fixed half resolution
-        if self.params.adaptive_motion:
-            if moved and self._moved_last_frame \
-                    and self._last_move_scale is not None:
-                self._motion_scale = pick_motion_scale(
-                    self._last_move_scale, self._last_render_s,
-                    self.params.motion_target_ms / 1000.0)
-            motion_scale = self._motion_scale
-        render_params = self.params.for_render(moved,
-                                               motion_scale=motion_scale)
-        self._moved_last_frame = moved
-        if moved:
-            self._last_move_scale = motion_scale
+        with host.lock:
+            motion_scale = 2  # the reference's fixed half resolution
+            if self.params.adaptive_motion:
+                if moved and self._moved_last_frame \
+                        and self._last_move_scale is not None:
+                    self._motion_scale = pick_motion_scale(
+                        self._last_move_scale, self._last_render_s,
+                        self.params.motion_target_ms / 1000.0)
+                motion_scale = self._motion_scale
+            render_params = self.params.for_render(moved,
+                                                   motion_scale=motion_scale)
+            self._moved_last_frame = moved
+            if moved:
+                self._last_move_scale = motion_scale
 
-        t0 = time.perf_counter()
-        fb = self.renderer.render(host.scene, render_params)
+            t0 = time.perf_counter()
+            fb = self.renderer.render(host.scene, render_params)
         if sync:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -17,9 +17,12 @@ them or on request also as a world-space sphere BVH appended to the wide
 rows), the static light table of next-event estimation (``lights``), the
 texel atlas of the textures the scene's materials name (``tex_quads``, the
 reference's ``tex_texels`` one texel a row; ``tex_meta``). ``HostScene``
-pairs a scene with its host camera and its counts; the camera moves in
-place (``TorchScene.set_camera``); live edits of spheres, materials and
-instances are not ported yet. The per-triangle model-space
+pairs a scene with its host camera, its counts and the host state of the
+live edits; the camera moves in place (``TorchScene.set_camera``), and
+spheres, materials and instances are edited in place or, where a shape or
+a static field changes, by a new ``TorchScene`` (``HostScene.edit_*``;
+what each edit does to the tables kept in ``TorchScene.derived`` is
+``DERIVED_ON_EDIT``). The per-triangle model-space
 tables (``tri_v0`` ... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK``
 zero rows at the end) are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import torch
@@ -44,6 +48,7 @@ from ray_tracer_2_tpu_torch.accel.wide import (
 from ray_tracer_2_tpu_torch.assets.textures import (
     TextureAtlas, downsample_images_to_budget, pack_texels_u8_quads,
 )
+from ray_tracer_2_tpu_torch.kernels.intersect import sphere_k
 from ray_tracer_2_tpu_torch.kernels.texture import (
     quads_from_rows, rows_from_quads,
 )
@@ -80,6 +85,62 @@ STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
 #: table, so next-event estimation is off for it (reference
 #: ``MAX_NEE_LIGHTS``): never a truncated table that loses energy
 MAX_NEE_LIGHTS = 64
+
+#: What each kind of live edit (``HostScene.edit_*``) does to the tables
+#: the kernels keep in ``TorchScene.derived``: the entries it writes in
+#: place, in stream order with its writes of the scene's tensors (named
+#: below), and those it drops (the values), which their builders make again
+#: at the next frame from the edited scene (a ``("brute_table", ...)`` key
+#: is named by its first item). An entry it does not name stays as it is:
+#: nothing it reads moved.
+#:
+#: * ``sphere`` (a centre or a radius): the sphere's row of
+#:   ``megakernel_tables["spheres"]`` (``|c|^2 - r^2`` in place of the
+#:   radius in the shared-term form); ``small_tables`` holds the sphere too.
+#: * ``instance`` (a transform): the instance's row of
+#:   ``megakernel_tables["inst"]``; ``small_tables`` bakes the transform
+#:   into world-space triangles. The brute-force tables are in model space.
+#: * ``material`` (colours, smoothness, specular, ior, absorption):
+#:   nothing but ``small_tables``, which copies material rows; the kernels
+#:   read ``mat_rows`` itself.
+#: * ``material_form`` (a material edit of ``flag``, ``diffuse_index``,
+#:   ``normal_index`` or emission): also everything that bakes a flag or
+#:   picks a compiled form or a route from one: ``megakernel_tables`` (the
+#:   cull flags of its brute rows, ``glass``, ``staged``),
+#:   every ``brute_table`` (cull flags), ``debug_brute``, ``small_scene``
+#:   (the route reads the texture flag and index).
+#: * ``lights`` (the light table changed, a new ``TorchScene``):
+#:   ``nee_lights``.
+DERIVED_ON_EDIT = {
+    "sphere": ("small_tables",),
+    "instance": ("small_tables",),
+    "material": ("small_tables",),
+    "material_form": ("small_tables", "megakernel_tables", "brute_table",
+                      "debug_brute", "small_scene"),
+    "lights": ("nee_lights",),
+}
+#: the material fields whose edit is a ``material_form`` edit
+FORM_FIELDS = ("flag", "diffuse_index", "normal_index", "emission_color",
+               "emission_strength")
+
+
+def drop_derived(scene: "TorchScene", kind: str) -> None:
+    """Drop the ``scene.derived`` entries that an edit of ``kind`` makes
+    stale (``DERIVED_ON_EDIT``)."""
+    names = DERIVED_ON_EDIT[kind]
+    for key in list(scene.derived):
+        if (key[0] if isinstance(key, tuple) else key) in names:
+            del scene.derived[key]
+
+
+def write_in_place(dst: torch.Tensor, value) -> None:
+    """Write ``value`` (array-like, as float32) into the float32 tensor
+    ``dst`` on its device, in stream order and without waiting for the
+    device: frames queued before read the old values, frames queued after
+    the new ones. CUDA copies a pageable host array to a staging buffer
+    before the copy call returns, so the array may go at once."""
+    src = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+    dst.copy_(src.reshape(dst.shape), non_blocking=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,8 +228,7 @@ class TorchScene:
                    defocus_strength=u.defocus_strength,
                    diverge_strength=u.diverge_strength)
         for f, v in new.items():
-            getattr(self, f).copy_(torch.from_numpy(
-                np.asarray(v, np.float32)))
+            write_in_place(getattr(self, f), v)
         tables = self.derived.get("megakernel_tables")
         if tables is not None:
             tables["scal"].copy_(camera_scal(self))
@@ -220,10 +280,24 @@ def camera_scal(scene: TorchScene) -> torch.Tensor:
 class HostScene:
     """A scene with its host-side state (reference ``HostScene``; ref
     ``Scene``, scene.rs:148-156): the mutable camera, the ``TorchScene``
-    it renders, the ``BVHStats`` of each tree built and its counts.
-    ``refresh_camera`` after moving ``camera`` points the scene at it.
-    The reference's live edits (``edit_sphere``, ``edit_material``,
-    ``edit_instance_transform``) are not ported yet."""
+    it renders, the ``BVHStats`` of each tree built, its counts, and what
+    the live edits need (the per-entity material records, each instance's
+    host ``Transform`` and material ids, each built group's leaf-ordered
+    tables). ``refresh_camera`` after moving ``camera`` points the scene at
+    it; ``edit_sphere``, ``edit_material`` and ``edit_instance_transform``
+    are the reference's live edits (egui.rs:156-365), with the same results
+    table for table.
+
+    An edit writes the scene's tensors whose shape holds in place, in
+    stream order (``write_in_place``), and keeps the tables in
+    ``scene.derived`` in step (``DERIVED_ON_EDIT``). One that changes a
+    shape or a static field (the sphere BVH's rows, the light table, the
+    material classes) puts a new ``TorchScene`` in ``scene``, carrying the
+    derived tables that stay right. ``lock`` serialises edits against each
+    other and against a frame's dispatch: ``Engine.update`` holds it while
+    it reads ``scene`` and queues the frame, so a frame never meets a
+    half-made edit; since the writes are queued in stream order, it is
+    not held while the card renders."""
 
     camera: Camera
     scene: TorchScene
@@ -233,13 +307,213 @@ class HostScene:
     n_triangles: int
     #: binary BVH nodes of every table built (shared tables once)
     n_nodes: int
+    #: per-entity material records (one row per entity or submesh)
+    records: list = dataclasses.field(default_factory=list)
+    #: per-instance host ``Transform`` (partial edits keep the rest)
+    inst_transforms: list = dataclasses.field(default_factory=list)
+    #: per-instance material ids (one per submesh part)
+    inst_material_ids: list = dataclasses.field(default_factory=list)
+    #: per built group, for cull-flag repacks: (bvh, v0, v1, v2, mats,
+    #: node_offset, tri_offset, deltas), leaf-ordered arrays, ``deltas`` the
+    #: material-id shifts of every instance sharing the group
+    _staging: list = dataclasses.field(default_factory=list)
+    lock: threading.RLock = dataclasses.field(
+        default_factory=threading.RLock, init=False, repr=False,
+        compare=False)
+    #: host copies of what edits read back (spheres, triangles), made once
+    #: from the device and then kept in step by the edits
+    _mirror: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def refresh_camera(self) -> None:
-        self.scene.set_camera(self.camera)
+        with self.lock:
+            self.scene.set_camera(self.camera)
 
     def to(self, device) -> "HostScene":
-        """The same host state over the scene moved to ``device``."""
-        return dataclasses.replace(self, scene=self.scene.to(device))
+        """The same host state over the scene moved to ``device`` (``self``
+        when already there); the copy has records and transforms of its
+        own."""
+        scene = self.scene.to(device)
+        if scene is self.scene:
+            return self
+        return dataclasses.replace(
+            self, scene=scene,
+            records=[dataclasses.replace(r) for r in self.records],
+            inst_transforms=[t.copy() for t in self.inst_transforms],
+            inst_material_ids=[list(m) for m in self.inst_material_ids])
+
+    # ------------------------------------------------------- live edits
+
+    def _host(self) -> dict:
+        """Host copies of the sphere and triangle tables (one readback)."""
+        if not self._mirror:
+            sc = self.scene
+            self._mirror.update(
+                {k: getattr(sc, k).cpu().numpy().copy() for k in (
+                    "sphere_pos", "sphere_radius", "sphere_mat", "tri_v0",
+                    "tri_v1", "tri_v2", "tri_mat")})
+        return self._mirror
+
+    def _replace(self, **changes) -> None:
+        """Put a new ``TorchScene`` with ``changes`` in ``scene``, carrying
+        the derived tables (the caller has dropped the stale ones)."""
+        new = dataclasses.replace(self.scene, **changes)
+        new.derived.update(self.scene.derived)
+        self.scene = new
+
+    def edit_sphere(self, index: int, centre=None, radius=None) -> None:
+        """Move or resize a sphere (egui.rs:171-207). A scene with a sphere
+        BVH rebuilds its rows at the end of ``wide_rows`` (in place when
+        their count holds, else a new ``TorchScene``); a rebuilt tree
+        deeper than the kernel's stack raises ``NotImplementedError`` and
+        leaves the scene as it was."""
+        with self.lock:
+            host = self._host()
+            pos, rad = host["sphere_pos"].copy(), host["sphere_radius"].copy()
+            if centre is not None:
+                pos[index] = np.asarray(centre, np.float32)
+            if radius is not None:
+                rad[index] = np.float32(radius)
+            sc = self.scene
+            rows = depth = None
+            if sc.sphere_bvh_root >= 0:
+                rows, depth = self._sphere_rows(pos, rad)
+            host["sphere_pos"], host["sphere_radius"] = pos, rad
+            write_in_place(sc.sphere_pos[index], pos[index])
+            write_in_place(sc.sphere_radius[index], rad[index])
+            tables = sc.derived.get("megakernel_tables")
+            if tables is not None:
+                row = tables["spheres"][index]
+                row[0:3] = sc.sphere_pos[index]
+                if tables["spheres_mode"] == 1:
+                    row[3] = sphere_k(sc.sphere_pos[index],
+                                      sc.sphere_radius[index])
+                else:
+                    row[3] = sc.sphere_radius[index]
+            drop_derived(sc, "sphere")
+            if rows is not None:
+                root = sc.sphere_bvh_root
+                if len(rows) == sc.wide_rows.shape[0] - root:
+                    write_in_place(sc.wide_rows[root:], rows)
+                    if depth != sc.wide_depth:
+                        self._replace(wide_depth=depth)
+                else:
+                    tail = torch.from_numpy(rows).to(sc.device,
+                                                     non_blocking=True)
+                    self._replace(wide_rows=torch.cat(
+                        [sc.wide_rows[:root], tail]), wide_depth=depth)
+            self._refresh_lights()
+
+    def _sphere_rows(self, pos, rad):
+        """The sphere BVH's rows from ``pos``/``rad`` (reference
+        ``_rebuild_sphere_rows``) and the scene's wide depth with them."""
+        # imported here: kernels/megakernel.py imports this module
+        from ray_tracer_2_tpu_torch.kernels.megakernel import MAX_STACK
+        sbvh = build_bvh_bounds(pos - rad[:, None], pos + rad[:, None], pos,
+                                max_leaf=SPH_CHUNK)
+        o = sbvh.tri_order
+        rows, _, d = pack_sphere_wide_rows(sbvh, pos[o], rad[o],
+                                           row_offset=self.scene
+                                           .sphere_bvh_root)
+        depth = max(self.scene.wide_depth, d)
+        if depth + 2 > MAX_STACK:
+            raise NotImplementedError(
+                f"the edited sphere BVH is {d} levels deep: wide BVHs deeper "
+                f"than {MAX_STACK - 2} levels are not in the ported slice")
+        return rows, depth
+
+    def edit_material(self, mat_id: int, **fields) -> None:
+        """Edit one entity's material (egui.rs:209-365). A changed ``flag``
+        (a glass toggle) also repacks the cull flags baked into the wide
+        rows; the material classes and the light table follow."""
+        with self.lock:
+            rec = self.records[mat_id]
+            before = {k: getattr(rec, k) for k in FORM_FIELDS}
+            for k, v in fields.items():
+                setattr(rec, k, tuple(v) if isinstance(v, (list, np.ndarray))
+                        else v)
+            sc = self.scene
+            write_in_place(sc.mat_rows[mat_id],
+                           _pack_material_rows([rec])[0])
+            form = any(getattr(rec, k) != v for k, v in before.items())
+            drop_derived(sc, "material_form" if form else "material")
+            classes = _shade_classes(self.records)
+            if classes != sc.shade_classes:
+                self._replace(shade_classes=classes)
+            if rec.flag != before["flag"]:
+                self._repack_cull_flags()
+            self._refresh_lights()
+
+    def edit_instance_transform(self, index: int, transform=None, *,
+                                pos=None, rot=None, scale=None) -> None:
+        """Move, rotate or scale a whole instance group (egui.rs:280-330).
+        Partial edits (only ``pos``/``rot``/``scale``) merge into the stored
+        host transform, so editing one component keeps the others."""
+        with self.lock:
+            if transform is None:
+                transform = self.inst_transforms[index].copy()
+                if pos is not None:
+                    transform.pos = np.asarray(pos, np.float32)
+                if rot is not None:
+                    transform.rot = np.asarray(rot, np.float32)
+                if scale is not None:
+                    transform.scale = (np.asarray(scale, np.float32)
+                                       * np.ones(3, np.float32))
+            self.inst_transforms[index] = transform.copy()
+            m = transform.to_matrix()
+            inv = np.linalg.inv(m.astype(np.float64)).astype(np.float32)
+            sc = self.scene
+            write_in_place(sc.inst_model_to_world[index], m)
+            write_in_place(sc.inst_world_to_model[index], inv)
+            tables = sc.derived.get("megakernel_tables")
+            if tables is not None:
+                write_in_place(tables["inst"][index, 0:24], np.concatenate(
+                    [inv[:3, :4].reshape(-1), m[:3, :4].reshape(-1)]))
+            drop_derived(sc, "instance")
+            self._refresh_lights()
+
+    def _refresh_lights(self) -> None:
+        """Re-derive the light table after an edit that can move or
+        re-colour an emissive primitive (reference ``_refresh_lights``). A
+        new ``TorchScene`` only when the table changed; nothing is read when
+        nothing is emissive before or after the edit."""
+        sc = self.scene
+        if not sc.lights and not any(
+                r.emission_strength > 0.0 and max(r.emission_color[:3]) > 0.0
+                for r in self.records):
+            return
+        host = self._host()
+        tri = {k: host[f"tri_{k}"] for k in ("v0", "v1", "v2", "mat")}
+        # the instance matrices as the edits wrote them
+        m2w = [t.to_matrix() for t in self.inst_transforms]
+        spheres = [(p, float(r), int(m)) for p, r, m in zip(
+            host["sphere_pos"], host["sphere_radius"], host["sphere_mat"])]
+        lights = _extract_lights(self.records, tri, sc.inst_spans, m2w,
+                                 list(sc.inst_mat_deltas), spheres)
+        if lights != sc.lights:
+            drop_derived(sc, "lights")
+            self._replace(lights=lights)
+
+    def _repack_cull_flags(self) -> None:
+        """Re-pack the wide rows with the cull flags of the current
+        materials (reference ``_repack_cull_flags``), in place: the trees
+        are the same, so are the row counts. A triangle of a shared group
+        keeps its cull only if no sharing instance made its material glass
+        (conservative: less culling is always correct)."""
+        flags = np.array([r.flag for r in self.records] or [0], np.int32)
+        groups, cursor = [], 0
+        for bvh, v0, v1, v2, mats, _, tri_off, deltas in self._staging:
+            cull = np.ones(len(mats), np.float32)
+            for d in deltas:
+                cull *= (flags[mats + d] != MaterialFlag.GLASS).astype(
+                    np.float32)
+            rows, n, _ = pack_wide_rows(bvh, v0, v1, v2, mats, cull,
+                                        row_offset=cursor, tri_offset=tri_off)
+            groups.append(rows)
+            cursor += n
+        if groups:
+            write_in_place(self.scene.wide_rows[:cursor],
+                           np.concatenate(groups, axis=0))
 
 
 def _shade_classes(records) -> tuple:
@@ -447,13 +721,15 @@ def instantiate_host_scene(definition: SceneDefinition, assets=None,
         else:
             parts = [(e.primitive.resolved(), mat_id(resolved))]
         m = e.transform.to_matrix()
-        g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": []})
+        g = groups.setdefault(m.tobytes(), {"matrix": m, "parts": [],
+                                            "transform": e.transform})
         g["parts"].extend(parts)
 
     mat_flags = np.array([r.flag for r in records] or [0], np.int32)
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
                            "uv0", "uv1", "uv2", "mat")}
     w2m, m2w, spans, roots, deltas = [], [], [], [], []
+    transforms, material_ids, staging = [], [], []
     wide_groups = []
     wide_cursor = tri_cursor = node_cursor = 0
     wide_depth = 1
@@ -476,7 +752,10 @@ def instantiate_host_scene(definition: SceneDefinition, assets=None,
             return None
         return canon, shifts.pop()
 
-    def add_instance(matrix, node_off, tri_off, count, root, delta):
+    def add_instance(g, node_off, tri_off, count, root, delta):
+        matrix = g["matrix"]
+        transforms.append(g["transform"].copy())
+        material_ids.append(sorted({int(mid) for _, mid in g["parts"]}))
         m2w.append(matrix)
         w2m.append(np.linalg.inv(matrix.astype(np.float64))
                    .astype(np.float32))
@@ -489,8 +768,9 @@ def instantiate_host_scene(definition: SceneDefinition, assets=None,
         shared = share(key, g)
         if shared is not None:
             canon, delta = shared
-            add_instance(g["matrix"], canon["node_off"], canon["tri_off"],
+            add_instance(g, canon["node_off"], canon["tri_off"],
                          canon["count"], canon["root"], int(delta))
+            canon["staging"][7].append(int(delta))
             continue
         soup = _concat_soup(g["parts"])
         if soup is None:
@@ -508,11 +788,14 @@ def instantiate_host_scene(definition: SceneDefinition, assets=None,
         for k, arr in zip(tri, (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2,
                                 mats)):
             tri[k].append(arr[o])
+        stage = (bvh, v0[o], v1[o], v2[o], mats[o], node_cursor, tri_cursor,
+                 [0])
+        staging.append(stage)
         built[key] = dict(
             mat_ids=[mid for _, mid in g["parts"]], node_off=node_cursor,
-            tri_off=tri_cursor, count=len(v0), root=wide_cursor)
-        add_instance(g["matrix"], node_cursor, tri_cursor, len(v0),
-                     wide_cursor, 0)
+            tri_off=tri_cursor, count=len(v0), root=wide_cursor,
+            staging=stage)
+        add_instance(g, node_cursor, tri_cursor, len(v0), wide_cursor, 0)
         wide_cursor += n_rows
         tri_cursor += len(v0)
         node_cursor += bvh.n_nodes
@@ -579,4 +862,6 @@ def instantiate_host_scene(definition: SceneDefinition, assets=None,
                      scene=TorchScene.from_numpy(fields, statics),
                      bvh_stats=stats, n_spheres=len(spheres),
                      n_instances=len(spans), n_triangles=tri_cursor,
-                     n_nodes=node_cursor)
+                     n_nodes=node_cursor, records=records,
+                     inst_transforms=transforms,
+                     inst_material_ids=material_ids, _staging=staging)

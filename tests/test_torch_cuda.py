@@ -4,8 +4,9 @@ The main path's kernel (``csrc/megakernel.cu``, on the wide-BVH scene, on
 room2 and on four shared instances, with next-event estimation, and its
 textured forms on textured scenes and normal maps), the small-scene kernel (``csrc/spheres.cu``), the brute-force
 kernel (``csrc/brute.cu``), the debug kernel (``csrc/debug.cu``, every mode),
-the probe kernels (``csrc/probe_*.cu``), and on the card ``render_batch``
-and ``Engine``'s camera move. These tests need a CUDA card (the kernels have
+the probe kernels (``csrc/probe_*.cu``), and on the card ``render_batch``,
+``Engine``'s camera move, scenes after live edits (each kernel frame
+bit-equal to its plain version) and the viewer's PNG frames. These tests need a CUDA card (the kernels have
 no CPU mode) and skip without one. The file imports neither JAX nor the JAX package, so it also runs on
 the GPU machine, which has no JAX; there, skip the JAX-importing conftest:
 
@@ -1054,4 +1055,88 @@ def test_engine_camera_move_on_the_card():
     want = Renderer(device="cuda").render(
         fresh, dataclasses.replace(eng.params, frames=0))
     assert torch.equal(first, want)
+    eng.scene_manager.shutdown()
+
+
+# ---- live edits and the viewer (the cells of chip_smoke.py's edit_path)
+@pytest.fixture(scope="module")
+def edited():
+    """``chip_smoke.edit_cases`` on the card, each scene's kernel tables
+    built by a frame and then edited twice."""
+    _need_card()
+    from chip_smoke import edit_cases
+    from ray_tracer_2_tpu_torch.scene.render_scene import \
+        instantiate_host_scene
+    kw = dict(width=128, height=72, bounces=5, rays_per_pixel=1, skybox=True)
+    out = {}
+    for name, host, opts, edit in edit_cases(scenes, instantiate_host_scene):
+        kernel = CUDA_SPHERES if name.startswith("metal") else CUDA_MEGAKERNEL
+        kernel(host.scene, 1, **kw, **opts)
+        edit(host, 0)
+        edit(host, 1)
+        out[name] = (host, opts, kernel)
+    return out
+
+
+_EDIT_NAMES = ("random_balls + sphere BVH, sphere drag",
+               "sponza(), material colour", "sponza(), glass toggle",
+               "room2_scene + NEE, room box moved",
+               "metal, sphere move (spheres.cu)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _EDIT_NAMES)
+def test_edited_scene_kernel_matches_plain(edited, name):
+    """After live edits the kernel frame is bit-equal to its plain version
+    on the edited scene: the tables the kernel keeps (sphere and instance
+    rows written in place, the dropped ones rebuilt) agree with the scene
+    the plain version reads."""
+    host, opts, kernel = edited[name]
+    kw = dict(width=128, height=72, bounces=5, rays_per_pixel=1, skybox=True,
+              **opts)
+    ki, ks = kernel(host.scene, 1, **kw)
+    plain = render_spheres_plain if kernel is CUDA_SPHERES else render_plain
+    pi, ps = plain(host.scene, 1, **kw)
+    assert int(ks) == int(ps)
+    assert float((pi[..., :3] > 0).any(dim=-1).float().mean()) >= 0.1
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+def test_viewer_serves_png_frames_from_the_card():
+    """``ViewerServer`` over ``Engine(device="cuda")``: PNG frames of the
+    megakernel's renders, an edit through POST /input reaching the scene
+    on the card."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from ray_tracer_2_tpu_torch.engine import Engine
+    from ray_tracer_2_tpu_torch.scene.scenes import SceneName
+    from ray_tracer_2_tpu_torch.viewer.server import ViewerServer
+    _need_card()
+    eng = Engine(160, 90, initial_scene=SceneName.METAL,
+                 block_on_initial_scene=True, device="cuda")
+    vs = ViewerServer(eng, port=0)
+    CUDA_SPHERES.reset_counts()
+    t = threading.Thread(target=vs.serve_forever)
+    t.start()
+    deadline = time.monotonic() + 60
+    while (vs._httpd is None or vs._frame_id < 2) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    url = f"http://127.0.0.1:{vs._httpd.server_address[1]}"
+    png = urllib.request.urlopen(url + "/frame.png", timeout=30).read()
+    req = urllib.request.Request(url + "/input", method="POST", data=json.
+                                 dumps({"edit_entity": {
+                                     "kind": "sphere", "index": 1,
+                                     "centre": [0.25, 0.0, -1.0]}}).encode())
+    assert urllib.request.urlopen(req, timeout=30).status == 200
+    vs.shutdown()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert eng.scene_manager.scene.scene.sphere_pos[1].cpu().tolist() == \
+        [0.25, 0.0, -1.0]
+    assert CUDA_SPHERES.launches == eng._frame_counter > 0
     eng.scene_manager.shutdown()

@@ -400,3 +400,129 @@ def textured_box(assets, textured=("floor", "wall", "sphere"), cells=12,
     s.add_mesh(Transform(), MeshFromData(light),
                MaterialDefinition.new().emissive([1.0, 0.9, 0.8, 1.0], 6.0))
     return s
+
+
+# ---- live edits (tests/test_torch_scene_edit*.py): a case is a scene, how
+# the port instantiates it, and edits applied alike to the reference's
+# ``HostScene`` and the port's
+def quad_instance_scene():
+    """The reference's partial-edit scene (tests/test_scene_edit.py:87): one
+    rotated, stretched quad, in the port's API."""
+    from ray_tracer_2_tpu_torch.math.transform import Transform, \
+        quat_rotate_y
+    from ray_tracer_2_tpu_torch.scene.camera import CameraDescriptor
+    from ray_tracer_2_tpu_torch.scene.definition import (
+        MeshData, MeshFromData, SceneDefinition,
+    )
+    from ray_tracer_2_tpu_torch.scene.material import MaterialDefinition
+    s = SceneDefinition()
+    s.set_camera(CameraDescriptor(
+        transform=Transform.cam([0, 1, 4], [0, 0.5, 0]), fov=45.0,
+        focus_dist=4.0))
+    s.add_mesh(Transform(pos=[0, 0.5, 0], rot=quat_rotate_y(0.6),
+                         scale=[2.0, 1.0, 1.0]),
+               MeshFromData(MeshData.quad(), indices=[0, 1, 2, 0, 2, 3]),
+               MaterialDefinition.new().with_color([0.9, 0.2, 0.2, 1.0]))
+    return s
+
+
+def _rot_y(angle):
+    from ray_tracer_2_tpu_torch.math.transform import quat_rotate_y
+    return quat_rotate_y(angle)
+
+
+#: name -> (scene builder name in ``scenes`` or a function, port
+#: instantiation options, edits (kind, index, arguments), render options).
+#: Material ids of these asset-free scenes are entity indices.
+EDIT_CASES = {
+    "metal_sphere": ("metal", {}, [
+        ("sphere", 1, dict(centre=[0.0, 5.0, -1.0])),
+        ("sphere", 2, dict(radius=0.3))], {}),
+    "random_balls_sphere_bvh": ("random_balls", dict(sphere_bvh=True), [
+        ("sphere", 3, dict(centre=[0.2, 1.5, 0.4])),
+        ("sphere", 40, dict(radius=0.6))], {}),
+    "wide_colour": ("wide_bvh_scene", {}, [
+        ("material", 0, dict(color=(0.1, 0.2, 0.9, 1.0), smoothness=0.2))],
+        {}),
+    "wide_glass": ("wide_bvh_scene", {}, [
+        ("material", 0, dict(flag=1, ior=1.5))], {}),
+    "wide_emitter": ("wide_bvh_scene", {}, [
+        ("material", 1, dict(emission_color=(1.0, 0.9, 0.8, 1.0),
+                             emission_strength=4.0))], dict(nee=True)),
+    "quad_instance_partial": (quad_instance_scene, {}, [
+        ("instance", 0, dict(pos=[0.3, 0.5, 0.0])),
+        ("instance", 0, dict(rot=_rot_y(1.2))),
+        ("instance", 0, dict(scale=[1.5, 1.0, 1.0])),
+        ("instance", 0, dict(transform=dict(pos=[0.0, 0.4, 0.1])))], {}),
+    # instances 2 and 3 share the tables of 0 and 1 (material-id delta 2)
+    "shared_material": ("instances_scene", {}, [
+        ("material", 2, dict(color=(0.1, 0.9, 0.1, 1.0))),
+        ("material", 2, dict(flag=1, ior=1.4)),
+        ("material", 3, dict(flag=1, ior=1.4))], {}),
+    "balls_lights": ("balls", {}, [
+        ("sphere", 1, dict(centre=[9.0, 9.0, 9.0])),
+        ("sphere", 5, dict(centre=[1.0, 2.0, 3.0])),
+        ("material", 5, dict(emission_strength=0.0))], dict(nee=True)),
+    "room_lights": ("room", {}, [
+        ("instance", 0, dict(pos=[0.0, 1.0, 0.0]))], dict(nee=True)),
+}
+
+
+def scene_builder(name_or_fn):
+    from ray_tracer_2_tpu_torch.scene import scenes
+    return getattr(scenes, name_or_fn) if isinstance(name_or_fn, str) \
+        else name_or_fn
+
+
+def apply_edits(host, edits) -> None:
+    """Apply ``edits`` to a ``HostScene`` of either package (a whole
+    transform given as ``Transform`` arguments of that package)."""
+    for kind, index, kw in edits:
+        if kind == "sphere":
+            host.edit_sphere(index, **kw)
+        elif kind == "material":
+            host.edit_material(index, **kw)
+        else:
+            kw = dict(kw)
+            if "transform" in kw:
+                kw["transform"] = type(host.inst_transforms[0])(
+                    **kw["transform"])
+            host.edit_instance_transform(index, **kw)
+
+
+def edit_pair(case: str, monkeypatch, edited: bool = True):
+    """(reference ``HostScene``, port ``HostScene``) of ``EDIT_CASES[case]``,
+    both edited (unless ``edited`` is False). The reference reads its
+    sphere-BVH choice from ``RT2_SPHERE_BVH``, set here when the port's is
+    forced."""
+    build, port_kw, edits, _ = EDIT_CASES[case]
+    if port_kw.get("sphere_bvh"):
+        monkeypatch.setenv("RT2_SPHERE_BVH", "1")
+    ref, port = host_scene_pair(scene_builder(build)(), **port_kw)
+    monkeypatch.delenv("RT2_SPHERE_BVH", raising=False)
+    if edited:
+        apply_edits(ref, edits)
+        apply_edits(port, edits)
+    return ref, port
+
+
+#: the edit cases whose renders tests/test_torch_scene_edit_render.py holds;
+#: tests/test_torch_scene_edit_render_materials.py holds the rest
+GEOMETRY_EDITS = ("metal_sphere", "random_balls_sphere_bvh",
+                  "quad_instance_partial", "room_lights", "balls_lights")
+
+
+def check_edited_render(case: str, monkeypatch) -> None:
+    """The port's plain render of an edited scene against JAX's XLA
+    boundary at W x H, frame 1: at bounces 0 class (b), segments exact and
+    >= 99% of pixels within 1e-5; at bounces 2 class (c) as the XLA
+    boundary holds it, segments within 0.5% and >= 99% of pixels."""
+    ref, port = edit_pair(case, monkeypatch)
+    options = EDIT_CASES[case][3]
+    for bounces, seg_tol in ((0, 0.0), (2, 0.005)):
+        a, sa = ref_render(ref.render_scene, 1, fused=False, bounces=bounces,
+                           **options)
+        b, sb = port_render(port.scene, 1, bounces=bounces, **options)
+        assert np.isfinite(b).all()
+        assert abs(sa - sb) <= seg_tol * sa, (bounces, sa, sb)
+        assert frac_within(a, b) >= 0.99, (bounces, frac_within(a, b))
