@@ -93,6 +93,17 @@ a PNG from ``/frame.png``, the PNG push stream read for four seconds
 hotkey (frames through ``csrc/debug.cu``), then a clean shutdown; PNG
 encode ms and ``Engine``'s frame time on the same scene and size.
 
+Multi-card rendering (``sharded_path``; ``parallel/sharding.py``) runs on
+this one card over meshes that name it four times: row tiles through each
+kernel's row window (``spheres.cu``, the megakernel with and without NEE,
+``debug.cu``), a sample round and the 2 x 2 mesh at 1080p, ``Engine`` on
+``sponza()`` with a checkpoint and a restore; every frame bit-equal to the
+single-device frame it stands for, one launch a tile. It prints the 4-tile
+1080p frame's ms beside the single frame's, and the device count (on a
+host with several cards, the default mesh's frame across them). The twin
+of ``__graft_entry__.py`` (``graft_entry``: one progressive step, then
+the multi-card dry run) runs on the card too.
+
 Both render kernels are persistent: lanes refill from a pixel cursor and
 count their own work on the device. Each comparison also holds the
 megakernel's interior-row, leaf and child-box visits equal to the plain
@@ -132,6 +143,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 W, H, BOUNCES, FRAMES = 1920, 1080, 5, 6
@@ -586,63 +598,332 @@ def probe_entry(name, wrapper, replaces, launches, records) -> dict:
     return e
 
 
-def time_to_spp(scene, params):
-    """SPP progressive frames of one sample a pixel through
-    ``Renderer.render``; returns (seconds from the first frame to the last
+def whole(framebuffer) -> torch.Tensor:
+    """A renderer's framebuffer as one tensor on its home device: gathered
+    from its row blocks where it lies on a mesh (``ShardedFramebuffer``)."""
+    from ray_tracer_2_tpu_torch.parallel import ShardedFramebuffer
+    return framebuffer.gather() \
+        if isinstance(framebuffer, ShardedFramebuffer) else framebuffer
+
+
+def time_to_spp(renderer, scene, params, spp=SPP):
+    """``spp`` progressive frames of one sample a pixel through
+    ``renderer.render``; returns (seconds from the first frame to the last
     one's end, mean of the final image's rgb over all pixels)."""
-    from ray_tracer_2_tpu_torch.engine.renderer import Renderer
-    renderer = Renderer(device="cuda")
-    torch.cuda.synchronize()
+    renderer.synchronize()
     t0 = time.perf_counter()
-    for f in range(SPP):
+    for f in range(spp):
         renderer.render(scene, dataclasses.replace(params, frames=f))
-    torch.cuda.synchronize()
+    renderer.synchronize()
     sec = time.perf_counter() - t0
-    fb = renderer.framebuffer
+    fb = whole(renderer.framebuffer)
     check(bool(torch.isfinite(fb).all()), "converged image finite")
     return sec, float(fb[..., :3].double().mean())
 
 
-def sample_variance(scene, params) -> float:
+def sample_variance(renderer, scene, params,
+                    frames=SPP_VAR_FRAMES) -> float:
     """Per-sample variance of the rgb of each pixel, averaged over the
-    image, from the SPP_VAR_FRAMES first frames of ``Renderer.render``: each
+    image, from the ``frames`` first frames of ``renderer.render``: each
     frame's own sample is read off the accumulation (frame f's buffer times
     f + 1 less frame f - 1's times f, in float64)."""
-    from ray_tracer_2_tpu_torch.engine.renderer import Renderer
-    renderer = Renderer(device="cuda")
     s1 = s2 = prev = None
-    for f in range(SPP_VAR_FRAMES):
-        fb = renderer.render(scene, dataclasses.replace(params, frames=f))
+    for f in range(frames):
+        fb = whole(renderer.render(scene,
+                                   dataclasses.replace(params, frames=f)))
         fb = fb[..., :3].double()
         raw = fb if f == 0 else fb * (f + 1) - prev * f
         s1 = raw if s1 is None else s1 + raw
         s2 = raw * raw if s2 is None else s2 + raw * raw
         prev = fb.clone()
-    n = SPP_VAR_FRAMES
-    return float(((s2 - s1 * s1 / n) / (n - 1)).mean())
+    return float(((s2 - s1 * s1 / frames) / (frames - 1)).mean())
 
 
-def drive(renderer, scene, params):
-    """FRAMES progressive frames through ``Renderer.render``, frames 2-5
-    timed on the host clock after a synchronise. Returns (seconds of the
-    timed frames, segments of each frame)."""
+def drive(renderer, scene, params, frames=FRAMES):
+    """``frames`` progressive frames through ``renderer.render``, frames 2
+    and on timed on the host clock after a synchronise of every device the
+    renderer uses. Returns (seconds of the timed frames, segments of each
+    frame)."""
     segs = []
     t_start = None
-    for f in range(FRAMES):
+    for f in range(frames):
         if f == 2:
-            torch.cuda.synchronize()
+            renderer.synchronize()
             t_start = time.perf_counter()
         renderer.render(scene, dataclasses.replace(params, frames=f))
         segs.append(renderer.last_segments)
-    torch.cuda.synchronize()
+    renderer.synchronize()
     dt = time.perf_counter() - t_start
     fb = renderer.read_framebuffer()
-    check(bool(torch.isfinite(renderer.framebuffer).all()),
-          "framebuffer finite")
+    check(bool(np.isfinite(fb).all()), "framebuffer finite")
     check(float(abs(fb).max()) > 0.0, "framebuffer not all zero")
     segs = [int(s) for s in segs]
-    check(sum(segs) >= W * H * FRAMES, "at least one segment per pixel")
+    check(sum(segs) >= params.width * params.height * frames,
+          "at least one segment per pixel")
     return dt, segs
+
+
+def frame_ms(renderer, scene, params, n=10) -> float:
+    """Host ms a progressive frame through ``renderer.render``: one frame,
+    then ``n`` more between two synchronisations of every device the
+    renderer uses."""
+    renderer.render(scene, params)
+    renderer.synchronize()
+    t0 = time.perf_counter()
+    for f in range(1, n + 1):
+        renderer.render(scene, dataclasses.replace(params, frames=f))
+    renderer.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def tile_split(scene, fkw, tiles=4, frames=5) -> dict:
+    """Where a row-tiled frame's device time goes, from CUDA events on the
+    current stream: before and after each tile's ``render_sample`` (its
+    kernel with the wrapper's set-up) and after its blend into the
+    framebuffer, for the frame as one tile and as ``tiles`` row tiles one
+    after another, frames 1 to ``frames``. Per layout: each tile's render
+    ms (mean over the frames) and its segments (last frame), the blends'
+    ms, the gaps between one tile's blend and the next tile's render (the
+    card waiting for the host) and the whole frame's ms."""
+    from ray_tracer_2_tpu_torch.engine.renderer import (
+        blend, blend_weight, render_sample,
+    )
+    h, w = fkw["height"], fkw["width"]
+    out = {}
+    for n in (1, tiles):
+        block = h // n
+        fb = torch.zeros((h, w, 4), dtype=torch.float32, device="cuda")
+        render, blends, gaps, whole_ms = [], [], [], []
+        for f in range(1, frames + 1):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(3 * n)]
+            segs = []
+            for i in range(n):
+                ev[3 * i].record()
+                sample, sg = render_sample(scene, f, row_start=i * block,
+                                           rows=block, **fkw)
+                ev[3 * i + 1].record()
+                blend(fb[i * block:(i + 1) * block], sample, blend_weight(f))
+                ev[3 * i + 2].record()
+                segs.append(sg)
+            torch.cuda.synchronize()
+            render.append([ev[3 * i].elapsed_time(ev[3 * i + 1])
+                           for i in range(n)])
+            blends.append(sum(ev[3 * i + 1].elapsed_time(ev[3 * i + 2])
+                              for i in range(n)))
+            gaps.append(sum(ev[3 * i - 1].elapsed_time(ev[3 * i])
+                            for i in range(1, n)))
+            whole_ms.append(ev[0].elapsed_time(ev[-1]))
+        tile_ms = [sum(r[i] for r in render) / frames for i in range(n)]
+        out[f"tiles{n}"] = dict(
+            render_ms=tile_ms, render_sum_ms=sum(tile_ms),
+            segments=[int(x) for x in segs],
+            blend_ms=sum(blends) / frames, gap_ms=sum(gaps) / frames,
+            frame_ms=sum(whole_ms) / frames)
+    return out
+
+
+def auto_mesh_frames(scene, params, device="cuda"):
+    """``Renderer()``'s default mesh on this host (``auto``: the distinct
+    cards) beside one device, each through ``frame_ms``: the mesh, both
+    ms a frame and whether the two final frames are bit-equal. None where
+    the default adopts no mesh (one card)."""
+    from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+    auto = Renderer(device=device)
+    auto.ensure_framebuffer(params.width, params.height)
+    if auto.mesh is None:
+        return None
+    one = Renderer(device=device, mesh=None)
+    auto_ms = frame_ms(auto, scene, params)
+    one_ms = frame_ms(one, scene, params)
+    got = auto.read_framebuffer()
+    check(bool(np.isfinite(got).all()), "auto mesh: framebuffer finite")
+    return dict(mesh=[str(d) for d in auto.mesh.devices],
+                auto_mesh_ms=auto_ms, one_device_ms=one_ms,
+                bit_equal=got.tobytes() == one.read_framebuffer().tobytes())
+
+
+def sharded_path(card, main_scene, room2_small, kernels, zero_counts) -> dict:
+    """The multi-card layouts of ``parallel/sharding.py`` on the card, over
+    meshes that name it several times (the one-card stand-in for several
+    cards; the reference's tests force 8 host devices the same way): row
+    tiles 4 x 1 (``metal`` through ``csrc/spheres.cu``, the main path's
+    scene at 1080p and room2's small cell without and with NEE through the
+    megakernel, the main path's scene in debug mode 1 through
+    ``csrc/debug.cu``), each frame bit-equal to ``Renderer(mesh=None)``'s
+    with equal segments and one launch a tile; a sample round over 4,
+    bit-equal to the mean of the four single-device frames composed on the
+    host in the same order; the 2 x 2 mesh, bit-equal to the composition of
+    the reference's ``test_hybrid_mesh_matches_composed_single_device``;
+    ``Engine`` on ``sponza()`` over the 4 x 1 mesh, checkpointed and
+    restored bit-equal. Then the 4-tile 1080p main-path frame against the
+    single frame, through ``Renderer.render``, and where its device time
+    goes (``tile_split``); and, on a host with several cards, the default
+    mesh's frame across them beside one card's, bit-equal to it
+    (``auto_mesh_frames``)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
+    from ray_tracer_2_tpu_torch.engine import Engine
+    from ray_tracer_2_tpu_torch.engine.checkpoint import (
+        restore_engine, save_checkpoint,
+    )
+    from ray_tracer_2_tpu_torch.engine.renderer import (
+        Renderer, blend_weight, render_sample,
+    )
+    from ray_tracer_2_tpu_torch.parallel import (
+        auto_mesh, make_render_mesh, make_render_mesh2d,
+        render_frame_hybrid_sharded, render_frame_spp_sharded,
+        shard_framebuffer,
+    )
+    from ray_tracer_2_tpu_torch.scene import scenes
+    from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
+    from ray_tracer_2_tpu_torch.scene.scenes import SceneName
+    n_cards = torch.cuda.device_count()
+    check(n_cards > 1 or auto_mesh(H) is None,
+          "one card: the default mesh adopts nothing")
+    rows4 = make_render_mesh(devices=["cuda:0"] * 4)
+    kw = dict(rays_per_pixel=1, skybox=True)
+    out = dict(card=card, device_count=n_cards)
+
+    def launched():
+        return {k: w.launches for k, w in kernels.items()}
+
+    # row tiles, 4 x 1: two progressive frames each
+    metal = instantiate_scene(scenes.metal()).to("cuda")
+    tiles = []
+    for name, sc, w, h, opts, kname in (
+            ("metal", metal, SMALL_W, SMALL_H, {}, "spheres"),
+            ("main_path_scene", main_scene, W, H, {}, "megakernel"),
+            ("room2_scene (12x12 soup)", room2_small, SMALL_W, SMALL_H, {},
+             "megakernel"),
+            ("room2_scene (12x12 soup), NEE", room2_small, SMALL_W, SMALL_H,
+             dict(nee=True), "megakernel"),
+            ("main_path_scene, debug mode 1", main_scene, W, H,
+             dict(debug_mode=DebugMode.NORMALS), "debug")):
+        single, sharded = Renderer(device="cuda", mesh=None), \
+            Renderer(device="cuda", mesh=rows4)
+        for f in range(2):
+            p = RenderParams(width=w, height=h, bounces=BOUNCES, frames=f,
+                             **opts)
+            want = single.render(sc, p)
+            zero_counts()
+            got = sharded.render(sc, p)
+            n = launched()
+            check(n[kname] == 4 and sum(n.values()) == 4,
+                  f"sharded {name}: one {kname} launch a tile: {n}")
+            check(torch.equal(got.gather(), want),
+                  f"sharded {name}, frame {f}: bit-equal to one device")
+            check(int(sharded.last_segments) == int(single.last_segments),
+                  f"sharded {name}, frame {f}: segments equal")
+        tiles.append(dict(scene=name, width=w, height=h, kernel=kname,
+                          tiles=4, launches_per_frame=4,
+                          segments=int(sharded.last_segments),
+                          bit_equal=True))
+    out["row_tiles"] = tiles
+
+    # a sample round over 4 at 1080p, round 1 (weight 4 / 8)
+    fkw = dict(width=W, height=H, bounces=BOUNCES, **kw)
+    fb = torch.zeros((H, W, 4), dtype=torch.float32, device="cuda")
+    zero_counts()
+    got, segs = render_frame_spp_sharded(main_scene, fb, 1, mesh=rows4,
+                                         **fkw)
+    n = launched()
+    check(n["megakernel"] == 4 and sum(n.values()) == 4,
+          f"sample round: four megakernel launches: {n}")
+    samples = [render_sample(main_scene, 4 + j, **fkw) for j in range(4)]
+    acc = samples[0][0].cpu().numpy()
+    for smp, _ in samples[1:]:
+        acc = acc + smp.cpu().numpy()
+    four = np.float32(4)
+    w = four / (np.float32(1) * four + four)
+    want = np.zeros((H, W, 4), np.float32) * (np.float32(1) - w) \
+        + (acc / four) * w
+    check(got.cpu().numpy().tobytes() == want.tobytes(),
+          "sample round: bit-equal to the host's mean of the four frames")
+    check(int(segs) == sum(int(x) for _, x in samples),
+          "sample round: segments summed")
+    out["sample_round"] = dict(width=W, height=H, devices=4, frames=1,
+                               segments=int(segs), bit_equal=True)
+
+    # the 2 x 2 mesh at 1080p, round 2 (weight 1 / 3)
+    mesh2 = make_render_mesh2d(2, 2, ["cuda:0"] * 4)
+    fb = shard_framebuffer(torch.zeros((H, W, 4), dtype=torch.float32,
+                                       device="cuda"), mesh2)
+    zero_counts()
+    got, segs = render_frame_hybrid_sharded(main_scene, fb, 2, mesh=mesh2,
+                                            **fkw)
+    n = launched()
+    check(n["megakernel"] == 4 and sum(n.values()) == 4,
+          f"2 x 2 mesh: four megakernel launches: {n}")
+    samples = [render_sample(main_scene, 2 * 2 + j, **fkw) for j in range(2)]
+    mean = (samples[0][0].cpu().numpy() + samples[1][0].cpu().numpy()) \
+        / np.float32(2)
+    w = blend_weight(2)
+    want = np.zeros((H, W, 4), np.float32) * (np.float32(1) - w) + mean * w
+    check(got.cpu().numpy().tobytes() == want.tobytes(),
+          "2 x 2 mesh: bit-equal to the composed single-device frames")
+    check(int(segs) == sum(int(x) for _, x in samples),
+          "2 x 2 mesh: segments summed over both axes (each sample's row "
+          "blocks make up its whole frame)")
+    out["hybrid_2x2"] = dict(width=W, height=H, frames=2,
+                             segments=int(segs), bit_equal=True)
+
+    # Engine over the 4 x 1 mesh on sponza: still frames, a checkpoint, a
+    # restore into a new engine's row blocks
+    def engine():
+        return Engine(W, H, initial_scene=SceneName.SPONZA,
+                      block_on_initial_scene=True, device="cuda", mesh=rows4)
+
+    zero_counts()
+    eng = engine()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "sharded.npz"
+        for _ in range(3):
+            eng.update(dt=0.016)
+        host = eng.scene_manager.scene
+        save_checkpoint(ck, eng.renderer.framebuffer, eng.params,
+                        scene_name="Sponza", camera=host.camera)
+        for _ in range(3):
+            eng.update(dt=0.016, sync=True)
+        n = launched()
+        check(n["megakernel"] == 24 and sum(n.values()) == 24,
+              f"engine on a mesh: 4 launches a frame in 6 frames: {n}")
+        resumed = engine()
+        restore_engine(resumed, ck)
+        for _ in range(3):
+            resumed.update(dt=0.016, sync=True)
+        check(resumed.params.frames == eng.params.frames
+              and resumed.renderer.read_framebuffer().tobytes()
+              == eng.renderer.read_framebuffer().tobytes(),
+              "engine on a mesh: restored and resumed bit-equal")
+    blocks = [tuple(b.shape) for b in eng.renderer.framebuffer.blocks]
+    for e in (eng, resumed):
+        e.scene_manager.shutdown()
+    out["engine"] = dict(scene="sponza()", width=W, height=H, frames=6,
+                         blocks=blocks, resumed_bit_equal=True)
+
+    # times: the 4-tile 1080p main-path frame against the single frame,
+    # through Renderer.render, single / tiles / tiles / single
+    params = RenderParams(width=W, height=H, bounces=BOUNCES)
+    runs = {"single": [], "tiles4": []}
+    for which in ("single", "tiles4", "tiles4", "single"):
+        runs[which].append(frame_ms(Renderer(
+            device="cuda", mesh=None if which == "single" else rows4),
+            main_scene, params))
+    out["main_path_1080p_ms"] = dict(
+        single=runs["single"], tiles4=runs["tiles4"],
+        tail_ms=sum(runs["tiles4"]) / 2 - sum(runs["single"]) / 2)
+    out["main_path_1080p_split"] = tile_split(main_scene, fkw)
+    cards = auto_mesh_frames(main_scene, params)
+    check(cards is None or cards["bit_equal"],
+          f"the default mesh across {n_cards} cards: bit-equal to one card")
+    if cards is not None:
+        out["cards"] = cards
+    return out
 
 
 def edit_cases(scenes, instantiate_host_scene):
@@ -1033,7 +1314,7 @@ def main() -> int:
             k.reset_counts()
 
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), main_scene, params)
+    dt, segs = drive(Renderer(device="cuda", mesh=None), main_scene, params)
     launches = CUDA_MEGAKERNEL.launches
     check(launches == FRAMES, f"megakernel launched {launches} times in "
                               f"{FRAMES} main-path frames")
@@ -1051,7 +1332,7 @@ def main() -> int:
 
     # ---- 5. the small-scene path ------------------------------------------
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), rballs, params)
+    dt, segs = drive(Renderer(device="cuda", mesh=None), rballs, params)
     sph_launches = CUDA_SPHERES.launches
     check(sph_launches == FRAMES, f"spheres kernel launched {sph_launches} "
                                   f"times in {FRAMES} small-scene frames")
@@ -1066,7 +1347,7 @@ def main() -> int:
 
     # ---- 5b. the sphere-scene path: Renderer -> megakernel, dense loop ----
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), rballs,
+    dt, segs = drive(Renderer(device="cuda", mesh=None), rballs,
                      dataclasses.replace(params, antialias=True))
     ball_launches = CUDA_MEGAKERNEL.launches
     check(ball_launches == FRAMES, f"megakernel launched {ball_launches} "
@@ -1086,7 +1367,7 @@ def main() -> int:
 
     # ---- 6. the room2 path ------------------------------------------------
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), room2, params)
+    dt, segs = drive(Renderer(device="cuda", mesh=None), room2, params)
     room2_launches = CUDA_MEGAKERNEL.launches
     # the kernel's own counts: closest-hit calls of the brute.cuh loop (one
     # per segment and brute-force group) and launches that made any
@@ -1116,7 +1397,7 @@ def main() -> int:
 
     # ---- 6b. next-event estimation: Renderer -> the megakernel's NEE form
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), room2,
+    dt, segs = drive(Renderer(device="cuda", mesh=None), room2,
                      dataclasses.replace(params, nee=True))
     nee_launches = CUDA_MEGAKERNEL.nee_launches
     counts = CUDA_MEGAKERNEL.read_counts()
@@ -1149,7 +1430,7 @@ def main() -> int:
                 CUDA_MEGAKERNEL, render_plain, kernel="megakernel")
     for flag in (False, True):
         zero_counts()
-        dt, segs = drive(Renderer(device="cuda"), sponza,
+        dt, segs = drive(Renderer(device="cuda", mesh=None), sponza,
                          dataclasses.replace(params, nee=flag))
         counts = CUDA_MEGAKERNEL.read_counts()
         check(CUDA_MEGAKERNEL.launches == FRAMES
@@ -1174,7 +1455,7 @@ def main() -> int:
              ms_per_frame=dt * 1e3 / (FRAMES - 2),
              mrays_per_s=sum(segs[2:]) / dt / 1e6, card=card)
     zero_counts()
-    dt, segs = drive(Renderer(device="cuda"), atrium_1k,
+    dt, segs = drive(Renderer(device="cuda", mesh=None), atrium_1k,
                      dataclasses.replace(params, nee=True))
     tex_launches = CUDA_MEGAKERNEL.tex_launches
     counts = CUDA_MEGAKERNEL.read_counts()
@@ -1201,12 +1482,13 @@ def main() -> int:
     spp = {}
     for flag in (False, True):
         zero_counts()
-        sec, mean = time_to_spp(room, dataclasses.replace(params, nee=flag))
+        p = dataclasses.replace(params, nee=flag)
+        sec, mean = time_to_spp(Renderer(device="cuda", mesh=None), room, p)
         launched = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.nee_launches)
         check(launched == ((0, SPP) if flag else (SPP, 0)),
               f"time to {SPP} spp, nee={flag}: launches {launched}")
         spp[flag] = dict(seconds=sec, mean=mean, variance=sample_variance(
-            room, dataclasses.replace(params, nee=flag)))
+            Renderer(device="cuda", mesh=None), room, p))
     check(abs(spp[True]["mean"] - spp[False]["mean"])
           <= 0.03 * spp[False]["mean"],
           f"NEE's mean {spp[True]['mean']} within 3% of plain path "
@@ -1225,7 +1507,7 @@ def main() -> int:
     # only, one launch a frame
     from ray_tracer_2_tpu_torch.config import DebugMode
     zero_counts()
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for mode in range(1, 8):
@@ -1254,7 +1536,8 @@ def main() -> int:
     from ray_tracer_2_tpu_torch.scene.scenes import SceneName
     zero_counts()
     t0 = time.perf_counter()
-    eng = Engine(W, H, initial_scene=SceneName.SPONZA, device="cuda")
+    eng = Engine(W, H, initial_scene=SceneName.SPONZA, device="cuda",
+                 mesh=None)
     while eng.update(dt=0.016) is None:
         check(time.perf_counter() - t0 < 120, "sponza loaded in the "
                                               "background")
@@ -1292,7 +1575,7 @@ def main() -> int:
     fresh_def = scenes.sponza()
     fresh_def.camera.transform = host.camera.transform.copy()
     fresh = instantiate_scene(fresh_def).to("cuda")
-    want = Renderer(device="cuda").render(
+    want = Renderer(device="cuda", mesh=None).render(
         fresh, dataclasses.replace(eng.params, frames=0))
     check(eng.params.frames == 0 and torch.equal(first, want),
           "engine: the first still frame after the move bit-equal to a "
@@ -1390,7 +1673,7 @@ def main() -> int:
         # 1080p: still frames, then ticks of edit + the next frame (the
         # viewer resets accumulation on an edit); the device idle before
         # each edit, so the edit's host time is its own
-        renderer = Renderer(device="cuda")
+        renderer = Renderer(device="cuda", mesh=None)
         params_e = dataclasses.replace(params, **opts)
         ticks = 4 if "glass" in name else 8
         zero_counts()
@@ -1446,7 +1729,7 @@ def main() -> int:
     import threading
     VW, VH = 960, 540
     eng = Engine(VW, VH, initial_scene=SceneName.SPONZA,
-                 block_on_initial_scene=True, device="cuda")
+                 block_on_initial_scene=True, device="cuda", mesh=None)
     vs = ViewerServer(eng, port=0)
     zero_counts()
     server = threading.Thread(target=vs.serve_forever)
@@ -1544,6 +1827,31 @@ def main() -> int:
          host_ms_per_frame=read_ms + srgb_ms + sorted(enc)[1],
          launches=viewer_launches, frames=total_frames,
          ws_input=True, edit_entity=True, card=card)
+
+    # ---- 6j. the multi-card layouts over meshes that repeat the card
+    sharded = sharded_path(card, main_scene, room2_small, dict(
+        megakernel=CUDA_MEGAKERNEL, spheres=CUDA_SPHERES, debug=CUDA_DEBUG,
+        brute=CUDA_BRUTE), zero_counts)
+    emit(phase="sharded_path", **sharded)
+
+    # ---- 6k. the twin of __graft_entry__.py on the card: one progressive
+    # step (bit-equal to Renderer's frame), then the multi-card dry run over
+    # a mesh that names the card four times
+    from ray_tracer_2_tpu_torch import graft_entry
+    zero_counts()
+    fn, (g_scene, g_fb, g_frames, g_scale) = graft_entry.entry("cuda")
+    step = fn(g_scene, g_fb, g_frames, g_scale)
+    want = Renderer(device="cuda", mesh=None).render(g_scene, RenderParams(
+        width=graft_entry.W, height=graft_entry.H, bounces=3,
+        frames=g_frames))
+    check(torch.equal(step, want), "graft entry: the step bit-equal to "
+                                   "Renderer's frame")
+    runs = graft_entry.dryrun_multichip(4, device="cuda")
+    emit(phase="graft_entry", entry_shape=list(step.shape),
+         dryrun={k: dict(shape=list(v[0].shape), segments=v[1])
+                 for k, v in runs.items()},
+         launches=dict(megakernel=CUDA_MEGAKERNEL.launches,
+                       spheres=CUDA_SPHERES.launches), card=card)
 
     # ---- 7. the probes ------------------------------------------------------
     zero_counts()

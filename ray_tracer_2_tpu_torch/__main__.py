@@ -6,7 +6,10 @@ sample, the accumulation protocol of ray_tracer.wgsl:154-161), write a
 gamma-encoded PNG, and optionally checkpoint and resume the accumulation
 (``engine/checkpoint.py``: the resume is bit-exact, since every draw is a
 counter hash of (pixel, frame); the checkpoint loads in either package).
-It renders on the card unless ``--device cpu`` asks for the CPU.
+It renders on the card unless ``--device cpu`` asks for the CPU. On a host
+with several cards it renders row-sharded over them, through ``Renderer``'s
+default mesh (``parallel/sharding.py:auto_mesh``), as the reference's does;
+there is no flag for it.
 
 Examples:
     python -m ray_tracer_2_tpu_torch --scene room --spp 256 -o room.png

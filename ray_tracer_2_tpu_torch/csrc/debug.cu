@@ -117,7 +117,7 @@ debug_kernel(Params p, TexParams tex, int mode, float scale, int* visits) {
   const float* sc = p.scal;
   const float* cam = sc + kScCam;
   int px = pix % p.width;
-  int py = pix / p.width;
+  int py = p.row_start + pix / p.width;
   float w1 = (float)max(p.width - 1, 1);
   float h1 = (float)max(p.height - 1, 1);
   float u0 = (float)px / w1, u1 = (float)py / h1;
@@ -194,19 +194,20 @@ debug_kernel(Params p, TexParams tex, int mode, float scale, int* visits) {
 // kSphBvh, with `sphere_root` the sphere BVH's root row), `brute` the
 // brute-force rows as stage_row makes them (kernels/brute.py
 // stage_brute_rows), `texels` the atlas one int4 a texel and `tex_meta`
-// its 64 slot rows. Writes `height` x `width` colours to `out` (4 floats a
-// pixel) and counts to `visits` (2 ints a pixel: child boxes tested,
+// its 64 slot rows. Renders the `rows` image rows from `row_start` of a
+// `width` x `height` image: writes rows x width colours to `out` (4 floats
+// a pixel) and counts to `visits` (2 ints a pixel: child boxes tested,
 // triangles tested). `wide_rows`, `brute` and `texels` must be 16-byte
 // aligned. Returns cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_debug(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
-    int height, int spheres_mode, int sphere_root,
+    int height, int row_start, int rows, int spheres_mode, int sphere_root,
     const int* texels, int n_texels, const float* tex_meta, int debug_mode,
     float debug_scale, float* out, int* visits, void* stream) {
   if (n_spheres < 0 || n_inst < 0 || n_brute < 0 || width < 1 ||
-      height < 1 ||
+      height < 1 || row_start < 0 || rows < 1 || row_start + rows > height ||
       n_texels < 64 ||
       (((uintptr_t)wide_rows | (uintptr_t)brute | (uintptr_t)texels) &
        15u) != 0u)
@@ -228,7 +229,8 @@ extern "C" int rt2_render_debug(
   p.n_brute = n_brute;
   p.width = width;
   p.height = height;
-  p.total = height * width;
+  p.row_start = row_start;
+  p.total = rows * width;
   TexParams tex;
   tex.texels = reinterpret_cast<const int4*>(texels);
   tex.meta = tex_meta;

@@ -23,8 +23,8 @@ from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 
 def save_checkpoint(path, framebuffer, params: RenderParams, *,
                     scene_name: str | None = None, camera=None) -> None:
-    """``framebuffer``: (H, W, 4) float32, a tensor on any device or an
-    array; ``camera``: a scene ``Camera``."""
+    """``framebuffer``: (H, W, 4) float32, a tensor on any device, a
+    ``ShardedFramebuffer`` or an array; ``camera``: a scene ``Camera``."""
     meta = dict(
         params={f.name: (int(getattr(params, f.name))
                          if not isinstance(getattr(params, f.name), bool)
@@ -65,8 +65,10 @@ def load_checkpoint(path) -> dict:
 
 def restore_engine(engine, path) -> None:
     """Resume a progressive render in an ``Engine``: the framebuffer, on
-    the renderer's device, the parameters with their frame counter, and
-    the camera pose of the loaded scene."""
+    the renderer's device or, on a mesh, into its row blocks on their
+    devices (``ShardedFramebuffer.copy_``; the reference reshards it,
+    ``ray_tracer_2_tpu/engine/checkpoint.py:72-76``), the parameters with
+    their frame counter, and the camera pose of the loaded scene."""
     ckpt = load_checkpoint(path)
     engine.params = ckpt["params"]
     engine.renderer.ensure_framebuffer(ckpt["params"].width,

@@ -10,12 +10,14 @@ the resolution with 1 bounce while the camera moves (``for_render``; with
 ``adaptive_motion`` the scale tracks ``motion_target_ms``).
 
 Frames are dispatched without waiting by default: ``update`` returns once
-the frame is queued on the card, so host work overlaps device work. A CUDA
-event recorded after the frame settles it: the next ``update`` waits on it
-before dispatching (``synchronize``), a stats read only asks (``query``),
-and the frame's time and its exact segment count are read once it has
-settled. ``sync=True`` waits for the frame (``torch.cuda.synchronize``) and
-times it exactly. On the CPU every frame has settled when ``render``
+the frame is queued on the card, so host work overlaps device work. CUDA
+events recorded after the frame, one on each card the frame ran on (the
+renderer's mesh, ``Renderer(mesh=)``, several cards by default on a host
+that has them), settle it: the next ``update`` waits on them before
+dispatching (``synchronize``), a stats read only asks (``query``), and the
+frame's time and its exact segment count are read once it has settled.
+``sync=True`` waits for the frame on every card (``Renderer.synchronize``)
+and times it exactly. On the CPU every frame has settled when ``render``
 returns.
 
 Live edits (``HostScene.edit_*``, from the viewer's input threads) hold the
@@ -89,26 +91,33 @@ class FrameStats:
 
 
 class _Settled:
-    """What a frame on the CPU leaves to wait on: nothing."""
+    """What a frame leaves to wait on: the events recorded after it, one
+    on each card it ran on (none on the CPU)."""
+
+    def __init__(self, events=()):
+        self.events = list(events)
 
     def query(self) -> bool:
-        return True
+        return all(ev.query() for ev in self.events)
 
     def synchronize(self) -> None:
-        pass
+        for ev in self.events:
+            ev.synchronize()
 
 
 class Engine:
     """engine.rs:216-264: the subsystems, and the initial scene loaded in
     the background (CornellBox, skybox on, 5 bounces, 1 ray a pixel —
     engine.rs:241-251). Renders on ``device``, the card unless the caller
-    asks for the CPU."""
+    asks for the CPU, over ``mesh`` (``Renderer``'s: ``"auto"`` adopts the
+    host's cards, ``None`` keeps one device, a ``RenderMesh`` pins one)."""
 
     def __init__(self, width: int = RENDER_SIZE[0],
                  height: int = RENDER_SIZE[1],
                  assets: AssetManager | None = None,
                  initial_scene: SceneName | None = SceneName.CORNELL_BOX,
-                 block_on_initial_scene: bool = False, device="cuda"):
+                 block_on_initial_scene: bool = False, device="cuda",
+                 mesh="auto"):
         self.device = torch.device(device)
         self.params = RenderParams(width=width, height=height, bounces=5,
                                    rays_per_pixel=1, skybox=True, frames=0,
@@ -116,7 +125,7 @@ class Engine:
         self._base_resolution = (width, height)
         self.assets = assets or AssetManager()
         self.scene_manager = SceneManager(self.assets, device=self.device)
-        self.renderer = Renderer(device=self.device)
+        self.renderer = Renderer(device=self.device, mesh=mesh)
         self.timing = FrameTiming()
         self.stats = FrameStats()
         self._frame_counter = 0
@@ -191,8 +200,7 @@ class Engine:
             t0 = time.perf_counter()
             fb = self.renderer.render(host.scene, render_params)
         if sync:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self.renderer.synchronize()
             self._last_render_s = time.perf_counter() - t0
             self._timing_exact = True
         else:
@@ -205,13 +213,17 @@ class Engine:
         self._scene_for_stats = host
         return fb
 
-    def _frame_event(self):
-        """An event recorded after the frame just dispatched."""
-        if self.device.type != "cuda":
-            return _Settled()
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
+    def _frame_event(self) -> _Settled:
+        """Events recorded after the frame just dispatched, one on each card
+        of the renderer's mesh."""
+        mesh = self.renderer.mesh
+        events = []
+        for dev in (mesh.distinct if mesh is not None else (self.device,)):
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                events.append(ev)
+        return _Settled(events)
 
     def _settle_pending(self, block: bool = True) -> None:
         # called from the render loop (block=True) and from stats reads on

@@ -57,6 +57,10 @@ times every cell: one warm-up launch, then ``--reps`` launches of frames 0,
   (the normal-map quad, flag ``+nm``: normal maps on); ``flat_atrium`` and
   ``flat_atrium_untextured`` (``_flat_atrium``: the same paths with and
   without texture taps), with and without NEE;
+* ``main_path_scene`` and ``room2_scene`` at bounces 5 through
+  ``Renderer.render`` (kernel ``renderer``: routing, blend and segment
+  count included; the renderer's default mesh, none on one card), and the
+  debug kernel in mode 1 on ``main_path_scene`` (kernel ``debug``);
 * the standalone brute-force kernel on 2,073,600 seeded rays x 256
   triangles (kernel ``brute``), and on the first 256, 512 and all 600
   triangles of a 600-triangle table (three staged chunks): what staging a
@@ -126,6 +130,52 @@ def _cells():
                  "flat_atrium_untextured+nee"):
         yield "megakernel", name, 5
     yield "spheres", "balls", 0
+    # the main path and room2 through Renderer.render (its routing, blend
+    # and segment sum included), and the debug kernel in mode 1
+    for name in ("main_path_scene", "room2_scene"):
+        yield "renderer", name, 5
+    yield "debug", "main_path_scene", 0
+
+
+class _ThroughRenderer:
+    """Cells ``renderer``: frames through ``Renderer.render`` on the card
+    (default mesh), one renderer per frame size."""
+
+    counts = ()
+
+    def __init__(self):
+        self._renderers = {}
+
+    def reset_counts(self) -> None:
+        pass
+
+    def __call__(self, scene, frames, *, bounces, width, height, **kw):
+        from ray_tracer_2_tpu_torch.config import RenderParams
+        from ray_tracer_2_tpu_torch.engine.renderer import Renderer
+        r = self._renderers.setdefault((width, height),
+                                       Renderer(device="cuda"))
+        fb = r.render(scene, RenderParams(width=width, height=height,
+                                          bounces=bounces, frames=frames,
+                                          **kw))
+        return fb, r.last_segments
+
+
+class _Debug:
+    """Cells ``debug``: one launch of the debug kernel in mode 1 (normals),
+    the whole frame; it traces no path segments."""
+
+    counts = ()
+
+    def reset_counts(self) -> None:
+        pass
+
+    def __call__(self, scene, frames, *, bounces, width, height, **kw):
+        import torch
+
+        from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG
+        img, _ = CUDA_DEBUG(scene, width=width, height=height, debug_mode=1,
+                            debug_scale=100.0)
+        return img, torch.zeros((), dtype=torch.int64, device=img.device)
 
 
 # scenes of the cells that are not a plain name of scenes.py
@@ -289,13 +339,15 @@ def _worker(tree: str, label: str, reps: int, only: str) -> None:
     here = Path(pkg.__file__).resolve().parents[1]
     if here != Path(tree).resolve():
         raise RuntimeError(f"imported the package of {here}, not {tree}")
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG
     kernels = dict(megakernel=CUDA_MEGAKERNEL, spheres=CUDA_SPHERES)
-    build_all(*kernels.values(), CUDA_BRUTE)
-    for name, k in dict(kernels, brute=CUDA_BRUTE).items():
+    build_all(*kernels.values(), CUDA_BRUTE, CUDA_DEBUG)
+    for name, k in dict(kernels, brute=CUDA_BRUTE, debug=CUDA_DEBUG).items():
         emit(phase="build", kernel=name, ptxas=[
             ln.strip() for ln in k.build_log.splitlines()
             if any(w in ln for w in ("entry function", "registers", "spill"))],
             sass=_sass_digests(k.source))
+    kernels.update(renderer=_ThroughRenderer(), debug=_Debug())
     built = {}
     kw0 = dict(width=W, height=H, rays_per_pixel=1, skybox=True)
     for kname, sname, b in _cells():

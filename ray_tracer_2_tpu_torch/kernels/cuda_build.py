@@ -172,14 +172,21 @@ def launch_on(dev: torch.device, fn, *args) -> int:
         return fn(*args, stream)
 
 
+def check_window(*, width: int, height: int, row_start: int,
+                 rows: int) -> None:
+    """Raise ``ValueError`` unless the ``rows`` image rows from
+    ``row_start`` lie in the image."""
+    if rows <= 0 or width <= 0 or row_start < 0 or row_start + rows > height:
+        raise ValueError(f"bad image window: rows {rows} from {row_start} "
+                         f"of {height}, width {width}")
+
+
 def check_launch(dev, *, width: int, height: int, row_start: int,
                  rows: int, **tables) -> None:
     """Raise ``ValueError`` unless the image window lies in the image and
     every table is a contiguous float32 tensor on ``dev``; a table given as
     ``(tensor, cols)`` must also be 2-D with ``cols`` columns."""
-    if rows <= 0 or width <= 0 or row_start < 0 or row_start + rows > height:
-        raise ValueError(f"bad image window: rows {rows} from {row_start} "
-                         f"of {height}, width {width}")
+    check_window(width=width, height=height, row_start=row_start, rows=rows)
     for name, (x, cols) in tables.items():
         if x.device != dev or x.dtype != torch.float32 \
                 or not x.is_contiguous() \

@@ -26,7 +26,7 @@ import torch
 
 from ray_tracer_2_tpu_torch.kernels.brute import stage_brute_rows
 from ray_tracer_2_tpu_torch.kernels.cuda_build import (
-    PKG, CudaKernel, check_aligned, check_launch, launch_on,
+    PKG, CudaKernel, check_aligned, check_launch, check_window, launch_on,
 )
 from ray_tracer_2_tpu_torch.kernels.megakernel import (
     BRUTE_STAGED, INST_COLS, PLAIN_CHUNK, SPHERE_COLS, _brute_ranges,
@@ -37,13 +37,15 @@ from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
 
 
 def render_debug(scene: TorchScene, *, width: int, height: int,
-                 debug_mode: int, debug_scale: float):
-    """The image of debug mode ``debug_mode``. Returns ((height, width, 4)
-    float32 colours, (height, width, 2) int32 counts: child boxes tested,
-    triangles tested) on the scene's device. CPU scenes take the plain
-    version; CUDA scenes take the kernel."""
+                 debug_mode: int, debug_scale: float, row_start: int = 0,
+                 rows: int | None = None):
+    """The image of debug mode ``debug_mode``, its ``rows`` image rows from
+    ``row_start`` (``width``/``height`` describe the full image). Returns
+    ((rows, width, 4) float32 colours, (rows, width, 2) int32 counts: child
+    boxes tested, triangles tested) on the scene's device. CPU scenes take
+    the plain version; CUDA scenes take the kernel."""
     kw = dict(width=width, height=height, debug_mode=debug_mode,
-              debug_scale=debug_scale)
+              debug_scale=debug_scale, row_start=row_start, rows=rows)
     if scene.device.type == "cpu":
         return render_debug_plain(scene, **kw)
     if scene.device.type == "cuda":
@@ -52,11 +54,16 @@ def render_debug(scene: TorchScene, *, width: int, height: int,
 
 
 def render_debug_plain(scene: TorchScene, *, width: int, height: int,
-                       debug_mode: int, debug_scale: float, modes=None):
+                       debug_mode: int, debug_scale: float,
+                       row_start: int = 0, rows: int | None = None,
+                       modes=None):
     """The plain PyTorch version of ``render_debug`` (any device). Given
     ``modes``, returns ({mode: colours} for each of them, counts) from one
     hit record instead."""
-    total = height * width
+    rows = height if rows is None else rows
+    check_window(width=width, height=height, row_start=row_start, rows=rows)
+    total = rows * width
+    first = row_start * width
     dev = scene.device
     want = [debug_mode] if modes is None else list(modes)
     out = {m: torch.empty((total, 4), dtype=torch.float32, device=dev)
@@ -64,14 +71,14 @@ def render_debug_plain(scene: TorchScene, *, width: int, height: int,
     counts = torch.empty((total, 2), dtype=torch.int32, device=dev)
     for c0 in range(0, total, PLAIN_CHUNK):
         pix = torch.arange(c0, min(c0 + PLAIN_CHUNK, total), device=dev)
-        hit = debug_hit(scene, pix % width, pix // width, width=width,
-                        height=height)
+        hit = debug_hit(scene, pix % width, (first + pix) // width,
+                        width=width, height=height)
         for m in want:
             out[m][pix] = debug_colors(scene, hit, m, debug_scale)
         counts[pix] = torch.stack([hit["boxes"], hit["tris"]],
                                   dim=1).to(torch.int32)
-    out = {m: c.reshape(height, width, 4) for m, c in out.items()}
-    counts = counts.reshape(height, width, 2)
+    out = {m: c.reshape(rows, width, 4) for m, c in out.items()}
+    counts = counts.reshape(rows, width, 2)
     return (out if modes is not None else out[debug_mode]), counts
 
 
@@ -83,7 +90,7 @@ class CudaDebug(CudaKernel):
     once per scene (kept in ``scene.derived``)."""
 
     symbol = "rt2_render_debug"
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_float]
                 + [ctypes.c_void_p] * 3)
@@ -92,11 +99,13 @@ class CudaDebug(CudaKernel):
         super().__init__(source)
 
     def __call__(self, scene: TorchScene, *, width: int, height: int,
-                 debug_mode: int, debug_scale: float):
+                 debug_mode: int, debug_scale: float, row_start: int = 0,
+                 rows: int | None = None):
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
         _require_eligible(scene)
+        rows = height if rows is None else rows
         tab = kernel_tables(scene)
         brute = tab["brute"]
         if tab["staged"]:     # packed rows, which the megakernel stages
@@ -106,8 +115,8 @@ class CudaDebug(CudaKernel):
                     stage_brute_rows(tab["brute"])
         n_brute = sum(c for _, c in _brute_ranges(scene))
         texels = scene.tex_quads
-        check_launch(dev, width=width, height=height, row_start=0,
-                     rows=height, wide_rows=(scene.wide_rows, 128),
+        check_launch(dev, width=width, height=height, row_start=row_start,
+                     rows=rows, wide_rows=(scene.wide_rows, 128),
                      tri_attr=(scene.tri_attr, 128),
                      mat_rows=(scene.mat_rows, 32),
                      spheres=(tab["spheres"], SPHERE_COLS),
@@ -128,16 +137,16 @@ class CudaDebug(CudaKernel):
                         ("texels", texels)):
             check_aligned(name, x, 16)
         fn = self.build()
-        out = torch.empty((height, width, 4), dtype=torch.float32,
+        out = torch.empty((rows, width, 4), dtype=torch.float32,
                           device=dev)
-        counts = torch.empty((height, width, 2), dtype=torch.int32,
+        counts = torch.empty((rows, width, 2), dtype=torch.int32,
                              device=dev)
         err = launch_on(
             dev, fn, scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
             scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
             tab["scal"].data_ptr(), tab["inst"].data_ptr(), brute.data_ptr(),
             scene.n_spheres, scene.n_instances, n_brute, width, height,
-            tab["spheres_mode"], scene.sphere_bvh_root,
+            row_start, rows, tab["spheres_mode"], scene.sphere_bvh_root,
             texels.data_ptr(), texels.shape[0], scene.tex_meta.data_ptr(),
             int(debug_mode), float(np.float32(debug_scale)), out.data_ptr(),
             counts.data_ptr())

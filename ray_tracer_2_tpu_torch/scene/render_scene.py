@@ -122,6 +122,33 @@ DERIVED_ON_EDIT = {
 #: the material fields whose edit is a ``material_form`` edit
 FORM_FIELDS = ("flag", "diffuse_index", "normal_index", "emission_color",
                "emission_strength")
+#: the ``megakernel_tables`` entry that each kind of in-place write also
+#: writes in place (the rest of the table stays right)
+TABLE_WRITES = {"camera": "scal", "sphere": "spheres", "instance": "inst"}
+
+
+@dataclasses.dataclass
+class WriteLog:
+    """The in-place writes of a scene and of the scenes that edits made
+    from it (``TorchScene.edited`` hands the log on). ``version`` counts
+    the writes. ``last`` maps each tensor field written, and each kind of
+    write (a key of ``DERIVED_ON_EDIT``, or ``"camera"``), to the version of
+    its last write. A copy of the scene on another device
+    (``parallel/sharding.py``) copies the fields written since the version
+    it has seen, and drops or copies its derived tables as the kinds say;
+    it reads nothing back to the host."""
+
+    version: int = 0
+    last: dict = dataclasses.field(default_factory=dict)
+
+    def note(self, kind: str, *fields: str) -> None:
+        self.version += 1
+        for key in (kind, *fields):
+            self.last[key] = self.version
+
+    def since(self, version: int) -> set:
+        """The fields and kinds written after ``version``."""
+        return {k for k, v in self.last.items() if v > version}
 
 
 def drop_derived(scene: "TorchScene", kind: str) -> None:
@@ -196,6 +223,11 @@ class TorchScene:
     #: starts with an empty one
     derived: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
+    #: the in-place writes (``WriteLog``); a scene made by ``to`` starts a
+    #: log of its own, one made by ``edited`` shares its source's
+    writes: WriteLog = dataclasses.field(default_factory=WriteLog,
+                                         init=False, repr=False,
+                                         compare=False)
 
     @property
     def n_spheres(self) -> int:
@@ -232,6 +264,16 @@ class TorchScene:
         tables = self.derived.get("megakernel_tables")
         if tables is not None:
             tables["scal"].copy_(camera_scal(self))
+        self.writes.note("camera", *new)
+
+    def edited(self, **changes) -> "TorchScene":
+        """The scene an edit puts in this one's place: ``changes`` applied,
+        this scene's derived tables carried (the caller has dropped the
+        stale ones) and its write log shared."""
+        new = dataclasses.replace(self, **changes)
+        new.derived.update(self.derived)
+        object.__setattr__(new, "writes", self.writes)  # frozen dataclass
+        return new
 
     def to(self, device) -> "TorchScene":
         """The same scene with every tensor on ``device`` (``self`` when
@@ -356,10 +398,9 @@ class HostScene:
 
     def _replace(self, **changes) -> None:
         """Put a new ``TorchScene`` with ``changes`` in ``scene``, carrying
-        the derived tables (the caller has dropped the stale ones)."""
-        new = dataclasses.replace(self.scene, **changes)
-        new.derived.update(self.scene.derived)
-        self.scene = new
+        the derived tables (the caller has dropped the stale ones) and the
+        write log (``TorchScene.edited``)."""
+        self.scene = self.scene.edited(**changes)
 
     def edit_sphere(self, index: int, centre=None, radius=None) -> None:
         """Move or resize a sphere (egui.rs:171-207). A scene with a sphere
@@ -391,10 +432,12 @@ class HostScene:
                 else:
                     row[3] = sc.sphere_radius[index]
             drop_derived(sc, "sphere")
+            sc.writes.note("sphere", "sphere_pos", "sphere_radius")
             if rows is not None:
                 root = sc.sphere_bvh_root
                 if len(rows) == sc.wide_rows.shape[0] - root:
                     write_in_place(sc.wide_rows[root:], rows)
+                    sc.writes.note("sphere", "wide_rows")
                     if depth != sc.wide_depth:
                         self._replace(wide_depth=depth)
                 else:
@@ -436,7 +479,9 @@ class HostScene:
             write_in_place(sc.mat_rows[mat_id],
                            _pack_material_rows([rec])[0])
             form = any(getattr(rec, k) != v for k, v in before.items())
-            drop_derived(sc, "material_form" if form else "material")
+            kind = "material_form" if form else "material"
+            drop_derived(sc, kind)
+            sc.writes.note(kind, "mat_rows")
             classes = _shade_classes(self.records)
             if classes != sc.shade_classes:
                 self._replace(shade_classes=classes)
@@ -470,6 +515,8 @@ class HostScene:
                 write_in_place(tables["inst"][index, 0:24], np.concatenate(
                     [inv[:3, :4].reshape(-1), m[:3, :4].reshape(-1)]))
             drop_derived(sc, "instance")
+            sc.writes.note("instance", "inst_model_to_world",
+                           "inst_world_to_model")
             self._refresh_lights()
 
     def _refresh_lights(self) -> None:
@@ -492,6 +539,7 @@ class HostScene:
                                  list(sc.inst_mat_deltas), spheres)
         if lights != sc.lights:
             drop_derived(sc, "lights")
+            sc.writes.note("lights")
             self._replace(lights=lights)
 
     def _repack_cull_flags(self) -> None:
@@ -514,6 +562,7 @@ class HostScene:
         if groups:
             write_in_place(self.scene.wide_rows[:cursor],
                            np.concatenate(groups, axis=0))
+            self.scene.writes.note("material_form", "wide_rows")
 
 
 def _shade_classes(records) -> tuple:

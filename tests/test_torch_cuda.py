@@ -98,7 +98,8 @@ def test_cuda_scene_on_cpu_renderer_raises(scene):
     with pytest.raises(ValueError, match="scene.to"):
         renderer.render(scene, RenderParams(width=16, height=8))
     assert renderer.framebuffer is None
-    Renderer(device="cuda").render(scene, RenderParams(width=16, height=8))
+    Renderer(device="cuda", mesh=None).render(
+        scene, RenderParams(width=16, height=8))
 
 
 def test_wrapper_rejects_cpu_tensors():
@@ -132,7 +133,7 @@ def test_spheres_kernel_matches_plain(small_scenes, name, bounces):
 def test_cuda_small_scene_goes_through_its_kernel(small_scenes):
     """Renderer.render on a CUDA sphere scene launches the small-scene
     kernel once per frame and the main path's kernel never."""
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     before = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches)
     for f in range(2):
         renderer.render(small_scenes["random_balls"],
@@ -198,7 +199,7 @@ def test_room2_goes_through_the_brute_prepass(room2):
     segment in each launch; the other kernels are never launched."""
     CUDA_MEGAKERNEL.reset_counts()
     before = (CUDA_BRUTE.launches, CUDA_SPHERES.launches)
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     segs = 0
     for f in range(2):
         renderer.render(room2, RenderParams(width=64, height=36, bounces=2,
@@ -477,7 +478,7 @@ def test_sphere_scenes_route_to_the_megakernel():
     sphere BVH, render through the megakernel, one launch a frame, never
     through the small-scene kernel."""
     _need_card()
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     plain = instantiate_scene(scenes.random_balls()).to("cuda")
     bvh = instantiate_scene(scenes.random_balls(), sphere_bvh=True).to("cuda")
     before = (CUDA_SPHERES.launches, CUDA_MEGAKERNEL.launches)
@@ -810,7 +811,7 @@ def test_nee_frames_go_through_the_megakernel():
     room2 launches the megakernel's NEE forms, one a frame, never the
     small-scene kernel; on a scene without lights the ordinary form."""
     _need_card()
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     CUDA_MEGAKERNEL.reset_counts()
     before = CUDA_SPHERES.launches
     for definition in (scenes.room(), scenes.room2_scene(12, 12),
@@ -961,7 +962,7 @@ def test_textured_frames_go_through_the_megakernel():
     normal maps the small-scene kernel."""
     _need_card()
     from ray_tracer_2_tpu_torch.assets.manager import AssetManager
-    renderer = Renderer(device="cuda")
+    renderer = Renderer(device="cuda", mesh=None)
     CUDA_MEGAKERNEL.reset_counts()
     before = CUDA_SPHERES.launches
     a = AssetManager()
@@ -1018,12 +1019,12 @@ def test_render_batch_on_the_card():
     _need_card()
     sc = instantiate_scene(scenes.wide_bvh_scene()).to("cuda")
     p = RenderParams(width=96, height=54, bounces=3)
-    seq = Renderer(device="cuda")
+    seq = Renderer(device="cuda", mesh=None)
     segs = 0
     for f in range(4):
         fb = seq.render(sc, dataclasses.replace(p, frames=f))
         segs += int(seq.last_segments)
-    bat = Renderer(device="cuda")
+    bat = Renderer(device="cuda", mesh=None)
     out = bat.render_batch(sc, p, 4)
     assert torch.equal(fb, out)
     assert bat.last_segments.is_cuda and int(bat.last_segments) == segs
@@ -1041,7 +1042,7 @@ def test_engine_camera_move_on_the_card():
         build_scene_definition
     _need_card()
     eng = Engine(96, 54, initial_scene=SceneName.SPONZA,
-                 block_on_initial_scene=True, device="cuda")
+                 block_on_initial_scene=True, device="cuda", mesh=None)
     for _ in range(3):
         eng.update(dt=0.016)
     host = eng.scene_manager.scene
@@ -1052,7 +1053,7 @@ def test_engine_camera_move_on_the_card():
     definition = build_scene_definition(SceneName.SPONZA)
     definition.camera.transform = host.camera.transform.copy()
     fresh = instantiate_scene(definition).to("cuda")
-    want = Renderer(device="cuda").render(
+    want = Renderer(device="cuda", mesh=None).render(
         fresh, dataclasses.replace(eng.params, frames=0))
     assert torch.equal(first, want)
     eng.scene_manager.shutdown()
@@ -1116,7 +1117,7 @@ def test_viewer_serves_png_frames_from_the_card():
     from ray_tracer_2_tpu_torch.viewer.server import ViewerServer
     _need_card()
     eng = Engine(160, 90, initial_scene=SceneName.METAL,
-                 block_on_initial_scene=True, device="cuda")
+                 block_on_initial_scene=True, device="cuda", mesh=None)
     vs = ViewerServer(eng, port=0)
     CUDA_SPHERES.reset_counts()
     t = threading.Thread(target=vs.serve_forever)
@@ -1140,3 +1141,52 @@ def test_viewer_serves_png_frames_from_the_card():
         [0.25, 0.0, -1.0]
     assert CUDA_SPHERES.launches == eng._frame_counter > 0
     eng.scene_manager.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["room", "wide_bvh_scene"])
+def test_debug_row_windows_on_the_card(name):
+    """``csrc/debug.cu``'s row window: each window of a shuffled uneven
+    split bit-equal to the same rows of the whole frame (colours and
+    counts), in all seven modes."""
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG
+    _need_card()
+    sc = instantiate_scene(getattr(scenes, name)()).to("cuda")
+    w, h = 96, 54
+    rng = np.random.default_rng(11)
+    cuts = sorted(rng.choice(np.arange(1, h), size=4, replace=False))
+    windows = list(zip([0, *cuts], [*cuts, h]))
+    rng.shuffle(windows)
+    for m in range(1, 8):
+        kw = dict(width=w, height=h, debug_mode=m, debug_scale=100.0)
+        whole, counts = CUDA_DEBUG(sc, **kw)
+        for a, b in windows:
+            img, c = CUDA_DEBUG(sc, row_start=int(a), rows=int(b - a), **kw)
+            assert torch.equal(img, whole[a:b]) and torch.equal(
+                c, counts[a:b]), (m, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, options", [
+    ("metal", {}), ("wide_bvh_scene", {}), ("room", dict(nee=True)),
+    ("room", dict(debug_mode=1))])
+def test_row_tiles_on_the_card(name, options):
+    """Row tiles over a mesh naming the card four times: the frame bit-equal
+    to the single-device renderer's, segments equal, one launch a tile of
+    the path's own kernel."""
+    from ray_tracer_2_tpu_torch.kernels.debug import CUDA_DEBUG
+    from ray_tracer_2_tpu_torch.parallel import make_render_mesh
+    _need_card()
+    sc = instantiate_scene(getattr(scenes, name)()).to("cuda")
+    p = RenderParams(width=96, height=56, bounces=3, frames=2, **options)
+    single = Renderer(device="cuda", mesh=None)
+    want = single.render(sc, p)
+    kernels = (CUDA_MEGAKERNEL, CUDA_SPHERES, CUDA_DEBUG)
+    before = [k.launches for k in kernels]
+    sharded = Renderer(device="cuda", mesh=make_render_mesh(
+        devices=["cuda:0"] * 4))
+    got = sharded.render(sc, p)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert sorted(launched) == [0, 0, 4], launched
+    assert torch.equal(got.gather(), want)
+    assert int(sharded.last_segments) == int(single.last_segments)

@@ -25,7 +25,8 @@ missing = {pkg.__name__ + "." + m
            for m in ("kernels.cuda_build", "kernels.megakernel",
                      "kernels.spheres", "probes.common", "probes.trav",
                      "probes.packet", "probes.r2", "probes.lut",
-                     "probes.__main__")} - set(names)
+                     "probes.__main__", "parallel.sharding",
+                     "graft_entry")} - set(names)
 print(len(names), leaked, sorted(missing))
 """
 

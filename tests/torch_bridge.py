@@ -15,6 +15,7 @@ import torch
 from ray_tracer_2_tpu.kernels.megakernel import \
     render_persistent as _ref_render_persistent
 from ray_tracer_2_tpu_torch.kernels.megakernel import render_persistent
+from ray_tracer_2_tpu_torch.parallel import sharding
 from ray_tracer_2_tpu_torch.scene.render_scene import (
     FIELDS, STATICS, TorchScene,
 )
@@ -526,3 +527,12 @@ def check_edited_render(case: str, monkeypatch) -> None:
         assert np.isfinite(b).all()
         assert abs(sa - sb) <= seg_tol * sa, (bounces, sa, sb)
         assert frac_within(a, b) >= 0.99, (bounces, frac_within(a, b))
+
+
+class CopyingReplicas(sharding.SceneReplicas):
+    """``SceneReplicas`` that copies the scene onto its own device too. On
+    the CPU every device of a mesh is the one CPU, so the copies, and
+    ``follow`` keeping them up to date, are made only this way."""
+
+    def _replica(self, scene, dev):
+        return sharding._copy_scene(scene, dev)
