@@ -1,0 +1,4 @@
+"""Configurations: ``<config>.json`` (the sizes and their source, the file
+``BENCHMARK.json`` names) and ``<config>.py`` (``inputs(spec, seed)``: the
+scene as plain numpy data, which both the program and the reference are
+given). A builder imports numpy and ``rtbench.frozen`` only."""
