@@ -32,6 +32,8 @@ Layer map (mirrors the reference package):
   viewer/    the browser viewer (stdlib HTTP + WebSocket, PNG frames) and
              its live scene edits
   probes/    the TPU probe scripts' kernels on the card
+  spans.py   the port's spans and counters, recorded only while a
+             torch.profiler session records (spans.record())
 
 Not ported yet: several cards, the graft entry (ROADMAP Queue 1).
 """

@@ -35,6 +35,7 @@ import time
 
 import torch
 
+from ray_tracer_2_tpu_torch import spans
 from ray_tracer_2_tpu_torch.accel.bvh import BVHQuality
 from ray_tracer_2_tpu_torch.assets.manager import AssetManager
 from ray_tracer_2_tpu_torch.config import (
@@ -92,10 +93,15 @@ class FrameStats:
 
 class _Settled:
     """What a frame leaves to wait on: the events recorded after it, one
-    on each card it ran on (none on the CPU)."""
+    on each card it ran on (none on the CPU). Under a profiler session the
+    events time, and ``starts`` holds the timing event recorded before the
+    frame's first launch call on each card (``spans.launch_started``)."""
 
-    def __init__(self, events=()):
+    def __init__(self, events=(), devices=(), starts=None, timed=False):
         self.events = list(events)
+        self.devices = list(devices)
+        self.starts = starts or {}
+        self.timed = timed
 
     def query(self) -> bool:
         return all(ev.query() for ev in self.events)
@@ -133,6 +139,7 @@ class Engine:
         self._last_params = self.params
         self._scene_for_stats = None
         self._pending = None            # the event of a frame in flight
+        self._settled = None            # the last frame's, once settled
         self._pending_t0 = 0.0
         self._settle_lock = threading.Lock()
         self._timing_exact = True
@@ -151,79 +158,103 @@ class Engine:
                sync: bool = False):
         """One frame: poll scene loads, camera, parameter protocol, render.
         Returns the framebuffer tensor (None while no scene is loaded).
-        ``sync=True`` waits for the frame and times it exactly."""
-        if dt is None:
-            dt = self.timing.tick()
-        else:
-            self.timing.delta = dt
-            self.timing.average_frame_time = (
-                self.timing.average_frame_time + dt) / 2.0
+        ``sync=True`` waits for the frame and times it exactly. Under a
+        ``torch.profiler`` session each step is a span (``spans``)."""
+        with spans.span("engine.update"):
+            if dt is None:
+                dt = self.timing.tick()
+            else:
+                self.timing.delta = dt
+                self.timing.average_frame_time = (
+                    self.timing.average_frame_time + dt) / 2.0
 
-        if self.scene_manager.poll_loaded() is not None:
-            # a new scene: reset accumulation and timing (app.rs:135-142)
-            self.params = self.params.reset_frame()
-            self.timing.reset()
+            with spans.span("engine.poll"):
+                if self.scene_manager.poll_loaded() is not None:
+                    # a new scene: reset accumulation and timing
+                    # (app.rs:135-142)
+                    self.params = self.params.reset_frame()
+                    self.timing.reset()
 
-        host = self.scene_manager.scene
-        if host is None:
-            return None
+            host = self.scene_manager.scene
+            if host is None:
+                return None
 
-        # the scene's lock keeps live edits (HostScene.edit_*, from another
-        # thread) out of the camera write and the frame's dispatch, so that
-        # a frame reads one scene and one set of its tables; it is let go
-        # while the previous frame settles
-        with host.lock:
-            moved = host.camera.update_camera(dt) or is_moving
-            if moved:
-                host.refresh_camera()
-            self.params, _ = self.params.update(moved)
+            # the scene's lock keeps live edits (HostScene.edit_*, from
+            # another thread) out of the camera write and the frame's
+            # dispatch, so that a frame reads one scene and one set of its
+            # tables; it is let go while the previous frame settles
+            with spans.span("engine.camera"), host.lock:
+                moved = host.camera.update_camera(dt) or is_moving
+                if moved:
+                    host.refresh_camera()
+                self.params, _ = self.params.update(moved)
 
-        # settle the previous frame first (before for_render, so that the
-        # adaptive ladder sees the last moving frame's time)
-        self._settle_pending()
+            # settle the previous frame first (before for_render, so that
+            # the adaptive ladder sees the last moving frame's time)
+            with spans.span("engine.settle"):
+                self._settle_pending()
 
-        with host.lock:
-            motion_scale = 2  # the reference's fixed half resolution
-            if self.params.adaptive_motion:
-                if moved and self._moved_last_frame \
-                        and self._last_move_scale is not None:
-                    self._motion_scale = pick_motion_scale(
-                        self._last_move_scale, self._last_render_s,
-                        self.params.motion_target_ms / 1000.0)
-                motion_scale = self._motion_scale
-            render_params = self.params.for_render(moved,
-                                                   motion_scale=motion_scale)
-            self._moved_last_frame = moved
-            if moved:
-                self._last_move_scale = motion_scale
+            with spans.span("engine.dispatch"), host.lock:
+                motion_scale = 2  # the reference's fixed half resolution
+                if self.params.adaptive_motion:
+                    if moved and self._moved_last_frame \
+                            and self._last_move_scale is not None:
+                        self._motion_scale = pick_motion_scale(
+                            self._last_move_scale, self._last_render_s,
+                            self.params.motion_target_ms / 1000.0)
+                    motion_scale = self._motion_scale
+                render_params = self.params.for_render(
+                    moved, motion_scale=motion_scale)
+                self._moved_last_frame = moved
+                if moved:
+                    self._last_move_scale = motion_scale
 
-            t0 = time.perf_counter()
-            fb = self.renderer.render(host.scene, render_params)
-        if sync:
-            self.renderer.synchronize()
-            self._last_render_s = time.perf_counter() - t0
-            self._timing_exact = True
-        else:
-            self._pending = self._frame_event()
-            self._pending_t0 = t0
-            self._timing_exact = False
+                t0 = time.perf_counter()
+                fb = self.renderer.render(host.scene, render_params)
+            if sync:
+                self.renderer.synchronize()
+                self._last_render_s = time.perf_counter() - t0
+                self._timing_exact = True
+            else:
+                with spans.span("engine.event"):
+                    self._pending = self._frame_event()
+                self._pending_t0 = t0
+                self._timing_exact = False
 
-        self._frame_counter += 1
-        self._last_params = render_params
-        self._scene_for_stats = host
-        return fb
+            self._frame_counter += 1
+            self._last_params = render_params
+            self._scene_for_stats = host
+            return fb
 
     def _frame_event(self) -> _Settled:
         """Events recorded after the frame just dispatched, one on each card
         of the renderer's mesh."""
         mesh = self.renderer.mesh
-        events = []
+        timing = spans.on()
+        events, devices = [], []
         for dev in (mesh.distinct if mesh is not None else (self.device,)):
             if dev.type == "cuda":
-                ev = torch.cuda.Event()
+                ev = torch.cuda.Event(enable_timing=timing)
                 ev.record(torch.cuda.current_stream(dev))
                 events.append(ev)
-        return _Settled(events)
+                devices.append(dev)
+        return _Settled(events, devices,
+                        spans.take_starts() if timing else None, timing)
+
+    def _count_gap(self, last: _Settled | None, ev: _Settled) -> None:
+        """Under a profiler session, add to ``device.interframe_gap_ms`` the
+        card's own time from the end of the frame before ``ev`` (``last``)
+        to ``ev``'s first launch call, the mean over the cards both
+        timed."""
+        if last is None or not last.timed or not ev.starts:
+            return
+        ends = {spans.card_of(d): e
+                for d, e in zip(last.devices, last.events)}
+        gaps = [ends[d].elapsed_time(start) for d, start in ev.starts.items()
+                if d in ends]
+        if gaps:
+            spans.count("device.interframe_gap_ms", sum(gaps) / len(gaps))
+            spans.count("device.interframe_gaps")
 
     def _settle_pending(self, block: bool = True) -> None:
         # called from the render loop (block=True) and from stats reads on
@@ -237,12 +268,16 @@ class Engine:
                 return
             if not block and not ev.query():
                 return
-            ev.synchronize()
+            with spans.span("engine.settle.wait"):
+                ev.synchronize()
             self._last_render_s = time.perf_counter() - self._pending_t0
             self._pending = None
+            self._count_gap(self._settled, ev)
+            self._settled = ev
             # snapshot now, while renderer.last_segments is the settled
             # frame's
-            self._refresh_stats()
+            with spans.span("engine.stats"):
+                self._refresh_stats()
         finally:
             self._settle_lock.release()
 

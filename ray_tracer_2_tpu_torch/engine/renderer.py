@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ray_tracer_2_tpu_torch import spans
 from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.kernels import spheres
 from ray_tracer_2_tpu_torch.kernels.debug import render_debug
@@ -122,7 +123,8 @@ def render_frame(scene: TorchScene, framebuffer: torch.Tensor, frames: int,
         rays_per_pixel=rays_per_pixel, skybox=skybox, antialias=antialias,
         nee=nee, normal_maps=normal_maps, debug_mode=debug_mode,
         debug_scale=debug_scale)
-    blend(framebuffer, sample, blend_weight(frames))
+    with spans.span("renderer.blend"):
+        blend(framebuffer, sample, blend_weight(frames))
     return framebuffer, segments
 
 
@@ -194,18 +196,20 @@ class Renderer:
         a scene elsewhere raises ``ValueError`` instead of being copied on
         every frame. On a mesh the frame runs row-sharded
         (``parallel.sharding.render_frame_mesh``)."""
-        scene = self._prepare(scene, params)
-        if self.mesh is not None:
-            from ray_tracer_2_tpu_torch.parallel.sharding import \
-                render_frame_mesh
-            self.framebuffer, self.last_segments = render_frame_mesh(
-                scene, self.framebuffer, int(params.frames),
-                mesh=self.mesh, **self._frame_kw(params))
-        else:
-            self.framebuffer, self.last_segments = render_frame(
-                scene, self.framebuffer, int(params.frames),
-                **self._frame_kw(params))
-        return self.framebuffer
+        with spans.span("renderer.render"):
+            with spans.span("renderer.prepare"):
+                scene = self._prepare(scene, params)
+            if self.mesh is not None:
+                from ray_tracer_2_tpu_torch.parallel.sharding import \
+                    render_frame_mesh
+                self.framebuffer, self.last_segments = render_frame_mesh(
+                    scene, self.framebuffer, int(params.frames),
+                    mesh=self.mesh, **self._frame_kw(params))
+            else:
+                self.framebuffer, self.last_segments = render_frame(
+                    scene, self.framebuffer, int(params.frames),
+                    **self._frame_kw(params))
+            return self.framebuffer
 
     def render_batch(self, scene: TorchScene, params: RenderParams,
                      n_frames: int):

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ray_tracer_2_tpu_torch import spans
+
 PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -102,7 +104,8 @@ class CudaKernel:
     loads it, and keeps the count of launches in ``launches`` (the
     subclass's ``__call__`` adds one per launch) and the kernel's own
     device counts named in ``counts`` (int64 words the kernel adds to,
-    per device, in the C source's order). ``reset_counts`` zeroes both."""
+    per device, in the C source's order). ``reset_counts`` zeroes both.
+    ``spans`` reads both over a profiler session, by the source's name."""
 
     symbol: str = ""
     argtypes: list = []
@@ -117,6 +120,7 @@ class CudaKernel:
         self._fn = None
         self._lock = threading.Lock()
         self._counts = {}          # device -> int64 words of ``counts``
+        spans.watch(self)
 
     def build(self):
         """Compile (if the library for this source is missing) and load;

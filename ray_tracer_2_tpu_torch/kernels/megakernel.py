@@ -67,7 +67,7 @@ from ray_tracer_2_tpu_torch.accel.wide import (
     COL_BASE, COL_CHILD_AABB, COL_K, COL_LEAF_GEO, COL_MATCULL, COL_SPH_ID,
     MAX_ARITY, N_AABB_COLS, SPH_CHUNK,
 )
-from ray_tracer_2_tpu_torch import rng
+from ray_tracer_2_tpu_torch import rng, spans
 from ray_tracer_2_tpu_torch.kernels.brute import (
     BRUTE_MAX_TRIS, brute_force_intersect_plain, pack_brute_table,
     stage_brute_rows,
@@ -278,10 +278,11 @@ def render_persistent(scene: TorchScene, frames: int, *, width: int,
               rays_per_pixel=rays_per_pixel, skybox=skybox,
               antialias=antialias, row_start=row_start, rows=rows, nee=nee,
               nee_segments=nee_segments, normal_maps=normal_maps)
-    if scene.device.type == "cpu":
-        return render_plain(scene, frames, **kw)
-    if scene.device.type == "cuda":
-        return CUDA_MEGAKERNEL(scene, frames, **kw)
+    with spans.span("megakernel.call"):
+        if scene.device.type == "cpu":
+            return render_plain(scene, frames, **kw)
+        if scene.device.type == "cuda":
+            return CUDA_MEGAKERNEL(scene, frames, **kw)
     raise ValueError(f"no implementation for device {scene.device}")
 
 
@@ -1109,85 +1110,98 @@ class CudaMegakernel(CudaKernel):
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, not {dev}")
-        _require_eligible(scene)
-        rows = height if rows is None else rows
-        tab = kernel_tables(scene)
-        n_brute = sum(c for _, c in _brute_ranges(scene))
-        check_launch(dev, width=width, height=height, row_start=row_start,
-                     rows=rows, wide_rows=(scene.wide_rows, 128),
-                     tri_attr=(scene.tri_attr, 128),
-                     mat_rows=(scene.mat_rows, 32),
-                     spheres=(tab["spheres"], SPHERE_COLS),
-                     scal=(tab["scal"], None),
-                     inst=(tab["inst"], INST_COLS),
-                     brute=(tab["brute"], BRUTE_STAGED))
-        if tab["scal"].numel() != 17 or tab["brute"].shape[0] < n_brute \
-                or tab["spheres"].shape[0] < scene.n_spheres \
-                or not -1 <= scene.sphere_bvh_root < max(
-                    scene.wide_rows.shape[0], 1):
-            raise ValueError(f"bad tables: {tab['scal'].numel()} camera "
-                             f"floats, {tab['brute'].shape[0]} brute rows "
-                             f"for {n_brute}, {tab['spheres'].shape[0]} "
-                             f"sphere rows for {scene.n_spheres}, sphere "
-                             f"root {scene.sphere_bvh_root} of "
-                             f"{scene.wide_rows.shape[0]} wide rows")
-        check_aligned("wide_rows", scene.wide_rows, 16)
-        check_aligned("brute", tab["brute"], 16)
-        mode = nee_mode(scene, nee, nee_segments)
-        if mode:
-            lt = light_tables(scene)
+        with spans.span("megakernel.tables"):
+            _require_eligible(scene)
+            rows = height if rows is None else rows
+            tab = kernel_tables(scene)
+            n_brute = sum(c for _, c in _brute_ranges(scene))
             check_launch(dev, width=width, height=height, row_start=row_start,
-                         rows=rows, lights=(lt["rows"], LIGHT_COLS),
-                         cdf=(lt["cdf"], None))
-        tex = samples_textures(scene, normal_maps)
-        if tex:
-            texels = scene.tex_quads
-            check_launch(dev, width=width, height=height, row_start=row_start,
-                         rows=rows, tex_meta=(scene.tex_meta, 4))
-            if texels.device != dev or texels.dtype != torch.int32 \
-                    or not texels.is_contiguous() or texels.dim() != 2 \
-                    or texels.shape[1] != 4 or scene.tex_meta.shape[0] != 64:
-                raise ValueError(f"texels: expected contiguous int32 (n, 4) "
-                                 f"on {dev}, got {texels.dtype} "
-                                 f"{tuple(texels.shape)} on {texels.device}")
-            check_aligned("texels", texels, 16)
-        fn = self.build()
-        out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
-        scratch = launch_scratch(dev)
-        counts = self.device_counts(dev)
-        head = (scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
-                scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
-                tab["scal"].data_ptr(), tab["inst"].data_ptr(),
-                tab["brute"].data_ptr(), scene.n_spheres, scene.n_instances,
-                n_brute, width, height, row_start, rows, bounces,
-                max(int(rays_per_pixel), 1), int(bool(skybox)),
-                int(bool(antialias)))
-        tail = (out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
-        form = (tab["spheres_mode"], int(tab["staged"]),
-                scene.sphere_bvh_root, frame_seed(frames))
-        if tex:
-            light = (lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
-                     lt["rows"].shape[0], mode, lt["c_tri"], lt["c_area"]) \
-                if mode else (None, None, 0, 0, 0.0, 0.0)
-            err = launch_on(dev, self._tex_fn, *head, form[0], *form[2:],
-                            *light, texels.data_ptr(), texels.shape[0],
-                            scene.tex_meta.data_ptr(),
-                            int(normal_maps
-                                and "normal_map" in scene.shade_classes),
-                            *tail)
-        elif mode:
-            err = launch_on(dev, self._nee_fn, *head, *form,
-                            lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
-                            lt["rows"].shape[0], mode, lt["c_tri"],
-                            lt["c_area"], *tail)
-        else:
-            err = launch_on(dev, fn, *head, int(tab["general"]),
-                            int(tab["glass"]), *form, *tail)
-        if err != 0:
-            raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-        self.launches += 1
-        self.nee_launches += bool(mode)
-        self.tex_launches += tex
+                         rows=rows, wide_rows=(scene.wide_rows, 128),
+                         tri_attr=(scene.tri_attr, 128),
+                         mat_rows=(scene.mat_rows, 32),
+                         spheres=(tab["spheres"], SPHERE_COLS),
+                         scal=(tab["scal"], None),
+                         inst=(tab["inst"], INST_COLS),
+                         brute=(tab["brute"], BRUTE_STAGED))
+            if tab["scal"].numel() != 17 or tab["brute"].shape[0] < n_brute \
+                    or tab["spheres"].shape[0] < scene.n_spheres \
+                    or not -1 <= scene.sphere_bvh_root < max(
+                        scene.wide_rows.shape[0], 1):
+                raise ValueError(f"bad tables: {tab['scal'].numel()} camera "
+                                 f"floats, {tab['brute'].shape[0]} brute rows "
+                                 f"for {n_brute}, {tab['spheres'].shape[0]} "
+                                 f"sphere rows for {scene.n_spheres}, sphere "
+                                 f"root {scene.sphere_bvh_root} of "
+                                 f"{scene.wide_rows.shape[0]} wide rows")
+            check_aligned("wide_rows", scene.wide_rows, 16)
+            check_aligned("brute", tab["brute"], 16)
+            mode = nee_mode(scene, nee, nee_segments)
+            if mode:
+                lt = light_tables(scene)
+                check_launch(dev, width=width, height=height,
+                             row_start=row_start, rows=rows,
+                             lights=(lt["rows"], LIGHT_COLS),
+                             cdf=(lt["cdf"], None))
+            tex = samples_textures(scene, normal_maps)
+            if tex:
+                texels = scene.tex_quads
+                check_launch(dev, width=width, height=height,
+                             row_start=row_start, rows=rows,
+                             tex_meta=(scene.tex_meta, 4))
+                if texels.device != dev or texels.dtype != torch.int32 \
+                        or not texels.is_contiguous() or texels.dim() != 2 \
+                        or texels.shape[1] != 4 \
+                        or scene.tex_meta.shape[0] != 64:
+                    raise ValueError(
+                        f"texels: expected contiguous int32 (n, 4) on {dev}, "
+                        f"got {texels.dtype} {tuple(texels.shape)} on "
+                        f"{texels.device}")
+                check_aligned("texels", texels, 16)
+        with spans.span("megakernel.launch"):
+            fn = self.build()
+            out = torch.empty((rows, width, 4), dtype=torch.float32,
+                              device=dev)
+            scratch = launch_scratch(dev)
+            counts = self.device_counts(dev)
+            head = (scene.wide_rows.data_ptr(), scene.tri_attr.data_ptr(),
+                    scene.mat_rows.data_ptr(), tab["spheres"].data_ptr(),
+                    tab["scal"].data_ptr(), tab["inst"].data_ptr(),
+                    tab["brute"].data_ptr(), scene.n_spheres,
+                    scene.n_instances,
+                    n_brute, width, height, row_start, rows, bounces,
+                    max(int(rays_per_pixel), 1), int(bool(skybox)),
+                    int(bool(antialias)))
+            tail = (out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
+            form = (tab["spheres_mode"], int(tab["staged"]),
+                    scene.sphere_bvh_root, frame_seed(frames))
+            # the card waits from the last frame's end to here (the fill of
+            # the scratch before it takes microseconds)
+            spans.launch_started(dev)
+            if tex:
+                light = (lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
+                         lt["rows"].shape[0], mode, lt["c_tri"],
+                         lt["c_area"]) \
+                    if mode else (None, None, 0, 0, 0.0, 0.0)
+                err = launch_on(dev, self._tex_fn, *head, form[0], *form[2:],
+                                *light, texels.data_ptr(), texels.shape[0],
+                                scene.tex_meta.data_ptr(),
+                                int(normal_maps
+                                    and "normal_map" in scene.shade_classes),
+                                *tail)
+            elif mode:
+                err = launch_on(dev, self._nee_fn, *head, *form,
+                                lt["rows"].data_ptr(), lt["cdf"].data_ptr(),
+                                lt["rows"].shape[0], mode, lt["c_tri"],
+                                lt["c_area"], *tail)
+            else:
+                err = launch_on(dev, fn, *head, int(tab["general"]),
+                                int(tab["glass"]), *form, *tail)
+            if err != 0:
+                raise RuntimeError(
+                    f"megakernel launch failed: CUDA error {err}")
+            self.launches += 1
+            self.nee_launches += bool(mode)
+            self.tex_launches += tex
         return out, scratch[0]
 
 

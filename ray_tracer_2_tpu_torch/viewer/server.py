@@ -73,7 +73,6 @@ class ViewerServer:
         self._frame_cv = threading.Condition(self._lock)
         self._stop = threading.Event()
         self._moving_until = 0.0
-        self._input_ms = 0.0   # last WS input handling time (ms)
         self._httpd: ThreadingHTTPServer | None = None
         self._render_thread: threading.Thread | None = None
         self._selected: dict | None = None   # {"kind","index"} gizmo target
@@ -393,7 +392,6 @@ class ViewerServer:
                          diverge_strength=scene.camera.diverge_strength)
                     if scene else None),
             frame_id=self._frame_id,
-            input_ms=round(self._input_ms, 2),
             encode_ms=round(self.encode_ms, 2),
             frame_bytes=len(self._frame_png),
             selected=self._selected,
@@ -508,7 +506,6 @@ class ViewerServer:
                                 sock.send_text(json.dumps(
                                     {"pong": msg["ping"]}))
                                 continue
-                            t0 = time.perf_counter()
                             try:
                                 viewer.handle_input(msg)
                             except Exception:
@@ -516,8 +513,6 @@ class ViewerServer:
                                 # edit payloads) must not kill the input
                                 # channel — match the POST /input policy
                                 log.exception("bad /ws input: %r", msg)
-                            viewer._input_ms = \
-                                (time.perf_counter() - t0) * 1e3
                     except (OSError, ValueError):
                         pass  # client went away / bad frame
                     finally:
