@@ -9,16 +9,19 @@ protocol (``RenderParams.update``), render (``Renderer.render``), at half
 the resolution with 1 bounce while the camera moves (``for_render``; with
 ``adaptive_motion`` the scale tracks ``motion_target_ms``).
 
-Frames are dispatched without waiting by default: ``update`` returns once
-the frame is queued on the card, so host work overlaps device work. CUDA
-events recorded after the frame, one on each card the frame ran on (the
+Frames are dispatched without waiting by default: ``update`` queues the
+frame, then waits for the one before, so the card holds the frame running
+and the one queued behind it, and goes from one to the next while the host
+wakes, reads the last frame's numbers and writes the next camera. CUDA
+events recorded after each frame, one on each card the frame ran on (the
 renderer's mesh, ``Renderer(mesh=)``, several cards by default on a host
-that has them), settle it: the next ``update`` waits on them before
-dispatching (``synchronize``), a stats read only asks (``query``), and the
-frame's time and its exact segment count are read once it has settled.
-``sync=True`` waits for the frame on every card (``Renderer.synchronize``)
-and times it exactly. On the CPU every frame has settled when ``render``
-returns.
+that has them), settle it: ``update`` waits on the frame before the one it
+queued (``synchronize``), a stats read only asks (``query``). Each frame in
+flight keeps its own record (events, dispatch time, parameters, scene, and
+its segment count copied to pinned host memory in stream order), read once
+the frame has settled, so no ``update`` synchronises a stream.
+``sync=True`` waits for the frame too and times it exactly. On the CPU
+every frame has settled when ``render`` returns.
 
 Live edits (``HostScene.edit_*``, from the viewer's input threads) hold the
 scene's lock; ``update`` holds it while it writes the camera and while it
@@ -28,6 +31,7 @@ renders.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import threading
@@ -86,22 +90,39 @@ class FrameStats:
     bvh_nodes: int = 0
     bvh_triangles: int = 0
     #: True when frame_time_ms/mrays_per_s come from a synchronous frame;
-    #: an asynchronous frame reports the dispatch-to-settle time, an upper
-    #: bound
+    #: an asynchronous frame reports the time from its dispatch, or from
+    #: the settle of the frame before if that came later, to its own
+    #: settle, an upper bound
     timing_exact: bool = True
 
 
-class _Settled:
-    """What a frame leaves to wait on: the events recorded after it, one
-    on each card it ran on (none on the CPU). Under a profiler session the
-    events time, and ``starts`` holds the timing event recorded before the
-    frame's first launch call on each card (``spans.launch_started``)."""
+class _Frame:
+    """One frame dispatched by ``Engine.update``: the events recorded after
+    it, one on each card it ran on (none on the CPU), its dispatch time,
+    its segment count (``segs``: a pinned host copy filled in stream order
+    before the events, or the tensor itself on the CPU), the parameters it
+    rendered with, its scene, and whether it moved and at what scale.
+    Settling it fills ``rays`` and ``render_s``. Under a profiler session
+    the events time, and ``starts`` holds the timing event recorded before
+    the frame's first launch call on each card
+    (``spans.launch_started``)."""
 
-    def __init__(self, events=(), devices=(), starts=None, timed=False):
+    def __init__(self, events=(), devices=(), starts=None, timed=False, *,
+                 number=0, t0=0.0, segs=None, params=None, host=None,
+                 move_scale=None, exact=False):
         self.events = list(events)
         self.devices = list(devices)
         self.starts = starts or {}
         self.timed = timed
+        self.number = number
+        self.t0 = t0
+        self.segs = segs
+        self.params = params
+        self.host = host
+        self.move_scale = move_scale    # None for a still frame
+        self.exact = exact
+        self.rays = 0.0
+        self.render_s = 0.0
 
     def query(self) -> bool:
         return all(ev.query() for ev in self.events)
@@ -135,17 +156,19 @@ class Engine:
         self.timing = FrameTiming()
         self.stats = FrameStats()
         self._frame_counter = 0
-        self._last_render_s = 0.0
-        self._last_params = self.params
-        self._scene_for_stats = None
-        self._pending = None            # the event of a frame in flight
-        self._settled = None            # the last frame's, once settled
-        self._pending_t0 = 0.0
+        self._last_params = self.params     # the newest frame's
+        self._pending = collections.deque()  # frames in flight, oldest first
+        self._dispatched = None         # the newest frame, settled or not
+        self._settled = None            # the newest settled frame
+        self._settle_t = 0.0            # when it settled
         self._settle_lock = threading.Lock()
-        self._timing_exact = True
-        self._motion_scale = 2          # adaptive-motion ladder state
+        self._segs_host = None          # pinned segment counts, a slot a
+        #                                 frame in flight
+        # the adaptive-motion ladder: its scale, and the newest settled
+        # frame's time and, if it moved, its scale
+        self._motion_scale = 2
+        self._last_render_s = 0.0
         self._last_move_scale: int | None = None
-        self._moved_last_frame = False
         if initial_scene is not None:
             if block_on_initial_scene:
                 self.scene_manager.load_blocking(initial_scene)
@@ -158,8 +181,11 @@ class Engine:
                sync: bool = False):
         """One frame: poll scene loads, camera, parameter protocol, render.
         Returns the framebuffer tensor (None while no scene is loaded).
-        ``sync=True`` waits for the frame and times it exactly. Under a
-        ``torch.profiler`` session each step is a span (``spans``)."""
+        The frame is queued on the card, then ``update`` waits for the
+        frame before it, so the card starts this one as soon as that one
+        ends; ``sync=True`` waits for this frame too and times it exactly.
+        Under a ``torch.profiler`` session each step is a span
+        (``spans``)."""
         with spans.span("engine.update"):
             if dt is None:
                 dt = self.timing.tick()
@@ -182,53 +208,58 @@ class Engine:
             # the scene's lock keeps live edits (HostScene.edit_*, from
             # another thread) out of the camera write and the frame's
             # dispatch, so that a frame reads one scene and one set of its
-            # tables; it is let go while the previous frame settles
+            # tables; it is let go while the frame before settles
             with spans.span("engine.camera"), host.lock:
                 moved = host.camera.update_camera(dt) or is_moving
                 if moved:
                     host.refresh_camera()
                 self.params, _ = self.params.update(moved)
 
-            # settle the previous frame first (before for_render, so that
-            # the adaptive ladder sees the last moving frame's time)
-            with spans.span("engine.settle"):
-                self._settle_pending()
-
             with spans.span("engine.dispatch"), host.lock:
                 motion_scale = 2  # the reference's fixed half resolution
                 if self.params.adaptive_motion:
-                    if moved and self._moved_last_frame \
-                            and self._last_move_scale is not None:
+                    # the newest settled frame, if it moved: one frame
+                    # older than the one still on the card
+                    if moved and self._last_move_scale is not None:
                         self._motion_scale = pick_motion_scale(
                             self._last_move_scale, self._last_render_s,
                             self.params.motion_target_ms / 1000.0)
                     motion_scale = self._motion_scale
                 render_params = self.params.for_render(
                     moved, motion_scale=motion_scale)
-                self._moved_last_frame = moved
-                if moved:
-                    self._last_move_scale = motion_scale
-
                 t0 = time.perf_counter()
                 fb = self.renderer.render(host.scene, render_params)
-            if sync:
-                self.renderer.synchronize()
-                self._last_render_s = time.perf_counter() - t0
-                self._timing_exact = True
-            else:
-                with spans.span("engine.event"):
-                    self._pending = self._frame_event()
-                self._pending_t0 = t0
-                self._timing_exact = False
 
             self._frame_counter += 1
+            with spans.span("engine.event"):
+                self._queue_frame(
+                    t0, render_params, host,
+                    motion_scale if moved else None, sync)
             self._last_params = render_params
-            self._scene_for_stats = host
+
+            # wait for the frame before (and with sync, this one)
+            with spans.span("engine.settle"):
+                self._settle_pending(newest=sync)
             return fb
 
-    def _frame_event(self) -> _Settled:
-        """Events recorded after the frame just dispatched, one on each card
-        of the renderer's mesh."""
+    def _queue_frame(self, t0: float, params: RenderParams, host,
+                     move_scale: int | None, exact: bool) -> None:
+        """The record of the frame just dispatched: its segment count
+        copied to a pinned host slot in stream order, then events recorded
+        after it, one on each card of the renderer's mesh. Under a profiler
+        session, counts ``engine.dispatches``, and
+        ``engine.dispatches_queued`` when the frame before had not finished
+        on the card by then (the card reached this frame with no gap)."""
+        segs = self.renderer.last_segments
+        if segs is not None and segs.device.type == "cuda":
+            if self._segs_host is None:
+                # one slot a frame in flight: frame n's is reused by frame
+                # n + 2, dispatched once frame n has settled
+                self._segs_host = torch.empty(2, dtype=torch.int64,
+                                              pin_memory=True)
+            slot = self._segs_host[self._frame_counter % 2]
+            slot.copy_(segs, non_blocking=True)
+            segs = slot
         mesh = self.renderer.mesh
         timing = spans.on()
         events, devices = [], []
@@ -238,10 +269,20 @@ class Engine:
                 ev.record(torch.cuda.current_stream(dev))
                 events.append(ev)
                 devices.append(dev)
-        return _Settled(events, devices,
-                        spans.take_starts() if timing else None, timing)
+        frame = _Frame(events, devices,
+                       spans.take_starts() if timing else None, timing,
+                       number=self._frame_counter, t0=t0, segs=segs,
+                       params=params, host=host, move_scale=move_scale,
+                       exact=exact)
+        if timing:
+            before = self._dispatched
+            spans.count("engine.dispatches")
+            if before is not None and not before.query():
+                spans.count("engine.dispatches_queued")
+        self._dispatched = frame
+        self._pending.append(frame)
 
-    def _count_gap(self, last: _Settled | None, ev: _Settled) -> None:
+    def _count_gap(self, last: _Frame | None, ev: _Frame) -> None:
         """Under a profiler session, add to ``device.interframe_gap_ms`` the
         card's own time from the end of the frame before ``ev`` (``last``)
         to ``ev``'s first launch call, the mean over the cards both
@@ -256,60 +297,74 @@ class Engine:
             spans.count("device.interframe_gap_ms", sum(gaps) / len(gaps))
             spans.count("device.interframe_gaps")
 
-    def _settle_pending(self, block: bool = True) -> None:
-        # called from the render loop (block=True) and from stats reads on
-        # other threads (block=False); a non-blocking caller that finds
-        # the lock taken returns, someone else is settling
+    def _settle_pending(self, block: bool = True,
+                        newest: bool = False) -> None:
+        """Settle the frames in flight, oldest first. From the render loop
+        (``block=True``) wait for every frame but the newest, which stays
+        queued on the card (``newest=True``: that one too; a CPU frame has
+        no events and settles at once); from a stats read on another
+        thread (``block=False``) settle only the frames that have finished,
+        never waiting, and return at once if someone else is settling."""
         if not self._settle_lock.acquire(blocking=block):
             return
         try:
-            ev = self._pending
-            if ev is None:
-                return
-            if not block and not ev.query():
-                return
-            with spans.span("engine.settle.wait"):
-                ev.synchronize()
-            self._last_render_s = time.perf_counter() - self._pending_t0
-            self._pending = None
-            self._count_gap(self._settled, ev)
-            self._settled = ev
-            # snapshot now, while renderer.last_segments is the settled
-            # frame's
-            with spans.span("engine.stats"):
-                self._refresh_stats()
+            pending = self._pending
+            while pending:
+                frame = pending[0]
+                if not block:
+                    if not frame.query():
+                        return
+                elif frame is pending[-1] and not newest and frame.events:
+                    return
+                with spans.span("engine.settle.wait"):
+                    frame.synchronize()
+                pending.popleft()
+                self._settle(frame)
         finally:
             self._settle_lock.release()
 
-    def _refresh_stats(self) -> None:
-        host = self._scene_for_stats
-        if host is None:
-            return
-        segs = self.renderer.last_segments
-        p = self._last_params
-        rays = (float(int(segs)) if segs is not None else
-                p.width * p.height * max(p.rays_per_pixel, 1))
-        render_s = max(self._last_render_s, 1e-9)
-        self._stats = FrameStats(
-            frame=self._frame_counter,
+    def _settle(self, frame: _Frame) -> None:
+        """A frame whose events have completed: its time (from its start on
+        the card, the later of its dispatch and the settle of the frame
+        before, to now), its segment count read from the host, the ladder's
+        state and the stats."""
+        now = time.perf_counter()
+        frame.render_s = now - max(frame.t0, self._settle_t)
+        self._settle_t = now
+        with spans.span("engine.stats"):
+            p = frame.params
+            frame.rays = (float(int(frame.segs)) if frame.segs is not None
+                          else p.width * p.height * max(p.rays_per_pixel, 1))
+            frame.segs = None
+            self._stats = self._frame_stats(frame)
+        self._count_gap(self._settled, frame)
+        # a stats read on another thread takes the frame whole from here
+        self._settled = frame
+        self._last_render_s = frame.render_s
+        self._last_move_scale = frame.move_scale
+
+    def _frame_stats(self, frame: _Frame) -> FrameStats:
+        host = frame.host
+        render_s = max(frame.render_s, 1e-9)
+        return FrameStats(
+            frame=frame.number,
             fps=self.timing.fps,
             frame_time_ms=render_s * 1e3,
-            mrays_per_s=rays / render_s / 1e6,
-            accumulated_frames=max(self.params.frames, 0),
+            mrays_per_s=frame.rays / render_s / 1e6,
+            accumulated_frames=max(frame.params.frames, 0),
             bvh_nodes=host.n_nodes,
             bvh_triangles=host.n_triangles,
-            timing_exact=self._timing_exact,
+            timing_exact=frame.exact,
         )
 
     @property
     def stats(self) -> FrameStats:
-        """Live metrics, never waiting: while a frame is in flight, the
-        numbers of the last settled frame (``timing_exact=False``)."""
-        if self._scene_for_stats is None:
-            return self._stats
+        """Live metrics, never waiting: the numbers of the newest settled
+        frame (while frames are in flight, ``timing_exact=False``)."""
         self._settle_pending(block=False)
-        if self._pending is None:
-            self._refresh_stats()
+        frame = self._settled
+        if frame is not None:
+            self._stats = self._frame_stats(frame)
         return self._stats
 
     @stats.setter

@@ -35,9 +35,6 @@ Span tree of one ``Engine.update``::
     engine.update
       engine.poll
       engine.camera          update_camera, refresh_camera, params.update
-      engine.settle
-        engine.settle.wait   the wait for the last frame's events
-        engine.stats         _refresh_stats (its segment count read back)
       engine.dispatch        the scene lock, for_render, the render
         renderer.render
           renderer.prepare
@@ -45,12 +42,20 @@ Span tree of one ``Engine.update``::
             megakernel.tables   kernel_tables and the launch checks
             megakernel.launch   launch_scratch and the launch
           renderer.blend
-      engine.event           the frame's settle events
+      engine.event           the frame's segment count copied to the host
+                             and its settle events
+      engine.settle          the settle of the frame before (on the CPU,
+                             of this one)
+        engine.settle.wait   the wait for its events
+        engine.stats         its segment count read, its stats
 
 Counters the program adds: ``device.interframe_gap_ms`` (the card's own
 time from one frame's end event to the next frame's first launch call,
-the mean over cards, added once a frame is settled) and
-``device.interframe_gaps`` (how many gaps it sums).
+the mean over cards, added once a frame is settled),
+``device.interframe_gaps`` (how many gaps it sums), ``engine.dispatches``
+(frames dispatched by ``Engine.update``) and ``engine.dispatches_queued``
+(those whose frame before had not finished on the card when their events
+were recorded: the card reached them with no gap).
 """
 from __future__ import annotations
 

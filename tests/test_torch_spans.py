@@ -27,8 +27,8 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 
 #: the children of each span of one ``Engine.update`` on the CPU, in order
 TREE = {
-    "engine.update": ["engine.poll", "engine.camera", "engine.settle",
-                      "engine.dispatch", "engine.event"],
+    "engine.update": ["engine.poll", "engine.camera", "engine.dispatch",
+                      "engine.event", "engine.settle"],
     "engine.settle": ["engine.settle.wait", "engine.stats"],
     "engine.dispatch": ["renderer.render"],
     "renderer.render": ["renderer.prepare", "megakernel.call",
