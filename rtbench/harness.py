@@ -5,9 +5,10 @@ comparison with the reference that decides ``correct``.
 The window is a closed loop: each ``Engine.update`` starts when the last
 returned, with the mix's fixed ``dt`` (and, in a moving mix, the seeded
 mouse delta given to the controller first, as the viewer's ``/input``
-does; ``traffic.Frames``). ``update`` settles the previous frame on the card before it
-dispatches the next, and the window closes with a ``synchronize`` on every
-card, so every frame started in it has finished when it is read.
+does; ``traffic.Frames``). ``update`` dispatches its frame, then waits for
+the frame before it, so the card holds up to two frames; the window closes
+with a ``synchronize`` on every card, so every frame started in it has
+finished when it is read.
 """
 from __future__ import annotations
 
@@ -69,19 +70,30 @@ def _sample_pixels(seed: int, n_pixels: int, k: int) -> np.ndarray:
 def drive(cell: dict, seed: int, seconds: float, trace: bool,
           device: str = "cuda", size: tuple | None = None,
           root: Path = manifest.ROOT, hook=None) -> tuple[dict, dict]:
-    """Set up the cell, run its window and hand back the run's record: the
-    timings, the trace, and what the comparison needs (the program's values
-    at the compared pixels, the last frame's segments, the deltas sent).
-    ``size`` overrides the 1920x1080 frame (tests on the CPU); ``hook``,
-    called with the engine before the window, lets a test break the path
-    underneath. Returns (the record, the configuration's inputs)."""
-    import torch
-    from rtbench import program
-
+    """Set up the cell, run its window and hand back the run's record
+    (``drive_inputs``). ``size`` overrides the 1920x1080 frame (tests on the
+    CPU); ``hook``, called with the engine before the window, lets a test
+    break the path underneath. Returns (the record, the configuration's
+    inputs)."""
     man = manifest.load(root)
     spec = manifest.config(man, cell["config"], root)
     mix = traffic.load(cell["traffic"], root / "rtbench")
     inputs = manifest.builder(cell["config"], root).inputs(spec, seed)
+    run = drive_inputs(inputs, mix, seed, seconds, trace, device, size,
+                       hook)
+    return dict(run, cell=cell["name"], config=cell["config"]), inputs
+
+
+def drive_inputs(inputs: dict, mix: dict, seed: int, seconds: float,
+                 trace: bool, device: str = "cuda",
+                 size: tuple | None = None, hook=None) -> dict:
+    """The program's ``Engine`` on ``inputs`` under the traffic ``mix``:
+    its warm frames, then the window. Returns the run's record: the
+    timings, the trace, and what the comparison needs (the program's values
+    at the compared pixels, the last frame's segments, the deltas sent)."""
+    import torch
+    from rtbench import program
+
     eng = program.engine(inputs, device, traffic.params(mix, size))
     if hook is not None:
         hook(eng)
@@ -148,7 +160,7 @@ def drive(cell: dict, seed: int, seconds: float, trace: bool,
         _sample_pixels(seed, n_pixels, STILL_PIXELS)
     fb = eng.renderer.read_framebuffer().reshape(-1, 4)
     run = dict(
-        cell=cell["name"], config=cell["config"], seed=int(seed),
+        seed=int(seed),
         overwrite=overwrite, dt=frames.dt, width=p.width, height=p.height,
         bounces=int(p.bounces), skybox=bool(p.skybox),
         n_frames=len(segments), frame_arg=int(p.frames), deltas=frames.sent,
@@ -164,7 +176,7 @@ def drive(cell: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    return run, inputs
+    return run
 
 
 def _chrome_events(prof) -> list:

@@ -1,20 +1,28 @@
-"""Host milliseconds a frame from the end of the wait for the last frame
-(the program's span ``engine.settle.wait``) to the end of the frame's first
-megakernel launch after it (``megakernel.launch``): the host work the idle
-card waits on. The mean over the frames that have both."""
+"""Host milliseconds a frame from the end of ``Engine.update``'s wait for
+the frame before (the program's span ``engine.settle.wait``, the last of
+update k) to the end of the next frame's record (``engine.event`` of
+update k + 1): the host's relaunch after the wait, while the card runs the
+one frame it still holds. Where it outlasts the card's frame the card
+idles. The mean over the frames that have both."""
 from rtbench.program_spans import last_session
 
 
-def read(tr):
-    rec = last_session()
-    if rec is None:
-        return None
-    waits, gaps = {}, []
+def relaunches(rec: dict) -> list:
+    """The relaunch of each update k whose wait has a next frame's record,
+    in ms, in the order of k."""
+    waits, events = {}, {}
     for name, _, frame, _, end in rec["spans"]:
         if end is None:
             continue
         if name == "engine.settle.wait":
-            waits.setdefault(frame, end)
-        elif name == "megakernel.launch" and frame in waits:
-            gaps.append(end - waits.pop(frame))
-    return sum(gaps) / len(gaps) / 1e6 if gaps else None
+            waits[frame] = max(end, waits.get(frame, end))
+        elif name == "engine.event":
+            events[frame] = end
+    return [(events[k + 1] - end) / 1e6 for k, end in sorted(waits.items())
+            if k + 1 in events]
+
+
+def read(tr):
+    rec = last_session()
+    gaps = relaunches(rec) if rec is not None else []
+    return sum(gaps) / len(gaps) if gaps else None

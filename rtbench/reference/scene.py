@@ -19,12 +19,46 @@ FAN = 8
 #: a group of at most this many triangles is tested before the others
 #: (the renderer's brute-force groups, merged first on equal distance)
 SMALL_GROUP = 256
+#: spheres from which the program's dense test is reassociated: a copy of
+#: ``ray_tracer_2_tpu_torch/kernels/intersect.py:SPHERE_FAST_MIN``, held
+#: equal to it by ``tests/test_rtbench_glass.py``
+SPHERE_FAST_MIN = 64
 
+#: a material's keys, as the program's ``MaterialDefinition`` names them,
+#: with its defaults; ``texture`` is its diffuse texture, an image's name
 _MAT_DEFAULTS = dict(color=(0.7, 0.7, 0.7, 1.0),
                      emission_color=(0.0, 0.0, 0.0, 0.0),
                      specular_color=(1.0, 1.0, 1.0, 1.0),
-                     emission_strength=0.0, smoothness=1.0, specular=0.0,
-                     ior=1.0, glass=False, texture=None)
+                     absorption=(0.0, 0.0, 0.0, 0.0),
+                     absorption_strength=0.0, emission_strength=0.0,
+                     smoothness=1.0, specular=0.0, ior=1.0, flag=0,
+                     texture=None)
+#: the material flags the reference follows (upstream material.rs:38-43):
+#: default, glass, textured. A named texture makes a material textured
+#: whatever its flag, as the program resolves it, so a textured glass
+#: material is shaded as a textured one
+FLAG_DEFAULT, FLAG_GLASS, FLAG_TEXTURE = 0, 1, 2
+
+
+def _is_glass(m: dict) -> bool:
+    return m["flag"] == FLAG_GLASS and m["texture"] is None
+
+
+def material(m: dict, images: dict) -> dict:
+    """A configuration's material with the defaults filled in. Raises on a
+    key, a flag or a texture the reference does not follow, so that no
+    part of a material is ignored without a word."""
+    other = set(m) - set(_MAT_DEFAULTS)
+    if other:
+        raise ValueError(f"the reference does not follow the material "
+                         f"keys {sorted(other)}")
+    full = dict(_MAT_DEFAULTS, **m)
+    if full["flag"] not in (FLAG_DEFAULT, FLAG_GLASS, FLAG_TEXTURE):
+        raise ValueError(f"the reference does not follow the material "
+                         f"flag {full['flag']!r}")
+    if full["texture"] is not None and full["texture"] not in images:
+        raise ValueError(f"no image {full['texture']!r} for a material")
+    return full
 
 
 def _morton(c: np.ndarray) -> np.ndarray:
@@ -87,9 +121,10 @@ class RefScene:
         f = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                       device=self.device).to(dtype)
         mats, mat_ids = [], {}
+        images = inputs.get("images", {})
 
         def mat_index(m: dict) -> int:
-            full = dict(_MAT_DEFAULTS, **m)
+            full = material(m, images)
             key = json.dumps(full, sort_keys=True)
             if key not in mat_ids:
                 mat_ids[key] = len(mats)
@@ -107,15 +142,19 @@ class RefScene:
         ordered = list(groups.values())
         ordered = [g for g in ordered if self._count(g) <= SMALL_GROUP] + \
             [g for g in ordered if self._count(g) > SMALL_GROUP]
-        self.instances = [self._instance(g, f) for g in ordered]
+        self.instances = [self._instance(g, f, mats) for g in ordered]
 
         sph = inputs["spheres"]
         self.sphere_pos = f([s["centre"] for s in sph]).reshape(-1, 3)
         self.sphere_radius = f([s["radius"] for s in sph]).reshape(-1)
+        # the quadratic in float64 where the program's test is
+        # reassociated (``tracer``'s docstring)
+        self.sphere_dtype = torch.float64 \
+            if dtype == torch.float32 and len(sph) >= SPHERE_FAST_MIN \
+            else dtype
         self.sphere_mat = torch.tensor([mat_index(s["material"]) for s in sph],
                                        dtype=torch.int64, device=self.device)
 
-        images = inputs.get("images", {})
         names = list(images)
         self.mat_color = f([m["color"] for m in mats])
         self.mat_emit = f([m["emission_color"] for m in mats]) * \
@@ -124,18 +163,23 @@ class RefScene:
         self.mat_smooth = f([m["smoothness"] for m in mats])
         self.mat_specular = f([m["specular"] for m in mats])
         self.mat_slot = torch.tensor(
-            [names.index(m["texture"]) if m["texture"] in images else -1
+            [names.index(m["texture"]) if m["texture"] is not None else -1
              for m in mats], dtype=torch.int64, device=self.device)
         self.image_list = [torch.as_tensor(np.ascontiguousarray(images[n]),
                                            device=self.device) for n in names]
-        if any(m["glass"] for m in mats):
-            raise NotImplementedError("the reference has no glass")
+        glass = [_is_glass(m) for m in mats]
+        self.has_glass = any(glass)
+        self.mat_glass = torch.tensor(glass, dtype=torch.bool,
+                                      device=self.device)
+        self.mat_ior = f([m["ior"] for m in mats])
+        self.mat_absorb = f([m["absorption"][:3] for m in mats])
+        self.mat_absorb_k = f([m["absorption_strength"] for m in mats])
 
     @staticmethod
     def _count(g) -> int:
         return sum(len(mesh["pos"]) // 3 for mesh, _ in g["parts"])
 
-    def _instance(self, g: dict, f) -> dict:
+    def _instance(self, g: dict, f, mats: list) -> dict:
         dev = self.device
         m2w = transform_matrix(g["transform"])
         w2m = np.linalg.inv(m2w.astype(np.float64)).astype(np.float32)
@@ -156,7 +200,14 @@ class RefScene:
         # padding slots have n = 0, which no test keeps
         geo = np.concatenate([v0, e1, e2, n], axis=1)[ordered]
         geo[order < 0] = 0.0
+        # glass triangles are tested two-sided (the program's cull flag,
+        # 1 unless glass); None where the instance has none
+        glass = np.array([_is_glass(m) for m in mats])[mat][ordered] \
+            & (order >= 0)
+        two_sided = torch.as_tensor(glass.reshape(-1, LEAF), device=dev) \
+            if glass.any() else None
         return dict(
+            two_sided=two_sided,
             m2w=f(m2w), w2m=f(w2m),
             geo=f(geo).reshape(-1, LEAF, 12),
             tri=torch.as_tensor(order, device=dev),

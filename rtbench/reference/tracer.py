@@ -8,11 +8,23 @@ divergence); up to ``bounces + 1`` segments, each the closest hit over the
 spheres and every instance's triangles (one-sided unless glass, tested in
 the instance's model space, merged by world distance in the order spheres,
 small instances, large instances, the earlier on a tie); on a miss the sky;
-on a hit the diffuse or specular bounce, the texture's bilinear sample
-(u8 texels, repeat addressing), emission and Russian roulette. It keeps no
-acceleration structure of the program: each instance's triangles sit under
-a tree of boxes of its own (``scene.box_tree``), walked breadth first with
-no pruning, so every triangle whose box the ray crosses is tested.
+on a hit of glass the reflection or refraction (wgsl:414-436), on any
+other hit the diffuse or specular bounce, the texture's bilinear sample
+(u8 texels, repeat addressing) and emission; then Russian roulette. It
+keeps no acceleration structure of the program: each instance's triangles
+sit under a tree of boxes of its own (``scene.box_tree``), walked breadth
+first with no pruning, so every triangle whose box the ray crosses is
+tested.
+
+Spheres are tested by the exact quadratic, ``b^2 - 4ac`` over ``2a``, in
+float32 and in the program's order below 64 spheres. From 64 spheres on
+the program's dense test is reassociated (its ``ray_sphere_fast``), so a
+ray that grazes a sphere, or leaves one from its surface, may hit it on
+one side and miss it on the other there. No order of operations can be
+followed then, and the reference solves the quadratic in float64
+(``RefScene.sphere_dtype``): in float32, ``|o - c|^2 - r^2`` loses a ray's
+origin to rounding on a large sphere, and a ray leaving the ground sphere
+of radius 1000 would hit it again.
 
 The float operations follow the renderer's stated precision (float32) and
 its order of sums; ``dtype`` lowers it for the control.
@@ -123,14 +135,16 @@ def _slab(o, inv, lo, hi):
     return (tf >= tn) & (tf >= 0.0)
 
 
-def _triangles(geo, om, dm):
-    """The one-sided Möller–Trumbore test of rays (n, 3) against their
-    rows of ``LEAF`` triangles (n, LEAF, 12): (dst, u, v, det), dst INF
-    where the test fails."""
+def _triangles(geo, om, dm, two=None):
+    """The Möller–Trumbore test of rays (n, 3) against their rows of
+    ``LEAF`` triangles (n, LEAF, 12), one-sided but where ``two`` (n, LEAF)
+    is set: (dst, u, v, det), dst INF where the test fails."""
     v0, e1, e2, nn = geo[..., 0:3], geo[..., 3:6], geo[..., 6:9], geo[..., 9:12]
     o, d = om[:, None, :], dm[:, None, :]
     det = -((d[..., 0] * nn[..., 0] + d[..., 1] * nn[..., 1]) + d[..., 2] * nn[..., 2])
     keep = det >= EPS_DET
+    if two is not None:
+        keep = torch.where(two, det.abs() >= EPS_DET, keep)
     inv = 1.0 / torch.where(keep, det, torch.ones_like(det))
     ao = o - v0
     dao = torch.stack([ao[..., 1] * d[..., 2] - ao[..., 2] * d[..., 1],
@@ -172,7 +186,9 @@ def closest_in_instance(inst: dict, om, dm):
     # (ray, leaf) pairs: test the leaf's triangles, keep each ray's nearest
     for s in range(0, ray.shape[0], block // LEAF):
         r, leaf = ray[s:s + block // LEAF], node[s:s + block // LEAF]
-        dst, u, v, det = _triangles(inst["geo"][leaf], om[r], dm[r])
+        two = inst["two_sided"]
+        dst, u, v, det = _triangles(inst["geo"][leaf], om[r], dm[r],
+                                    None if two is None else two[leaf])
         j = torch.argmin(dst, dim=1, keepdim=True)
         pick = lambda x: x.gather(1, j)[:, 0]
         d1 = pick(dst)
@@ -193,9 +209,33 @@ def closest_in_instance(inst: dict, om, dm):
     return best, bu, bv, bdet, btri
 
 
+def closest_sphere(scene: RefScene, o, d):
+    """The nearest sphere of each ray by the exact quadratic, the lowest
+    index on a tie: (distance, INF on a miss; sphere index; inside)."""
+    st = scene.sphere_dtype
+    c = scene.sphere_pos.to(st)[None]
+    r = scene.sphere_radius.to(st)[None]
+    o_s, d_s = o.to(st), d.to(st)
+    oc = o_s[:, None, :] - c
+    a = _dot(d_s, d_s)[:, None]
+    b = 2.0 * _dot(oc, d_s[:, None, :])
+    cc = _dot(oc, oc) - r * r
+    disc = b * b - (4.0 * a) * cc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    near = torch.clamp((-b - sq) / (2.0 * a), min=0.0)
+    far = (-b + sq) / (2.0 * a)
+    inside = near == 0.0
+    ok = (disc >= 0.0) & (far >= EPS_SPHERE)
+    sd = torch.where(ok, torch.where(inside, far, near),
+                     torch.full_like(far, INF))
+    k = torch.argmin(sd, dim=1)
+    ar = torch.arange(o.shape[0], device=o.device)
+    return sd[ar, k].to(o.dtype), k, inside[ar, k]
+
+
 def intersect(scene: RefScene, o, d):
     """The segment's closest hit: (hit, world distance, point, shading
-    normal, material id, uv)."""
+    normal, material id, uv, back face)."""
     n, dev, dt = o.shape[0], o.device, o.dtype
     dist = torch.full((n,), INF, dtype=dt, device=dev)
     point = torch.zeros_like(o)
@@ -203,33 +243,19 @@ def intersect(scene: RefScene, o, d):
     mat = torch.zeros(n, dtype=torch.int64, device=dev)
     uv = torch.zeros((n, 2), dtype=dt, device=dev)
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    back = torch.zeros(n, dtype=torch.bool, device=dev)
     if scene.sphere_pos.shape[0]:
-        c = scene.sphere_pos[None]
-        r = scene.sphere_radius[None]
-        oc = o[:, None, :] - c
-        a = _dot(d, d)[:, None]
-        b = 2.0 * _dot(oc, d[:, None, :])
-        cc = _dot(oc, oc) - r * r
-        disc = b * b - (4.0 * a) * cc
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        near = torch.clamp((-b - sq) / (2.0 * a), min=0.0)
-        far = (-b + sq) / (2.0 * a)
-        inside = near == 0.0
-        ok = (disc >= 0.0) & (far >= EPS_SPHERE)
-        sd = torch.where(ok, torch.where(inside, far, near),
-                         torch.full_like(far, INF))
-        k = torch.argmin(sd, dim=1)
-        ar = torch.arange(n, device=dev)
-        sdk = sd[ar, k]
+        sdk, k, ins = closest_sphere(scene, o, d)
         won = sdk < INF
         hp = o + d * sdk[:, None]
         nv = hp - scene.sphere_pos[k]
         nv = nv / torch.sqrt(_dot(nv, nv))[:, None]
-        nv = torch.where(inside[ar, k][:, None], -nv, nv)
+        nv = torch.where(ins[:, None], -nv, nv)
         dist = torch.where(won, sdk, dist)
         point = torch.where(won[:, None], hp, point)
         normal = torch.where(won[:, None], nv, normal)
         mat = torch.where(won, scene.sphere_mat[k], mat)
+        back = won & ins
         hit = won
     for inst in scene.instances:
         w2m, m2w = inst["w2m"], inst["m2w"]
@@ -253,8 +279,9 @@ def intersect(scene: RefScene, o, d):
         normal = torch.where(won[:, None], nw, normal)
         mat = torch.where(won, inst["mat"][t], mat)
         uv = torch.where(won[:, None], huv, uv)
+        back = torch.where(won, det < 0.0, back)
         hit = hit | won
-    return hit, dist, point, normal, mat, uv
+    return hit, dist, point, normal, mat, uv, back
 
 
 def sample_texture(img, uv, dtype):
@@ -279,10 +306,65 @@ def sample_texture(img, uv, dtype):
     return top * (1.0 - ty) + bot * ty
 
 
-def shade(scene: RefScene, o, d, trans, inc, rng: Rng, hit, point, normal,
-          mat, uv, skybox: bool):
-    """One vertex: the sky on a miss; on a hit the bounce, the albedo (the
-    texture's where the material has one), emission, Russian roulette.
+def reflectance(cos_t, ior):
+    """Schlick's approximation (wgsl:208-212), ``(1 - cos)^5`` as
+    ``x4 * x`` with ``x4 = (x x)(x x)``."""
+    r0 = (1.0 - ior) / (1.0 + ior)
+    r0 = r0 * r0
+    x = 1.0 - cos_t
+    x2 = x * x
+    x4 = x2 * x2
+    return r0 + (1.0 - r0) * (x4 * x)
+
+
+def glass(scene: RefScene, d, trans, rng: Rng, dist, point, normal, mat,
+          back):
+    """The glass vertex (wgsl:414-436): Beer–Lambert absorption on a back
+    face, Snell's refraction by ``ior`` (back face) or ``1 / ior`` (front
+    face) with total internal reflection, a Schlick draw where the ray can
+    refract, then a random direction ``dfd = norm(n + g)``: a reflected ray
+    ``norm(lerp(dfd, reflect, specular))``, a refracted one
+    ``norm(-dfd + (refr + dfd) * smoothness)``, leaving from ``1e-4`` off
+    the surface on its side. No emission. Returns the next (origin,
+    direction, transmittance); ``rng`` is advanced."""
+    b = back[:, None]
+    k_abs = scene.mat_absorb_k[mat][:, None]
+    absorbed = trans[:, :3] * torch.exp(
+        ((-dist)[:, None] * scene.mat_absorb[mat]) * k_abs)
+    trans_g = torch.cat([torch.where(b, absorbed, trans[:, :3]),
+                         torch.where(b, torch.ones_like(trans[:, 3:]),
+                                     trans[:, 3:])], dim=1)
+    m_ior = scene.mat_ior[mat]
+    ior = torch.where(back, m_ior, 1.0 / m_ior)
+    idn = 2.0 * _dot(d, normal)
+    cos_i = _dot(normal, d)
+    k = 1.0 - (ior * ior) * (1.0 - cos_i * cos_i)
+    kr = torch.sqrt(torch.clamp(k, min=0.0))
+    cos_t = torch.clamp(_dot(-d, normal), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ior * sin_t > 1.0
+    seed = rng.seed
+    r_refl = rng.uniform()
+    rng.seed = torch.where(cannot, seed, rng.seed)
+    follow = cannot | (reflectance(cos_t, ior) > r_refl)
+    dfd = _norm(normal + rng.direction())
+    refl = d - idn[:, None] * normal
+    spec = scene.mat_specular[mat][:, None]
+    reflected = dfd + (refl - dfd) * spec
+    refr = torch.where((k < 0.0)[:, None], torch.zeros_like(d),
+                       ior[:, None] * d - (ior * cos_i + kr)[:, None] * normal)
+    a0 = -dfd
+    refracted = a0 + (refr - a0) * scene.mat_smooth[mat][:, None]
+    nd = _norm(torch.where(follow[:, None], reflected, refracted))
+    no = point + (1e-4 * normal) * torch.sign(_dot(normal, nd))[:, None]
+    return no, nd, trans_g
+
+
+def shade(scene: RefScene, o, d, trans, inc, rng: Rng, hit, dist, point,
+          normal, mat, uv, back, skybox: bool):
+    """One vertex: the sky on a miss; on a hit of glass the glass vertex
+    (``glass``), on any other hit the bounce, the albedo (the texture's
+    where the material has one) and emission; then Russian roulette.
     Returns the next (o, d, trans, inc) and which paths continue."""
     dt = o.dtype
     if skybox:
@@ -305,12 +387,25 @@ def shade(scene: RefScene, o, d, trans, inc, rng: Rng, hit, point, normal,
     inc_n = inc + scene.mat_emit[mat] * trans
     trans_n = trans * torch.where(spec[:, None], scene.mat_spec_color[mat],
                                   color)
+    point_n = point
+    if scene.has_glass:
+        # the glass vertex draws from the same incoming seed
+        g_rng = Rng(before.seed, rng.dtype)
+        g_o, g_d, g_trans = glass(scene, d, trans, g_rng, dist, point,
+                                  normal, mat, back)
+        gl = scene.mat_glass[mat]
+        gc = gl[:, None]
+        point_n = torch.where(gc, g_o, point)
+        nd = torch.where(gc, g_d, nd)
+        trans_n = torch.where(gc, g_trans, trans_n)
+        inc_n = torch.where(gc, inc, inc_n)
+        rng.seed = torch.where(gl, g_rng.seed, rng.seed)
     p = trans_n[:, :3].amax(dim=1)
     survive = rng.uniform() < p
     trans_n = trans_n / torch.where(p > 0.0, p, torch.ones_like(p))[:, None]
     rng.where(hit, before)
     h = hit[:, None]
-    return (torch.where(h, point, o), torch.where(h, nd, d),
+    return (torch.where(h, point_n, o), torch.where(h, nd, d),
             torch.where(h, trans_n, trans), torch.where(h, inc_n, inc),
             hit & survive)
 
@@ -357,10 +452,11 @@ def trace(scene: RefScene, cam: dict, pixel, frame, *, width: int,
             break
         segs[idx] += 1
         sub = Rng(rng.seed[idx], dt)
-        hit, _, point, normal, mat, uv = intersect(scene, o[idx], d[idx])
+        hit, dist, point, normal, mat, uv, back = intersect(scene, o[idx],
+                                                            d[idx])
         o[idx], d[idx], trans[idx], inc[idx], cont = shade(
-            scene, o[idx], d[idx], trans[idx], inc[idx], sub, hit, point,
-            normal, mat, uv, skybox)
+            scene, o[idx], d[idx], trans[idx], inc[idx], sub, hit, dist,
+            point, normal, mat, uv, back, skybox)
         rng.seed[idx] = sub.seed
         idx = idx[cont]
     return inc, segs
