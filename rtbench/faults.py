@@ -10,6 +10,10 @@ engine before the warm frames) and an ``undo`` that takes it out again.
 * ``altered``: every sample 2% off in its red channel, where it is
   produced.
 
+The two that act on the sample wrap the entry of every render kernel
+that ``renderer.render_sample`` routes to, the megakernel and the
+small-scene kernel alike.
+
 A one-card cell has no exchange between cards to leave out.
 
     python3 -m rtbench.control --workload <cell> --seconds <s> --seeds <n> ... --fault <name>
@@ -54,6 +58,16 @@ def _off(orig):
 NAMES = ("unchanged", "half_rows", "altered")
 
 
+def _sample_entries() -> list:
+    """(module, name) of each kernel entry through which
+    ``renderer.render_sample`` reaches a frame's sample: the megakernel's,
+    a global of the renderer, and the small-scene kernel's, an attribute of
+    its module. A fault wraps them all, so it acts whichever kernel the
+    cell's frames take."""
+    import ray_tracer_2_tpu_torch.engine.renderer as r
+    return [(r, "render_persistent"), (r.spheres, "render_spheres")]
+
+
 def plant(name: str):
     """The hook of fault ``name``; call its ``undo`` after the run."""
     if name == "unchanged":
@@ -64,9 +78,13 @@ def plant(name: str):
     change = {"half_rows": _half, "altered": _off}[name]
 
     def hook(eng):
-        import ray_tracer_2_tpu_torch.engine.renderer as r
-        orig = r.render_persistent
-        hook.undo = lambda: setattr(r, "render_persistent", orig)
-        r.render_persistent = change(orig)
+        entries = [(m, n, getattr(m, n)) for m, n in _sample_entries()]
+
+        def undo():
+            for m, n, orig in entries:
+                setattr(m, n, orig)
+        hook.undo = undo
+        for m, n, orig in entries:
+            setattr(m, n, change(orig))
     hook.undo = lambda: None
     return hook

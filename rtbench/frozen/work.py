@@ -1,7 +1,8 @@
-"""The work a megakernel segment does and the card's peaks: frozen copies
-of ``chip_smoke.py``'s per-visit operation constants (``OPS_*``,
-``TAP_BYTES``) and of ``ray_tracer_2_tpu_torch/probes/common.py``'s peaks
-(``PEAK_FLOPS``, ``PEAK_BYTES_PER_S``) and ``bound``.
+"""The work a segment does, in the megakernel and in the small-scene
+kernel, and the card's peaks: frozen copies of ``chip_smoke.py``'s
+per-visit operation constants (``OPS_*``, ``TAP_BYTES``) and of
+``ray_tracer_2_tpu_torch/probes/common.py``'s peaks (``PEAK_FLOPS``,
+``PEAK_BYTES_PER_S``) and ``bound``.
 
 The roofline of a cell is not worked out from the program's own visit
 counts at run time, since a faster traversal would then change the
@@ -41,6 +42,15 @@ def per_segment_work(*, segments: int, boxes: int, leaves: int,
     ops = boxes * OPS_BOX + leaves * OPS_LEAF + segments * per_seg \
         + taps * OPS_TAP
     return ops / segments
+
+
+def small_scene_work(spheres: int, tris: int) -> float:
+    """Operations a segment of the small-scene kernel (``csrc/spheres.cu``)
+    costs by the semantics: every sphere and every triangle tested densely,
+    then the shading. A sphere counts as the exact quadratic
+    (``OPS_SPHERE``) whatever form the kernel tests it in, so the yardstick
+    does not move with the implementation."""
+    return spheres * OPS_SPHERE + tris * OPS_BRUTE + OPS_SEGMENT
 
 
 def bound_s(ops: float, nbytes: float) -> float:

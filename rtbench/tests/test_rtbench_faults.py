@@ -7,10 +7,15 @@ program's path:
 * half of each frame's rows left out;
 * an answer altered where it is produced (every sample a little off).
 
+Each fault is planted on the sponza cells, whose frames take the
+megakernel, and on a cell whose frames take the small-scene kernel (a
+configuration added as data alone, ``test_rtbench_manifest``).
+
 The exchange between cards does not exist in a one-card cell."""
 import pytest
 
 from rtbench import faults, harness
+from test_rtbench_manifest import small_root, small_run  # noqa: F401
 
 SIZE = (48, 27)
 
@@ -44,3 +49,17 @@ def test_half_the_rows_left_out(planted):
 @pytest.mark.parametrize("cell", ["sponza268k.still", "sponza268k.orbit"])
 def test_answer_altered(planted, cell):
     assert not run(cell, planted("altered"))["correct"]
+
+
+@pytest.mark.parametrize("fault", faults.NAMES)
+def test_faults_on_the_small_scene_kernel(fault, small_root, monkeypatch):
+    """Every pixel of the small-scene cell's frame: the fault makes the run
+    not correct, and once it is undone a run is correct again."""
+    hook = faults.plant(fault)
+    try:
+        out = small_run(small_root, 2 ** 31 + 78, monkeypatch, hook)
+    finally:
+        hook.undo()
+    assert not out["correct"], out["checks"]
+    out = small_run(small_root, 2 ** 31 + 79, monkeypatch)
+    assert out["correct"], out["checks"]

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and the files its
 names lead to."""
+import inspect
 import json
 import re
 import shutil
@@ -7,6 +8,8 @@ import shutil
 import pytest
 
 from rtbench import harness, manifest, traffic
+from rtbench.frozen.work import small_scene_work
+from test_rtbench_glass import SPONZA_BOUNDS, random_balls
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -119,6 +122,101 @@ def test_a_new_mix_is_found_by_its_name_alone(tmp_path):
                            size=(16, 9), root=tmp_path)
     assert run["n_frames"] >= 2 and run["width"] == 16
     assert run["bounces"] == 1 and run["skybox"] is False
+
+
+#: the per-layer metrics that read only the megakernel
+MEGAKERNEL_ONLY = {"megakernel.ns_per_segment", "megakernel_roofline",
+                   "megakernel.lane_occupancy",
+                   "megakernel.rows_per_segment"}
+#: the per-layer metrics each sponza cell reported before the four above
+#: took a list of cells
+SPONZA_PER_LAYER = MEGAKERNEL_ONLY | {
+    "engine.host_ms", "renderer.dispatch_ms", "renderer.blend_ms",
+    "device.idle_pct", "engine.settle_wait_ms", "engine.camera_ms",
+    "engine.relaunch_ms", "device.interframe_gap_ms", "engine.queued_pct"}
+SMALL_CELL = "random_balls.still"
+#: the builder of a configuration on the small-scene path, as a later PR
+#: would add it: upstream ``random_balls`` from its published rules
+SMALL_BUILDER = ("import numpy as np\n\n\n" + inspect.getsource(random_balls)
+                 + "\n\ndef inputs(spec, seed):\n"
+                 "    return random_balls(spec['scene_seed'], spec['half'])\n")
+#: its limits in the copy: those of ``test_random_balls_matches``, and
+#: for ``mean_rel_err`` 0.02: on the CPU at 48x27, over the scenes of seeds
+#: 42 and 1-7, sound runs read 0.0013-0.0072 and the bfloat16 control
+#: 1.12-1.30
+SMALL_LIMITS = dict(SPONZA_BOUNDS, mean_rel_err=0.02)
+
+
+def small_scene_copy(root):
+    """A copy of the benchmark under ``root`` with a configuration on the
+    small-scene path and its still cell added by new files and new
+    ``BENCHMARK.json`` entries alone: ``configs/random_balls.json`` and
+    its builder, ``cells/random_balls.still.json``. Returns the copy's
+    manifest."""
+    m = copy_of_the_benchmark(root)
+    rt = root / "rtbench"
+    spec = dict(name="random_balls", reduced=[], scene_seed=42, half=11)
+    (rt / "configs" / "random_balls.json").write_text(json.dumps(spec))
+    (rt / "configs" / "random_balls.py").write_text(SMALL_BUILDER)
+    (rt / "cells" / f"{SMALL_CELL}.json").write_text(json.dumps(dict(
+        limits=SMALL_LIMITS,
+        work=dict(ops_per_segment=small_scene_work(485, 0),
+                  bytes_per_frame=1.0, **{"from": "test"}))))
+    m["configs"].append(dict(
+        name="random_balls",
+        source="https://github.com/addiswebb/ray_tracer_2 "
+               "src/scene/scene.rs:365-444",
+        file="rtbench/configs/random_balls.json", reduced=[], why="test"))
+    m["workloads"].append(dict(name=SMALL_CELL, config="random_balls",
+                               traffic="still", chips=1, why="test"))
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+    return manifest.load(root)
+
+
+@pytest.fixture(scope="module")
+def small_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("small_scene")
+    small_scene_copy(root)
+    return root
+
+
+def small_run(root, seed, monkeypatch, hook=None):
+    """One run of the copy's small-scene cell on the CPU at 48x27 with no
+    window beyond the mix's warm frames, every pixel compared; the scene
+    is checked to take the small-scene path first."""
+    from ray_tracer_2_tpu_torch.engine import renderer
+
+    def route(eng):
+        assert renderer.small_scene(eng.scene_manager.scene.scene)
+        if hook is not None:
+            hook(eng)
+    monkeypatch.setattr(harness, "STILL_PIXELS", 48 * 27)
+    out, run = harness.run_cell(SMALL_CELL, seed, 0.0, False, device="cpu",
+                                size=(48, 27), root=root, hook=route)
+    assert len(run["pixels"]) == 48 * 27 and run["n_frames"] == 5
+    return out
+
+
+def test_a_small_scene_cell_is_added_by_data_alone(small_root, monkeypatch):
+    """A configuration whose frames take the small-scene kernel, added as
+    data alone, reports every per-layer metric but the megakernel's four,
+    and its run on the CPU is correct under its limits."""
+    man = manifest.load(small_root)
+    got = {x["name"] for x in manifest.per_layer(man, SMALL_CELL)}
+    assert got == SPONZA_PER_LAYER - MEGAKERNEL_ONLY
+    out = small_run(small_root, 2 ** 31 + 41, monkeypatch)
+    assert out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("cell", ["sponza268k.still", "sponza268k.orbit"])
+def test_each_sponza_cell_reports_the_same_metrics(cell):
+    """The lists on the megakernel's four metrics leave the sponza cells
+    with the 3 end-to-end and 13 per-layer metrics they reported before."""
+    man = manifest.load()
+    assert {x["name"] for x in manifest.per_layer(man, cell)} == \
+        SPONZA_PER_LAYER
+    assert {x["name"] for x in manifest.end_to_end(man, cell)} == \
+        {"mrays_per_s", "frame_ms_p95", "setup_s"}
 
 
 def test_a_new_end_to_end_metric_is_found_by_its_name_alone(tmp_path):

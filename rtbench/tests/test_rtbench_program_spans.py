@@ -118,10 +118,24 @@ def test_readers_read_none_without_the_programs_spans(name, monkeypatch):
 
 
 def test_the_six_are_in_the_manifest():
-    got = {m["name"]: m for m in manifest.load()["per_layer"]}
+    """The megakernel's two counters list the cells whose frames take the
+    megakernel, as its other two metrics do: both sponza cells, and any
+    that a later cell-adding PR names (its frames take the megakernel, and
+    it adds its own name). The other four read the frame loop that every
+    path runs, and keep no list."""
+    man = manifest.load()
+    got = {m["name"]: m for m in man["per_layer"]}
+    cells = {w["name"] for w in man["workloads"]}
     for name in NEW:
-        assert "workloads" not in got[name]
         assert got[name]["source"] in ("program_span", "program_counter")
+        if name.startswith("megakernel."):
+            listed = got[name]["workloads"]
+            assert {"sponza268k.still", "sponza268k.orbit"} <= set(listed)
+            assert set(listed) <= cells
+            assert listed == got["megakernel_roofline"]["workloads"] == \
+                got["megakernel.ns_per_segment"]["workloads"]
+        else:
+            assert "workloads" not in got[name]
 
 
 #: the device's operations in a Chrome trace, and the host's launches
