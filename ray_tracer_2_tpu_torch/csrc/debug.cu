@@ -40,6 +40,11 @@ namespace {
 #include "trace.cuh"
 
 constexpr int kDebugThreads = 128;
+// Resident blocks a SM the forms are held to: 72 registers a thread. Left
+// to itself ptxas gives them 64 and spills (the exact-sphere form 36 bytes
+// of stores, and, with the slab test of csrc/trace.cuh as it is now, the
+// fast-sphere form 12); at 72 none spills (PERF.md, section 6).
+constexpr int kDebugMinBlocks = 7;
 
 // The closest hit of the ray (o, d) as the megakernel finds a segment's
 // (trace_segment up to its shade), the hit's normal and UV, and the ray's
@@ -109,7 +114,7 @@ __device__ __forceinline__ void debug_hit(const Params& p, const float o[3],
 }
 
 template <int kSph>
-__global__ void __launch_bounds__(kDebugThreads)
+__global__ void __launch_bounds__(kDebugThreads, kDebugMinBlocks)
 debug_kernel(Params p, TexParams tex, int mode, float scale, int* visits) {
   int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= p.total) return;

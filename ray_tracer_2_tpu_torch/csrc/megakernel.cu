@@ -16,10 +16,19 @@
 // What bounds it on this card: arithmetic, about 33 operations for each
 // child box of a visited wide row and 47 for each triangle of a visited
 // leaf; its tables (7.3 MB of wide rows and 10.2 MB of attribute rows for
-// 80,000 triangles) fit in L2. What keeps it from that bound: the
-// dependent loads of the traversal (each row's address comes from the
-// previous row) and divergence, since paths end at different bounces. The
-// design answers the second: the grid is as many blocks as can be resident
+// 80,000 triangles) fit in L2. Box tests are about 85% of that work, and
+// they are bound by issued instructions, not by memory: a row's 24 box
+// loads are followed by a few thousand instructions a lane, and seven
+// warps share each scheduler, so L2's latency is covered even where the
+// rows do not fit (PERF.md, section 5). So the box test is written for few
+// instructions, each exact against the plain version (csrc/trace.cuh
+// child_eval): the NaN-propagating min/max are one min.NaN / max.NaN each,
+// and the f16 bounds take the hardware conversion, clamped where the plain
+// version's integer rebias reads an infinity as 65536. What keeps it from
+// that bound: the dependent loads of the traversal (each row's address
+// comes from the previous row) and divergence, since paths end at
+// different bounces. The design answers the second: the grid is as many
+// blocks as can be resident
 // (csrc/claim.cuh persistent_blocks), each lane holds one path and traces
 // one segment per turn of the warp's loop, and a lane whose pixel is done
 // claims the next, so warps stay full until the frame is handed out. The

@@ -9,8 +9,9 @@
 // <stdint.h>, <type_traits> and "brute.cuh". megakernel.cu includes it at
 // the place these lines held before they moved here, so its translation unit
 // is the one it was: the main path's form is sensitive to text it never
-// runs (PERF.md, section 6), and its SASS is held to the earlier one
-// (`python3 -m ray_tracer_2_tpu_torch.kernel_times` digests).
+// runs (PERF.md, section 6), so an edit here is timed against its parent
+// (`python3 -m ray_tracer_2_tpu_torch.kernel_times`, which also gives each
+// form's SASS digest).
 //
 // RT2_TRACE_LEAF_TRIS, defined before the include (the debug kernel does),
 // gives `Visits` a count of the triangles of every triangle leaf visited
@@ -263,41 +264,75 @@ __device__ __forceinline__ void apply_point(const float* m, const float v[3],
   for (int r = 0; r < 3; ++r) out[r] = out[r] + m[4 * r + 3];
 }
 
-// f16 bit pattern -> f32 by integer rebias (megakernel.py f16_bits_to_f32)
-__device__ __forceinline__ float f16_bits(uint32_t b) {
-  uint32_t sign = (b & 0x8000u) << 16;
-  uint32_t mag = (b & 0x7FFFu) << 13;
-  return __uint_as_float(sign | mag) * __uint_as_float(0x77800000u);
+// nan_min / nan_max in one instruction each (PTX min.NaN / max.NaN, sm_80
+// and later), for the slab test. Their NaN is PTX's canonical one
+// (0x7fffffff), not nan_min's 0x7fc00000: no NaN leaves the slab test
+// (child_eval), while shading, where one can reach a pixel, keeps nan_min.
+__device__ __forceinline__ float nan_min1(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float nan_max1(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-// One child box (f16 pairs lo | hi << 16 per axis) against the ray, folded
-// into the row's hit mask, nearest child and second-least entry distance.
-__device__ __forceinline__ void child_eval(uint32_t ux, uint32_t uy,
+// A child's f16 pair lo | hi << 16 on one axis as the two floats that the
+// integer rebias gives (megakernel.py f16_bits_to_f32: sign and magnitude
+// shifted into place, times 2^112). The hardware conversion gives the same
+// float for every finite pattern, subnormals and +-0 included; the rebias
+// reads an infinity as +-65536, the conversion as +-inf. The packer
+// (accel/wide.py _round_out_f16) emits an infinity in a tested child only
+// as a lo of -inf or a hi of +inf (a bound beyond 65504, rounded outward),
+// and never a NaN pattern, so the clamps below give lo and hi exactly what
+// the rebias gives.
+__device__ __forceinline__ void f16_pair(uint32_t u, float& lo, float& hi) {
+  asm("{\n\t.reg .f16 l, h;\n\tmov.b32 {l, h}, %2;\n\t"
+      "cvt.f32.f16 %0, l;\n\tcvt.f32.f16 %1, h;\n\t}"
+      : "=f"(lo), "=f"(hi) : "r"(u));
+  lo = fmaxf(lo, -65536.0f);
+  hi = fminf(hi, 65536.0f);
+}
+
+// One child box (f16 pairs lo | hi << 16 per axis) against the ray: whether
+// it is hit, folded into the row's nearest child and second-least entry
+// distance. A NaN arises only as 0 * inf (a zero direction component, the
+// origin on the child's plane); the min/max pass it on, so tf >= tn fails
+// and the child is a miss. No NaN leaves: dn is tn only on a hit, and m2 a
+// min of such values, so m2 takes a plain fminf. The sign of a zero is
+// never read (tn, tf and dn are only compared), so which zero a min or max
+// returns does not matter.
+__device__ __forceinline__ bool child_eval(uint32_t ux, uint32_t uy,
                                            uint32_t uz, int c,
                                            const float om[3],
                                            const float inv[3], float limit,
-                                           uint32_t& mask, int& c_min,
-                                           float& m1, float& m2) {
-  float t1x = (f16_bits(ux & 0xFFFFu) - om[0]) * inv[0];
-  float t2x = (f16_bits(ux >> 16) - om[0]) * inv[0];
-  float t1y = (f16_bits(uy & 0xFFFFu) - om[1]) * inv[1];
-  float t2y = (f16_bits(uy >> 16) - om[1]) * inv[1];
-  float t1z = (f16_bits(uz & 0xFFFFu) - om[2]) * inv[2];
-  float t2z = (f16_bits(uz >> 16) - om[2]) * inv[2];
-  float tn = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
-                     nan_min(t1z, t2z));
-  float tf = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
-                     nan_max(t1z, t2z));
+                                           int& c_min, float& m1, float& m2) {
+  float lx, hx, ly, hy, lz, hz;
+  f16_pair(ux, lx, hx);
+  f16_pair(uy, ly, hy);
+  f16_pair(uz, lz, hz);
+  float t1x = (lx - om[0]) * inv[0];
+  float t2x = (hx - om[0]) * inv[0];
+  float t1y = (ly - om[1]) * inv[1];
+  float t2y = (hy - om[1]) * inv[1];
+  float t1z = (lz - om[2]) * inv[2];
+  float t2z = (hz - om[2]) * inv[2];
+  float tn = nan_max1(nan_max1(nan_min1(t1x, t2x), nan_min1(t1y, t2y)),
+                      nan_min1(t1z, t2z));
+  float tf = nan_min1(nan_min1(nan_max1(t1x, t2x), nan_max1(t1y, t2y)),
+                      nan_max1(t1z, t2z));
   bool hit = (tf >= tn) && (tn < limit) && (tf > 0.0f);
   float dn = hit ? tn : kInf;
-  if (hit) mask |= 1u << c;
   if (dn < m1) {
     m2 = m1;
     m1 = dn;
     c_min = c;
   } else {
-    m2 = nan_min(m2, dn);
+    m2 = fminf(m2, dn);
   }
+  return hit;
 }
 
 // One wide row against the ray: hit mask over its k children, the nearest
@@ -305,7 +340,10 @@ __device__ __forceinline__ void child_eval(uint32_t ux, uint32_t uy,
 // other hit children (megakernel.py wide_eval / slab_blocked). The child
 // boxes (x, y and z blocks of 32 words, 64 bytes into the 512-byte row)
 // are read four children at a time as 16-byte loads; the children are
-// still tested one by one in index order. Returns the children tested.
+// still tested one by one in index order, and the four hits go into the
+// mask at once. A slot at or past k holds an inverted box of infinities,
+// which the slab test reads as a box around everything, a hit: it is not
+// tested. Returns the children tested.
 __device__ __forceinline__ int wide_eval(const float* row, const float om[3],
                                          const float inv[3], float limit,
                                          uint32_t& mask, int& c_min,
@@ -320,20 +358,22 @@ __device__ __forceinline__ int wide_eval(const float* row, const float om[3],
     float4 by = __ldg(box + kArity / 4 + g);
     float4 bz = __ldg(box + kArity / 2 + g);
     int c = 4 * g;
-    child_eval(__float_as_uint(bx.x), __float_as_uint(by.x),
-               __float_as_uint(bz.x), c, om, inv, limit, mask, c_min, m1, m2);
-    if (c + 1 < k)
-      child_eval(__float_as_uint(bx.y), __float_as_uint(by.y),
-                 __float_as_uint(bz.y), c + 1, om, inv, limit, mask, c_min,
-                 m1, m2);
-    if (c + 2 < k)
-      child_eval(__float_as_uint(bx.z), __float_as_uint(by.z),
-                 __float_as_uint(bz.z), c + 2, om, inv, limit, mask, c_min,
-                 m1, m2);
-    if (c + 3 < k)
-      child_eval(__float_as_uint(bx.w), __float_as_uint(by.w),
-                 __float_as_uint(bz.w), c + 3, om, inv, limit, mask, c_min,
-                 m1, m2);
+    uint32_t bits = child_eval(__float_as_uint(bx.x), __float_as_uint(by.x),
+                               __float_as_uint(bz.x), c, om, inv, limit,
+                               c_min, m1, m2) ? 1u : 0u;
+    if (c + 1 < k && child_eval(__float_as_uint(bx.y), __float_as_uint(by.y),
+                                __float_as_uint(bz.y), c + 1, om, inv, limit,
+                                c_min, m1, m2))
+      bits |= 2u;
+    if (c + 2 < k && child_eval(__float_as_uint(bx.z), __float_as_uint(by.z),
+                                __float_as_uint(bz.z), c + 2, om, inv, limit,
+                                c_min, m1, m2))
+      bits |= 4u;
+    if (c + 3 < k && child_eval(__float_as_uint(bx.w), __float_as_uint(by.w),
+                                __float_as_uint(bz.w), c + 3, om, inv, limit,
+                                c_min, m1, m2))
+      bits |= 8u;
+    mask |= bits << c;
   }
   dn2 = m2;
   return k > 0 ? k : 0;
