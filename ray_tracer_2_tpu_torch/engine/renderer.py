@@ -53,13 +53,14 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 def small_scene(scene: TorchScene) -> bool:
     """Whether ``scene`` takes the small-scene path; decided once per scene
-    (kept in ``scene.derived``). A scene instantiated with a sphere BVH does
-    not: only the megakernel walks it."""
-    route = scene.derived.get("small_scene")
-    if route is None:
-        route = scene.derived["small_scene"] = \
-            scene.sphere_bvh_root < 0 and spheres.eligible(scene)
-    return route
+    (``scene.derive``) and again after a material edit of a ``FORM_FIELDS``
+    field (the route reads the texture flag and index). A scene
+    instantiated with a sphere BVH does not: only the megakernel walks
+    it."""
+    return scene.derive(
+        "small_scene",
+        lambda: scene.sphere_bvh_root < 0 and spheres.eligible(scene),
+        stale_on=("material_form",))
 
 
 def render_sample(scene: TorchScene, frames: int, *, width: int,

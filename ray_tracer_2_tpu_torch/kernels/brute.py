@@ -56,23 +56,25 @@ def pack_brute_table(scene: TorchScene, tri_offset: int,
     [tri_offset, tri_offset + tri_count) that the kernel reads (reference
     ``_brute_pallas``, ``brute.py:110-117``): model-space v0, v1, v2, the
     canonical material id (no instance delta) and 1.0 where the backface
-    is culled, i.e. unless the material is glass. Kept in
-    ``scene.derived``."""
+    is culled, i.e. unless the material is glass. Kept with the scene
+    (``scene.derive``) until a material edit of a ``FORM_FIELDS`` field."""
     key = ("brute_table", int(tri_offset), int(tri_count))
-    cached = scene.derived.get(key)
-    if cached is not None:
-        return cached
+    return scene.derive(key, lambda: _brute_table(scene, tri_offset,
+                                                  tri_count),
+                        stale_on=("material_form",))
+
+
+def _brute_table(scene: TorchScene, tri_offset: int,
+                 tri_count: int) -> torch.Tensor:
     sl = slice(tri_offset, tri_offset + tri_count)
     mats = scene.tri_mat[sl].long()
     cull = (scene.mat_rows[mats, 21] != float(MaterialFlag.GLASS))
-    tab = torch.cat([scene.tri_v0[sl], scene.tri_v1[sl], scene.tri_v2[sl],
-                     mats.to(torch.float32)[:, None],
-                     cull.to(torch.float32)[:, None],
-                     torch.zeros((tri_count, TABLE_COLS - 11),
-                                 dtype=torch.float32, device=scene.device)],
-                    dim=1).contiguous()
-    scene.derived[key] = tab
-    return tab
+    return torch.cat([scene.tri_v0[sl], scene.tri_v1[sl], scene.tri_v2[sl],
+                      mats.to(torch.float32)[:, None],
+                      cull.to(torch.float32)[:, None],
+                      torch.zeros((tri_count, TABLE_COLS - 11),
+                                  dtype=torch.float32, device=scene.device)],
+                     dim=1).contiguous()
 
 
 def stage_brute_rows(packed: torch.Tensor) -> torch.Tensor:

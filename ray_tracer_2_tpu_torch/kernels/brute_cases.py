@@ -53,14 +53,15 @@ class BruteCase:
 def table_scene(case: BruteCase, device="cpu"):
     """What ``brute_force_intersect``, its plain version and
     ``pack_brute_table`` read of a scene, for the case's table: vertices,
-    material ids, material rows (column 21 the flag), ``derived``."""
+    material ids, material rows (column 21 the flag), and a ``derive`` that
+    builds its table at every call."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     rows = np.zeros((N_MATERIALS, 32), np.float32)
     rows[list(GLASS_IDS), 21] = 1.0     # MaterialFlag.GLASS
     return types.SimpleNamespace(
         tri_v0=t(case.v0), tri_v1=t(case.v1), tri_v2=t(case.v2),
-        tri_mat=t(case.mat.astype(np.int32)), mat_rows=t(rows), derived={},
-        device=torch.device(device))
+        tri_mat=t(case.mat.astype(np.int32)), mat_rows=t(rows),
+        derive=lambda key, build, **_: build(), device=torch.device(device))
 
 
 def _f32(*rows) -> np.ndarray:

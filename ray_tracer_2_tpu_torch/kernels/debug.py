@@ -82,12 +82,24 @@ def render_debug_plain(scene: TorchScene, *, width: int, height: int,
     return (out if modes is not None else out[debug_mode]), counts
 
 
+def debug_brute_rows(scene: TorchScene, tab: dict) -> torch.Tensor:
+    """The brute-force rows the debug kernel reads: the megakernel's
+    (``tab``, its ``kernel_tables``) where they are staged already, else
+    those packed rows staged once per scene (``scene.derive``; again after
+    a material edit of a ``FORM_FIELDS`` field, as ``tab``)."""
+    if not tab["staged"]:
+        return tab["brute"]
+    return scene.derive("debug_brute",
+                        lambda: stage_brute_rows(tab["brute"]),
+                        stale_on=("material_form",))
+
+
 class CudaDebug(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/debug.cu`` at first use,
     checks every tensor it hands over, launches on the current stream and
     counts its launches in ``launches``. It reads the megakernel's tables
     (``kernel_tables``) from global memory, its brute-force rows staged
-    once per scene (kept in ``scene.derived``)."""
+    (``debug_brute_rows``)."""
 
     symbol = "rt2_render_debug"
     argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
@@ -107,12 +119,7 @@ class CudaDebug(CudaKernel):
         _require_eligible(scene)
         rows = height if rows is None else rows
         tab = kernel_tables(scene)
-        brute = tab["brute"]
-        if tab["staged"]:     # packed rows, which the megakernel stages
-            brute = scene.derived.get("debug_brute")
-            if brute is None:
-                brute = scene.derived["debug_brute"] = \
-                    stage_brute_rows(tab["brute"])
+        brute = debug_brute_rows(scene, tab)
         n_brute = sum(c for _, c in _brute_ranges(scene))
         texels = scene.tex_quads
         check_launch(dev, width=width, height=height, row_start=row_start,

@@ -87,7 +87,7 @@ from ray_tracer_2_tpu_torch.math.vec import cross, dot, lerp, normalize, \
     reflect, refract, sign
 from ray_tracer_2_tpu_torch.scene.material import MaterialFlag
 from ray_tracer_2_tpu_torch.scene.render_scene import SPHERE_BVH_MIN, \
-    TorchScene, camera_scal
+    TorchScene
 
 #: dense prepass capacity: scenes at ``SPHERE_BVH_MIN`` spheres and above
 #: carry the sphere BVH (as ``kernels/spheres.py:MAX_SPHERES``)
@@ -226,15 +226,17 @@ def nee_mode(scene: TorchScene, nee: bool, segments: bool = False) -> int:
 
 def light_tables(scene: TorchScene) -> dict:
     """The light table as next-event estimation samples it, once per scene
-    (kept in ``scene.derived``), built as the reference builds it in
-    resolve_and_shade (:911-922): ``rows`` (n, ``LIGHT_COLS``) float32 on
-    the scene's device, ``cdf`` the float32 cumulative area shares (the
-    pick counts the entries before the last that a draw reaches), and the
-    float32 constants ``c_tri`` = total area / 2 pi and ``c_area`` = total
-    area, each rounded once from float64."""
-    cached = scene.derived.get("nee_lights")
-    if cached is not None:
-        return cached
+    (``scene.derive``; made again when the light table changes), built as
+    the reference builds it in resolve_and_shade (:911-922): ``rows`` (n,
+    ``LIGHT_COLS``) float32 on the scene's device, ``cdf`` the float32
+    cumulative area shares (the pick counts the entries before the last
+    that a draw reaches), and the float32 constants ``c_tri`` = total area
+    / 2 pi and ``c_area`` = total area, each rounded once from float64."""
+    return scene.derive("nee_lights", lambda: _light_tables(scene),
+                        stale_on=("lights",))
+
+
+def _light_tables(scene: TorchScene) -> dict:
     arr = np.asarray(scene.lights, np.float32)
     lk, lv0 = arr[:, 0], arr[:, 1:4]
     lv1, lv2, lrad = arr[:, 4:7], arr[:, 7:10], arr[:, 10:13]
@@ -246,13 +248,11 @@ def light_tables(scene: TorchScene) -> dict:
     total_area = float(larea.sum())
     cdf = np.cumsum(larea) / max(total_area, 1e-30)
     dev = scene.device
-    tables = dict(
+    return dict(
         rows=torch.from_numpy(rows.astype(np.float32)).to(dev).contiguous(),
         cdf=torch.from_numpy(cdf.astype(np.float32)).to(dev).contiguous(),
         c_tri=float(np.float32(total_area / (2.0 * math.pi))),
         c_area=float(np.float32(total_area)))
-    scene.derived["nee_lights"] = tables
-    return tables
 
 
 def _require_eligible(scene: TorchScene) -> None:
@@ -968,11 +968,42 @@ def render_plain(scene: TorchScene, frames: int, *, width: int, height: int,
 # --------------------------------------------------------------------------
 # CUDA kernel (csrc/megakernel.cu), built by kernels/cuda_build.py
 # --------------------------------------------------------------------------
+def camera_scal(scene: TorchScene) -> torch.Tensor:
+    """The camera as the kernels read it, 17 float32 on the scene's device:
+    ``cam_to_world[:3, :4]`` row-major, ``view_params``, defocus,
+    diverge."""
+    return torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
+                      scene.view_params.reshape(-1),
+                      scene.defocus_strength.reshape(1),
+                      scene.diverge_strength.reshape(1)]).contiguous()
+
+
+def _sphere_rows(scene: TorchScene, mode: int) -> torch.Tensor:
+    """The kernel's sphere table of ``spheres_mode`` ``mode`` (one zero row
+    for a scene without spheres)."""
+    if not scene.n_spheres:
+        return torch.zeros((1, SPHERE_COLS), dtype=torch.float32,
+                           device=scene.device)
+    return torch.cat([
+        scene.sphere_pos,
+        (sphere_k(scene.sphere_pos, scene.sphere_radius) if mode == 1
+         else scene.sphere_radius)[:, None],
+        scene.sphere_mat.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def _put_transforms(scene: TorchScene, inst: torch.Tensor) -> None:
+    """Write columns 0-24 of the kernel's instance rows ``inst`` in place:
+    ``inst_world_to_model`` and ``inst_model_to_world``, each ``[:3, :4]``
+    row-major."""
+    n = scene.n_instances
+    inst[:n, 0:12] = scene.inst_world_to_model[:, :3, :4].reshape(n, 12)
+    inst[:n, 12:24] = scene.inst_model_to_world[:, :3, :4].reshape(n, 12)
+
+
 def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
     """The small tables the kernel reads per segment, on the scene's device,
-    once per scene (kept in ``scene.derived``): ``scal`` (the camera,
-    ``camera_scal``; ``TorchScene.set_camera`` rewrites it in place),
-    ``spheres`` (one ``SPHERE_COLS`` row per
+    once per scene (``scene.derive``): ``scal`` (the camera,
+    ``camera_scal``), ``spheres`` (one ``SPHERE_COLS`` row per
     sphere, see there), ``inst`` (one ``INST_COLS`` row per instance, see
     there) and ``brute`` (the rows of each distinct brute-force group:
     packed, ``kernels/brute.py:pack_brute_table``, where the kernel stages
@@ -996,19 +1027,28 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
       a scene, or a general one with modes 0 and ``staged``, without glass.
 
     The textured forms read the atlas from ``TorchScene.tex_quads``, one
-    texel a row of 4 int32 words: a bilinear quad in one 16-byte load."""
-    cached = scene.derived.get("megakernel_tables")
-    if cached is not None:
-        return cached
+    texel a row of 4 int32 words: a bilinear quad in one 16-byte load.
+
+    A material edit of a ``FORM_FIELDS`` field makes the tables again. A
+    camera move, a sphere edit and an instance move write ``scal``, the
+    sphere rows and the instances' matrix columns in place from the scene's
+    tensors, on the device: the same tensors, so a frame queued before
+    reads the old values in stream order."""
+    return scene.derive(
+        "megakernel_tables", lambda: _kernel_tables(scene, budget),
+        stale_on=("material_form",), refresh={
+            "camera": lambda t: t["scal"].copy_(camera_scal(scene)),
+            "sphere": lambda t: t["spheres"].copy_(
+                _sphere_rows(scene, t["spheres_mode"])),
+            "instance": lambda t: _put_transforms(scene, t["inst"])})
+
+
+def _kernel_tables(scene: TorchScene, budget: int | None) -> dict:
     dev = scene.device
     ranges = _brute_ranges(scene)
     inst = np.zeros((max(scene.n_instances, 1), INST_COLS), np.float32)
-    w2m = scene.inst_world_to_model.cpu().numpy()
-    m2w = scene.inst_model_to_world.cpu().numpy()
     for i, (_, tri_off, count) in enumerate(scene.inst_spans):
         brute = count <= BRUTE_MAX_TRIS
-        inst[i, 0:12] = w2m[i, :3, :4].reshape(-1)
-        inst[i, 12:24] = m2w[i, :3, :4].reshape(-1)
         inst[i, 24:30] = (-1 if brute else scene.wide_roots[i], tri_off,
                           count, scene.inst_mat_deltas[i], float(brute),
                           ranges.get((tri_off, count), 0))
@@ -1021,26 +1061,18 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
     staged = not maps and smem_bytes(scene) <= (
         SMEM_BYTES if budget is None else budget)
     lean = mode == 0 and staged
-    spheres = torch.cat([
-        scene.sphere_pos,
-        (sphere_k(scene.sphere_pos, scene.sphere_radius) if mode == 1
-         else scene.sphere_radius)[:, None],
-        scene.sphere_mat.to(torch.float32)[:, None]], dim=1)
     brute = torch.cat([pack_brute_table(scene, *key) for key in ranges]) \
         if ranges else torch.zeros((1, 16), dtype=torch.float32, device=dev)
-    tables = dict(
-        scal=camera_scal(scene),
-        spheres=spheres.contiguous() if scene.n_spheres
-        else torch.zeros((1, SPHERE_COLS), dtype=torch.float32, device=dev),
-        inst=torch.from_numpy(inst).to(dev),
+    inst = torch.from_numpy(inst).to(dev)
+    _put_transforms(scene, inst)
+    return dict(
+        scal=camera_scal(scene), spheres=_sphere_rows(scene, mode), inst=inst,
         brute=brute if staged else stage_brute_rows(brute),
         spheres_mode=mode, staged=staged,
         general=not lean or bvh_instances(scene) != [0]
         or scene.n_instances != 1,
         glass=not lean or bool((scene.mat_rows[:, 21]
                                 == float(MaterialFlag.GLASS)).any()))
-    scene.derived["megakernel_tables"] = tables
-    return tables
 
 
 class CudaMegakernel(CudaKernel):

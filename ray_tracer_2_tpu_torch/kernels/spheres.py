@@ -122,13 +122,18 @@ def _rows_times(v, m):
 
 
 def pack_tables(scene: TorchScene) -> SmallTables:
-    """Host packing of the reference's ``_pack_tables``, once per scene (kept
-    in ``scene.derived``). Triangles are baked to world space: ``v R^T + t``,
-    with v1/v2 and n1/n2 swapped under a reflecting transform so winding,
-    backface and cull keep their model-space meaning."""
-    cached = scene.derived.get("small_tables")
-    if cached is not None:
-        return cached
+    """Host packing of the reference's ``_pack_tables``, once per scene
+    (``scene.derive``; made again after an edit of a sphere, an instance or
+    a material, all of which it copies). Triangles are baked to world
+    space: ``v R^T + t``, with v1/v2 and n1/n2 swapped under a reflecting
+    transform so winding, backface and cull keep their model-space
+    meaning."""
+    return scene.derive("small_tables", lambda: _pack_tables(scene),
+                        stale_on=("sphere", "instance", "material",
+                                  "material_form"))
+
+
+def _pack_tables(scene: TorchScene) -> SmallTables:
     host = lambda t: t.detach().cpu().numpy()
     f32 = np.float32
     pos, rad = host(scene.sphere_pos), host(scene.sphere_radius)
@@ -179,10 +184,8 @@ def pack_tables(scene: TorchScene) -> SmallTables:
         fields[S:, F_N0:F_N0 + 9] = np.concatenate(
             [w["n0"], w["n1"], w["n2"]], axis=1)
     dev = scene.device
-    tables = SmallTables(*(torch.from_numpy(a).to(dev)
-                           for a in (sph, tri, fields)))
-    scene.derived["small_tables"] = tables
-    return tables
+    return SmallTables(*(torch.from_numpy(a).to(dev)
+                         for a in (sph, tri, fields)))
 
 
 def camera_vector(scene: TorchScene, width: int, height: int):

@@ -43,7 +43,7 @@ from ray_tracer_2_tpu_torch.engine.renderer import (
     blend, blend_weight, render_sample,
 )
 from ray_tracer_2_tpu_torch.scene.render_scene import (
-    DERIVED_ON_EDIT, TABLE_WRITES, TENSORS, TorchScene, drop_derived,
+    STATICS, TENSORS, TorchScene,
 )
 
 
@@ -245,13 +245,12 @@ class SceneReplicas:
     call. A port scene is written in place by camera moves and live edits,
     and its kernels keep tables per scene and device (``derived``).
     ``follow`` brings the copies up to date without a readback: it copies
-    the tensor fields the write log names since it last looked, drops the
-    copies' derived tables as ``DERIVED_ON_EDIT`` says for each kind of
-    write and copies the in-place-written ``megakernel_tables`` entries
-    (``TABLE_WRITES``). Given the scene an edit put in the source's place
-    (same write log), it keeps each copied tensor the two scenes share and
-    copies only the new ones; given an unrelated scene, it copies it
-    whole."""
+    the tensor fields the write log names since it last looked and notes
+    the same writes in each copy's own log, which the copy's tables follow
+    at their next lookup on that device. Given the scene an edit put in the
+    source's place (same write log), it keeps each copied tensor the two
+    scenes share and copies only the new ones; given an unrelated scene, it
+    copies it whole."""
 
     def __init__(self, scene: TorchScene, devices):
         devices = tuple(dict.fromkeys(devices))
@@ -296,9 +295,11 @@ class SceneReplicas:
 
     def _carry(self, scene: TorchScene) -> None:
         """Copies of ``scene``, which an edit made from the source: the
-        tensors it shares with the source are kept from the old copies,
-        its derived tables carried where the source still holds them."""
+        tensors it shares with the source are kept from the old copies, the
+        rest copied; each copy carries its derived tables and its write log
+        (``TorchScene.edited``)."""
         old = self.source
+        statics = {f: getattr(scene, f) for f in STATICS}
         for dev, rep in self._on.items():
             if rep is old:
                 self._on[dev] = scene
@@ -308,39 +309,25 @@ class SceneReplicas:
                 t = getattr(scene, f)
                 tensors[f] = getattr(rep, f) if t is getattr(old, f) \
                     else t.to(dev, copy=True)
-            new = dataclasses.replace(scene, **tensors)
-            new.derived.update({k: v for k, v in rep.derived.items()
-                                if k in scene.derived})
-            self._on[dev] = new
+            self._on[dev] = rep.edited(**tensors, **statics)
         self.source = scene
 
     def _sync(self) -> None:
-        """Replay the source's writes since ``seen`` into the copies."""
+        """Replay the source's writes since ``seen`` into the copies: the
+        written fields copied, every written field and kind noted in the
+        copy's own log."""
         src = self.source
         changed = src.writes.since(self.seen)
         self.seen = src.writes.version
         if not changed:
             return
-        mine = src.derived.get("megakernel_tables")
         for rep in self._on.values():
             if rep is src:
                 continue
             for f in TENSORS:
                 if f in changed:
                     getattr(rep, f).copy_(getattr(src, f), non_blocking=True)
-            for kind in DERIVED_ON_EDIT:
-                if kind in changed:
-                    drop_derived(rep, kind)
-            tables = rep.derived.get("megakernel_tables")
-            for kind, entry in TABLE_WRITES.items():
-                if kind not in changed or tables is None:
-                    continue
-                if mine is not None and mine[entry].shape \
-                        == tables[entry].shape:
-                    tables[entry].copy_(mine[entry], non_blocking=True)
-                else:
-                    del rep.derived["megakernel_tables"]
-                    tables = None
+            rep.writes.note(*changed)
 
 
 def replicate_scene(scene: TorchScene, mesh: RenderMesh) -> SceneReplicas:

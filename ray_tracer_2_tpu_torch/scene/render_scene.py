@@ -20,9 +20,10 @@ reference's ``tex_texels`` one texel a row; ``tex_meta``). ``HostScene``
 pairs a scene with its host camera, its counts and the host state of the
 live edits; the camera moves in place (``TorchScene.set_camera``), and
 spheres, materials and instances are edited in place or, where a shape or
-a static field changes, by a new ``TorchScene`` (``HostScene.edit_*``;
-what each edit does to the tables kept in ``TorchScene.derived`` is
-``DERIVED_ON_EDIT``). The per-triangle model-space
+a static field changes, by a new ``TorchScene`` (``HostScene.edit_*``).
+Each write is noted in the scene's ``WriteLog``; the tables a kernel keeps
+with a scene (``TorchScene.derive``) follow the log. The per-triangle
+model-space
 tables (``tri_v0`` ... ``tri_mat``, in BVH leaf order with ``LEAF_CHUNK``
 zero rows at the end) are what the small-scene path bakes to world space
 (``kernels/spheres.py:pack_tables``).
@@ -48,7 +49,6 @@ from ray_tracer_2_tpu_torch.accel.wide import (
 from ray_tracer_2_tpu_torch.assets.textures import (
     TextureAtlas, downsample_images_to_budget, pack_texels_u8_quads,
 )
-from ray_tracer_2_tpu_torch.kernels.intersect import sphere_k
 from ray_tracer_2_tpu_torch.kernels.texture import (
     quads_from_rows, rows_from_quads,
 )
@@ -86,45 +86,9 @@ STATICS = ("inst_spans", "wide_roots", "wide_depth", "shade_classes",
 #: ``MAX_NEE_LIGHTS``): never a truncated table that loses energy
 MAX_NEE_LIGHTS = 64
 
-#: What each kind of live edit (``HostScene.edit_*``) does to the tables
-#: the kernels keep in ``TorchScene.derived``: the entries it writes in
-#: place, in stream order with its writes of the scene's tensors (named
-#: below), and those it drops (the values), which their builders make again
-#: at the next frame from the edited scene (a ``("brute_table", ...)`` key
-#: is named by its first item). An entry it does not name stays as it is:
-#: nothing it reads moved.
-#:
-#: * ``sphere`` (a centre or a radius): the sphere's row of
-#:   ``megakernel_tables["spheres"]`` (``|c|^2 - r^2`` in place of the
-#:   radius in the shared-term form); ``small_tables`` holds the sphere too.
-#: * ``instance`` (a transform): the instance's row of
-#:   ``megakernel_tables["inst"]``; ``small_tables`` bakes the transform
-#:   into world-space triangles. The brute-force tables are in model space.
-#: * ``material`` (colours, smoothness, specular, ior, absorption):
-#:   nothing but ``small_tables``, which copies material rows; the kernels
-#:   read ``mat_rows`` itself.
-#: * ``material_form`` (a material edit of ``flag``, ``diffuse_index``,
-#:   ``normal_index`` or emission): also everything that bakes a flag or
-#:   picks a compiled form or a route from one: ``megakernel_tables`` (the
-#:   cull flags of its brute rows, ``glass``, ``staged``),
-#:   every ``brute_table`` (cull flags), ``debug_brute``, ``small_scene``
-#:   (the route reads the texture flag and index).
-#: * ``lights`` (the light table changed, a new ``TorchScene``):
-#:   ``nee_lights``.
-DERIVED_ON_EDIT = {
-    "sphere": ("small_tables",),
-    "instance": ("small_tables",),
-    "material": ("small_tables",),
-    "material_form": ("small_tables", "megakernel_tables", "brute_table",
-                      "debug_brute", "small_scene"),
-    "lights": ("nee_lights",),
-}
 #: the material fields whose edit is a ``material_form`` edit
 FORM_FIELDS = ("flag", "diffuse_index", "normal_index", "emission_color",
                "emission_strength")
-#: the ``megakernel_tables`` entry that each kind of in-place write also
-#: writes in place (the rest of the table stays right)
-TABLE_WRITES = {"camera": "scal", "sphere": "spheres", "instance": "inst"}
 
 
 @dataclasses.dataclass
@@ -132,11 +96,21 @@ class WriteLog:
     """The in-place writes of a scene and of the scenes that edits made
     from it (``TorchScene.edited`` hands the log on). ``version`` counts
     the writes. ``last`` maps each tensor field written, and each kind of
-    write (a key of ``DERIVED_ON_EDIT``, or ``"camera"``), to the version of
-    its last write. A copy of the scene on another device
+    write, to the version of its last write. The kinds:
+
+    * ``camera``: the four camera tensors (``TorchScene.set_camera``);
+    * ``sphere``: a centre or a radius (and the sphere BVH's rows);
+    * ``instance``: an instance's transform;
+    * ``material``: colours, smoothness, specular, ior, absorption;
+    * ``material_form``: a material's ``FORM_FIELDS`` (and the cull flags
+      baked into the wide rows);
+    * ``lights``: the light table (a new ``TorchScene``).
+
+    A table a kernel keeps with the scene names the kinds it follows
+    (``TorchScene.derive``). A copy of the scene on another device
     (``parallel/sharding.py``) copies the fields written since the version
-    it has seen, and drops or copies its derived tables as the kinds say;
-    it reads nothing back to the host."""
+    it has seen and notes them in its own log; it reads nothing back to the
+    host."""
 
     version: int = 0
     last: dict = dataclasses.field(default_factory=dict)
@@ -149,15 +123,6 @@ class WriteLog:
     def since(self, version: int) -> set:
         """The fields and kinds written after ``version``."""
         return {k for k, v in self.last.items() if v > version}
-
-
-def drop_derived(scene: "TorchScene", kind: str) -> None:
-    """Drop the ``scene.derived`` entries that an edit of ``kind`` makes
-    stale (``DERIVED_ON_EDIT``)."""
-    names = DERIVED_ON_EDIT[kind]
-    for key in list(scene.derived):
-        if (key[0] if isinstance(key, tuple) else key) in names:
-            del scene.derived[key]
 
 
 def write_in_place(dst: torch.Tensor, value) -> None:
@@ -218,11 +183,14 @@ class TorchScene:
     #: space (a sphere: centre, radius, zeros), radiance, area; () when the
     #: scene has none or more than ``MAX_NEE_LIGHTS``
     lights: tuple = ()
-    #: host-side results derived from this scene once and kept with it
-    #: (e.g. the small-scene path's packed tables); a scene made by ``to``
-    #: starts with an empty one
+    #: the tables kernels keep with this scene (``derive``), by key; a
+    #: scene made by ``to`` starts with an empty one
     derived: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
+    #: the write-log version each entry of ``derived`` was made or last
+    #: refreshed at
+    derived_at: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
     #: the in-place writes (``WriteLog``); a scene made by ``to`` starts a
     #: log of its own, one made by ``edited`` shares its source's
     writes: WriteLog = dataclasses.field(default_factory=WriteLog,
@@ -247,13 +215,35 @@ class TorchScene:
         float32 rows byte for byte (a copy)."""
         return rows_from_quads(self.tex_quads)
 
+    def derive(self, key, build, stale_on=(), refresh=None):
+        """The table ``key`` a kernel keeps with this scene: ``build()``,
+        made at the first call and made again after a write of a kind in
+        ``stale_on``. ``refresh`` maps kinds of write that only move values
+        to a function that writes them into the table in place, in stream
+        order and reading nothing back. A kind named in neither leaves the
+        table as it is. A call after no write costs one comparison."""
+        version = self.writes.version
+        if key in self.derived:
+            seen = self.derived_at[key]
+            if seen == version:
+                return self.derived[key]
+            last = self.writes.last
+            if all(last.get(k, 0) <= seen for k in stale_on):
+                table = self.derived[key]
+                for kind, write in (refresh or {}).items():
+                    if last.get(kind, 0) > seen:
+                        write(table)
+                self.derived_at[key] = version
+                return table
+        table = self.derived[key] = build()
+        self.derived_at[key] = version
+        return table
+
     def set_camera(self, camera: Camera) -> None:
-        """Point the scene at ``camera``, in place: its four camera tensors
-        and the kernels' copy of them where one was made
-        (``camera_scal``, kept in ``derived["megakernel_tables"]``), written
-        on the scene's device in stream order, so that frames queued before
-        render the old view and later ones the new. In place because a
-        ``dataclasses.replace`` drops ``derived``, and with it every table
+        """Point the scene at ``camera``, in place: its four camera tensors,
+        written on the scene's device in stream order, so that frames queued
+        before render the old view and later ones the new. In place because
+        a ``dataclasses.replace`` drops ``derived``, and with it every table
         built for the scene."""
         u = camera.to_uniform()
         new = dict(cam_to_world=u.cam_to_world, view_params=u.view_params,
@@ -261,17 +251,15 @@ class TorchScene:
                    diverge_strength=u.diverge_strength)
         for f, v in new.items():
             write_in_place(getattr(self, f), v)
-        tables = self.derived.get("megakernel_tables")
-        if tables is not None:
-            tables["scal"].copy_(camera_scal(self))
         self.writes.note("camera", *new)
 
     def edited(self, **changes) -> "TorchScene":
         """The scene an edit puts in this one's place: ``changes`` applied,
-        this scene's derived tables carried (the caller has dropped the
-        stale ones) and its write log shared."""
+        this scene's derived tables and write log carried, so each table
+        follows the writes from where it stood."""
         new = dataclasses.replace(self, **changes)
         new.derived.update(self.derived)
+        new.derived_at.update(self.derived_at)
         object.__setattr__(new, "writes", self.writes)  # frozen dataclass
         return new
 
@@ -308,16 +296,6 @@ class TorchScene:
         return TorchScene(**tensors, **st)
 
 
-def camera_scal(scene: TorchScene) -> torch.Tensor:
-    """The camera as the kernels read it, 17 float32 on the scene's device:
-    ``cam_to_world[:3, :4]`` row-major, ``view_params``, defocus,
-    diverge."""
-    return torch.cat([scene.cam_to_world[:3, :4].reshape(-1),
-                      scene.view_params.reshape(-1),
-                      scene.defocus_strength.reshape(1),
-                      scene.diverge_strength.reshape(1)]).contiguous()
-
-
 @dataclasses.dataclass
 class HostScene:
     """A scene with its host-side state (reference ``HostScene``; ref
@@ -331,11 +309,11 @@ class HostScene:
     table for table.
 
     An edit writes the scene's tensors whose shape holds in place, in
-    stream order (``write_in_place``), and keeps the tables in
-    ``scene.derived`` in step (``DERIVED_ON_EDIT``). One that changes a
+    stream order (``write_in_place``), and notes the write in the scene's
+    ``WriteLog``, which the kernels' tables follow. One that changes a
     shape or a static field (the sphere BVH's rows, the light table, the
     material classes) puts a new ``TorchScene`` in ``scene``, carrying the
-    derived tables that stay right. ``lock`` serialises edits against each
+    derived tables and the log. ``lock`` serialises edits against each
     other and against a frame's dispatch: ``Engine.update`` holds it while
     it reads ``scene`` and queues the frame, so a frame never meets a
     half-made edit; since the writes are queued in stream order, it is
@@ -398,8 +376,7 @@ class HostScene:
 
     def _replace(self, **changes) -> None:
         """Put a new ``TorchScene`` with ``changes`` in ``scene``, carrying
-        the derived tables (the caller has dropped the stale ones) and the
-        write log (``TorchScene.edited``)."""
+        the derived tables and the write log (``TorchScene.edited``)."""
         self.scene = self.scene.edited(**changes)
 
     def edit_sphere(self, index: int, centre=None, radius=None) -> None:
@@ -422,16 +399,6 @@ class HostScene:
             host["sphere_pos"], host["sphere_radius"] = pos, rad
             write_in_place(sc.sphere_pos[index], pos[index])
             write_in_place(sc.sphere_radius[index], rad[index])
-            tables = sc.derived.get("megakernel_tables")
-            if tables is not None:
-                row = tables["spheres"][index]
-                row[0:3] = sc.sphere_pos[index]
-                if tables["spheres_mode"] == 1:
-                    row[3] = sphere_k(sc.sphere_pos[index],
-                                      sc.sphere_radius[index])
-                else:
-                    row[3] = sc.sphere_radius[index]
-            drop_derived(sc, "sphere")
             sc.writes.note("sphere", "sphere_pos", "sphere_radius")
             if rows is not None:
                 root = sc.sphere_bvh_root
@@ -480,7 +447,6 @@ class HostScene:
                            _pack_material_rows([rec])[0])
             form = any(getattr(rec, k) != v for k, v in before.items())
             kind = "material_form" if form else "material"
-            drop_derived(sc, kind)
             sc.writes.note(kind, "mat_rows")
             classes = _shade_classes(self.records)
             if classes != sc.shade_classes:
@@ -510,11 +476,6 @@ class HostScene:
             sc = self.scene
             write_in_place(sc.inst_model_to_world[index], m)
             write_in_place(sc.inst_world_to_model[index], inv)
-            tables = sc.derived.get("megakernel_tables")
-            if tables is not None:
-                write_in_place(tables["inst"][index, 0:24], np.concatenate(
-                    [inv[:3, :4].reshape(-1), m[:3, :4].reshape(-1)]))
-            drop_derived(sc, "instance")
             sc.writes.note("instance", "inst_model_to_world",
                            "inst_world_to_model")
             self._refresh_lights()
@@ -538,7 +499,6 @@ class HostScene:
         lights = _extract_lights(self.records, tri, sc.inst_spans, m2w,
                                  list(sc.inst_mat_deltas), spheres)
         if lights != sc.lights:
-            drop_derived(sc, "lights")
             sc.writes.note("lights")
             self._replace(lights=lights)
 

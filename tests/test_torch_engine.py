@@ -25,12 +25,11 @@ from ray_tracer_2_tpu_torch.config import DebugMode, RenderParams
 from ray_tracer_2_tpu_torch.engine import Engine, FrameStats
 from ray_tracer_2_tpu_torch.engine.export import framebuffer_to_srgb
 from ray_tracer_2_tpu_torch.engine.renderer import Renderer
-from ray_tracer_2_tpu_torch.kernels.megakernel import kernel_tables
+from ray_tracer_2_tpu_torch.kernels.megakernel import camera_scal, \
+    kernel_tables
 from ray_tracer_2_tpu_torch.math.transform import Transform
 from ray_tracer_2_tpu_torch.scene.camera import Camera, CameraDescriptor
-from ray_tracer_2_tpu_torch.scene.render_scene import (
-    camera_scal, instantiate_scene,
-)
+from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 from ray_tracer_2_tpu_torch.scene.scenes import SceneName, \
     build_scene_definition
 from torch_bridge import host_scene_pair, one_torch_thread  # noqa: F401
@@ -99,8 +98,8 @@ def test_controller_matches_reference():
 def test_camera_moves_match_reference(build):
     """The same seeded moves through both packages' ``HostScene``s: after
     each ``refresh_camera`` the port scene's camera tensors hold the
-    reference scene's bytes, and the megakernel's cached camera row is
-    ``camera_scal`` of them."""
+    reference scene's bytes, and the megakernel's cached camera row, at its
+    next lookup, is ``camera_scal`` of them (the same tensor)."""
     from ray_tracer_2_tpu_torch.scene import scenes
     ref, port = host_scene_pair(getattr(scenes, build)())
     tables = kernel_tables(port.scene)
@@ -119,6 +118,7 @@ def test_camera_moves_match_reference(build):
                   "diverge_strength"):
             assert getattr(port.scene, f).numpy().tobytes() \
                 == np.asarray(getattr(rs, f)).tobytes(), f
+        assert kernel_tables(port.scene) is tables
         assert torch.equal(tables["scal"], camera_scal(port.scene))
 
 

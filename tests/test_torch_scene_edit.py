@@ -11,14 +11,15 @@
   Every field of the port's ``TorchScene``, its statics and light table
   included, must equal the reference ``RenderScene``'s byte for byte, and
   the host state (records, transforms, material ids) must agree.
-* **Derived tables.** The tables the kernels keep in ``scene.derived``
-  (``megakernel_tables``, ``nee_lights``, every brute-force table,
-  ``small_tables``, ``small_scene``, ``debug_brute``), built before an
-  edit, must equal after it what a scene freshly instantiated from the
-  edited definition builds: after a sphere move in each sphere form, a
-  glass toggle (cull flags and form flags), a new emitter (the light table
-  and the NEE form), an instance move on a small scene and on a wide-BVH
-  scene.
+* **Derived tables.** The tables the kernels keep with a scene
+  (``TorchScene.derive``: ``megakernel_tables``, ``nee_lights``, every
+  brute-force table, ``small_tables``, ``small_scene``, ``debug_brute``),
+  built before an edit, must equal after it what a scene freshly
+  instantiated from the edited definition builds: after a sphere move in
+  each sphere form, a glass toggle (cull flags and form flags), a new
+  emitter (the light table and the NEE form), an instance move on a small
+  scene and on a wide-BVH scene. Each kind of write makes again, writes in
+  place or keeps each table as its builder declares.
 * **Threads.** Edits from many threads while frames render through
   ``Engine`` lose no write.
 
@@ -36,15 +37,15 @@ import torch
 from ray_tracer_2_tpu_torch.engine.engine import Engine
 from ray_tracer_2_tpu_torch.engine.renderer import small_scene
 from ray_tracer_2_tpu_torch.kernels import spheres
-from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table, \
-    stage_brute_rows
+from ray_tracer_2_tpu_torch.kernels.brute import pack_brute_table
+from ray_tracer_2_tpu_torch.kernels.debug import debug_brute_rows
 from ray_tracer_2_tpu_torch.kernels.megakernel import (
     _brute_ranges, kernel_tables, light_tables, nee_mode,
 )
 from ray_tracer_2_tpu_torch.scene import scenes
 from ray_tracer_2_tpu_torch.scene.definition import SphereDef
 from ray_tracer_2_tpu_torch.scene.render_scene import (
-    DERIVED_ON_EDIT, FIELDS, MAX_NEE_LIGHTS, STATICS, instantiate_host_scene,
+    FIELDS, MAX_NEE_LIGHTS, STATICS, TorchScene, instantiate_host_scene,
 )
 from torch_bridge import (  # noqa: F401
     EDIT_CASES, apply_edits, edit_pair, one_torch_thread, ref_field,
@@ -152,23 +153,26 @@ def _plain(x):
     return x
 
 
-def _derived(scene) -> dict:
+def _tables(scene) -> dict:
     """Every table the next frame's kernels read, through the builders
-    that keep them in ``scene.derived`` (``debug_brute`` as the debug
-    kernel makes it)."""
+    that keep them with the scene, by key (``debug_brute`` where the debug
+    kernel stages its own rows)."""
     tab = kernel_tables(scene)
-    if tab["staged"] and "debug_brute" not in scene.derived:
-        scene.derived["debug_brute"] = stage_brute_rows(tab["brute"])
-    out = {"megakernel_tables": tab, "small_scene": small_scene(scene),
-           "nee_mode": nee_mode(scene, True),
-           "debug_brute": scene.derived.get("debug_brute")}
+    out = {"megakernel_tables": tab, "small_scene": small_scene(scene)}
+    if tab["staged"]:
+        out["debug_brute"] = debug_brute_rows(scene, tab)
     if scene.lights:
         out["nee_lights"] = light_tables(scene)
     for off, cnt in _brute_ranges(scene):
         out[("brute_table", off, cnt)] = pack_brute_table(scene, off, cnt)
     if spheres.eligible(scene):
         out["small_tables"] = spheres.pack_tables(scene)
-    return _plain(out)
+    return out
+
+
+def _derived(scene) -> dict:
+    """``_tables`` and the NEE form, as host copies."""
+    return _plain({**_tables(scene), "nee_mode": nee_mode(scene, True)})
 
 
 def _assert_same_tree(a, b, where=""):
@@ -244,8 +248,7 @@ def test_derived_tables_match_a_fresh_scene(case):
 
 def test_glass_toggle_rederives_the_form():
     """A glass toggle flips the brute-force cull flags and compiles the
-    glass branch in; a new emitter gives the scene a light table and the
-    NEE form; the policy table names what each edit drops."""
+    glass branch in; an edit that changes nothing re-derives nothing."""
     host = instantiate_host_scene(scenes.room())
     tab = kernel_tables(host.scene)
     room_brute = pack_brute_table(host.scene, 0, 12)
@@ -258,8 +261,110 @@ def test_glass_toggle_rederives_the_form():
     cull = pack_brute_table(host.scene, 0, 12)[:, 10]
     mats = host.scene.tri_mat[:12]
     assert torch.equal(cull, (mats != 0).to(torch.float32))
-    assert set(DERIVED_ON_EDIT) == {"sphere", "instance", "material",
-                                    "material_form", "lights"}
+
+
+#: what each kind of write does to the tables the kernels keep (by the
+#: key's name): the kinds that make each again ...
+STALE_ON = {
+    "megakernel_tables": {"material_form"},
+    "nee_lights": {"lights"},
+    "small_tables": {"sphere", "instance", "material", "material_form"},
+    "brute_table": {"material_form"},
+    "debug_brute": {"material_form"},
+    "small_scene": {"material_form"},
+}
+#: ... and the megakernel table's columns each writes in place
+REFRESHED = {"scal": "camera", "spheres": "sphere", "inst": "instance"}
+KINDS = ("camera", "sphere", "instance", "material", "material_form",
+         "lights")
+KIND_SCENES = {
+    "room": ("room", {}),
+    "random_balls_shared_term": ("random_balls", {}),
+    "random_balls_sphere_bvh": ("random_balls", dict(sphere_bvh=True)),
+    "wide": ("wide_bvh_scene", {}),
+}
+#: a small, non-emissive sphere of each scene
+_SPHERE = {"room": 1, "random_balls": 7, "wide_bvh_scene": 0}
+
+
+def _kind_edit(kind: str, build: str):
+    """An edit (``apply_edits``' form) that writes ``kind`` on a scene of
+    ``build``; None for a camera move. The light table moves with room's
+    one instance, on random_balls with a new emitter (also a
+    ``material_form`` write)."""
+    if kind == "sphere":
+        return ("sphere", _SPHERE[build], dict(centre=[0.5, 0.3, 1.0],
+                                               radius=0.25))
+    if kind == "instance" or (kind == "lights" and build == "room"):
+        return ("instance", 0, dict(pos=[0.1, 0.2 + (kind == "lights"),
+                                         0.0]))
+    if kind == "material":
+        return ("material", 0, dict(color=(0.1, 0.2, 0.9, 1.0)))
+    if kind == "material_form":
+        return ("material", 0, dict(flag=1, ior=1.5))
+    if kind == "lights":    # a diffuse sphere: glass emits no light
+        return ("material", 2, dict(emission_color=(1.0, 1.0, 1.0, 1.0),
+                                    emission_strength=2.0))
+    return None
+
+
+#: random_balls has no instance; wide_bvh_scene's one emitter could be its
+#: sphere, whose area an edit takes from the float32 radius and a fresh
+#: scene from the definition's float (as in the reference)
+@pytest.mark.parametrize("kind,scene", [
+    (k, s) for k in KINDS for s in KIND_SCENES
+    if (k, s[:6]) not in {("instance", "random"), ("lights", "wide")}])
+def test_each_write_kind_rebuilds_refreshes_or_keeps(kind, scene,
+                                                     monkeypatch):
+    """After a write of ``kind`` (and of any kind the edit also makes), the
+    next lookup of each kernel table makes it again (a new object) where
+    its builder names the kind, writes the megakernel table's columns of
+    that kind in place (the same tensors, the same storage) and keeps
+    everything else as the same object with the same values; every table
+    then equals a fresh scene's of the edited definition."""
+    build, kw = KIND_SCENES[scene]
+    definition = getattr(scenes, build)()
+    host = instantiate_host_scene(definition, **kw)
+    before = _tables(host.scene)
+    tab0 = before["megakernel_tables"]
+    cols = {c: (tab0[c], tab0[c].data_ptr(), tab0[c].clone())
+            for c in REFRESHED}
+    version = host.scene.writes.version
+    built, derive = [], TorchScene.derive
+
+    def counted(self, key, make, **kw):
+        def made():
+            built.append(key)
+            return make()
+        return derive(self, key, made, **kw)
+
+    monkeypatch.setattr(TorchScene, "derive", counted)
+    edit = _kind_edit(kind, build)
+    if edit is None:
+        host.camera.transform.pos = host.camera.transform.pos \
+            + np.float32(0.05)
+        host.refresh_camera()
+    else:
+        apply_edits(host, [edit])
+        _edit_definition(definition, host, *edit)
+    noted = host.scene.writes.since(version) & set(KINDS)
+    assert kind in noted
+    after = _tables(host.scene)
+    for key, table in after.items():
+        name = key[0] if isinstance(key, tuple) else key
+        if STALE_ON[name] & noted:
+            assert key in built, key
+            if not isinstance(table, bool):
+                assert table is not before.get(key), key
+        else:
+            assert key not in built and table is before[key], key
+    if "material_form" not in noted:
+        for col, (t, ptr, old) in cols.items():
+            assert tab0[col] is t and t.data_ptr() == ptr, col
+            if REFRESHED[col] not in noted:
+                assert torch.equal(t, old), col
+    fresh = instantiate_host_scene(definition, **kw)
+    _assert_same_tree(_plain(after), _plain(_tables(fresh.scene)))
 
 
 def test_too_many_lights_empty_the_table():
@@ -307,7 +412,7 @@ def test_concurrent_edits_lose_no_write():
         sys.setswitchinterval(prev)
         eng.scene_manager.shutdown()
     pos = host.scene.sphere_pos.numpy()
-    table = host.scene.derived["megakernel_tables"]["spheres"].numpy()
+    table = kernel_tables(host.scene)["spheres"].numpy()
     for i, c in want.items():
         assert np.array_equal(pos[i], np.float32(c)), i
         assert np.array_equal(host._mirror["sphere_pos"][i], np.float32(c))
