@@ -71,14 +71,16 @@ __device__ __forceinline__ void debug_hit(const Params& p, const float o[3],
     float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
     float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
     Hit th;
-    traverse<false>(p.wide_rows, (int)in[kInRoot], om, dm, limit, th, vis);
+    traverse<false>(p.wide_rows, (int)in[kInRoot], om, dm, limit,
+                    p.finite_boxes != 0, th, vis);
     if (th.tri >= 0)
       merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det, th.tri,
                      th.mat, h);
   }
   if constexpr (kSph == kSphBvh) {
     Hit sh;
-    traverse<true>(p.wide_rows, sphere_root<kSph>(p), o, d, h.dst, sh, vis);
+    traverse<true>(p.wide_rows, sphere_root<kSph>(p), o, d, h.dst,
+                   p.finite_boxes != 0, sh, vis);
     if (sh.tri != kSphSent) {
       const float* sp = p.spheres + (size_t)sh.tri * kSphStride;
       float c[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3)};
@@ -196,7 +198,8 @@ debug_kernel(Params p, TexParams tex, int mode, float scale, int* visits) {
 // tables are the megakernel's, read from global memory: `spheres`,
 // `scal`, `inst` as kernels/megakernel.py kernel_tables makes them (the
 // fourth sphere column |c|^2 - r^2 for `spheres_mode` kSphFast; radii for
-// kSphBvh, with `sphere_root` the sphere BVH's root row), `brute` the
+// kSphBvh, with `sphere_root` the sphere BVH's root row; `finite_boxes` as
+// rt2_render_persistent takes it), `brute` the
 // brute-force rows as stage_row makes them (kernels/brute.py
 // stage_brute_rows), `texels` the atlas one int4 a texel and `tex_meta`
 // its 64 slot rows. Renders the `rows` image rows from `row_start` of a
@@ -209,8 +212,9 @@ extern "C" int rt2_render_debug(
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int spheres_mode, int sphere_root,
-    const int* texels, int n_texels, const float* tex_meta, int debug_mode,
-    float debug_scale, float* out, int* visits, void* stream) {
+    int finite_boxes, const int* texels, int n_texels, const float* tex_meta,
+    int debug_mode, float debug_scale, float* out, int* visits,
+    void* stream) {
   if (n_spheres < 0 || n_inst < 0 || n_brute < 0 || width < 1 ||
       height < 1 || row_start < 0 || rows < 1 || row_start + rows > height ||
       n_texels < 64 ||
@@ -236,6 +240,7 @@ extern "C" int rt2_render_debug(
   p.height = height;
   p.row_start = row_start;
   p.total = rows * width;
+  p.finite_boxes = finite_boxes;
   TexParams tex;
   tex.texels = reinterpret_cast<const int4*>(texels);
   tex.meta = tex_meta;

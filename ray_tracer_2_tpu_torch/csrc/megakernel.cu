@@ -24,7 +24,9 @@
 // instructions, each exact against the plain version (csrc/trace.cuh
 // child_eval): the NaN-propagating min/max are one min.NaN / max.NaN each,
 // and the f16 bounds take the hardware conversion, clamped where the plain
-// version's integer rebias reads an infinity as 65536. What keeps it from
+// version's integer rebias reads an infinity as 65536 (and not at all on a
+// scene whose child bounds are all finite, as is the rule), with no branch
+// in a child's test. What keeps it from
 // that bound: the dependent loads of the traversal (each row's address
 // comes from the previous row) and divergence, since paths end at
 // different bounces. The design answers the second: the grid is as many
@@ -233,7 +235,8 @@ __device__ __forceinline__ bool trace_segment(
     float slack = 8e-6f * (1.0f + sqrtf(dot3(o, o)));
     float limit = (h.dst * 1.000004f + slack) / sqrtf(dot3(wv, wv));
     Hit th;
-    traverse<false>(p.wide_rows, (int)in[kInRoot], om, dm, limit, th, vis);
+    traverse<false>(p.wide_rows, (int)in[kInRoot], om, dm, limit,
+                    p.finite_boxes != 0, th, vis);
     if (th.tri >= 0)
       merge_instance(in, i, o, om, dm, th.dst, th.u, th.v, th.det, th.tri,
                      th.mat, h);
@@ -245,7 +248,8 @@ __device__ __forceinline__ bool trace_segment(
   // dense quadratic (_sphere_merge :592-626).
   if constexpr (kSph == kSphBvh) {
     Hit sh;
-    traverse<true>(p.wide_rows, sphere_root<kSph>(p), o, d, h.dst, sh, vis);
+    traverse<true>(p.wide_rows, sphere_root<kSph>(p), o, d, h.dst,
+                   p.finite_boxes != 0, sh, vis);
     if (sh.tri != kSphSent) {
       const float* sp = p.spheres + (size_t)sh.tri * kSphStride;
       float c[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3)};
@@ -702,9 +706,10 @@ cudaError_t make_params(
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
-    int antialias, int spheres_mode, int staged, int sphere_root,
-    unsigned int frame_seed, float* out, unsigned long long* scratch,
-    unsigned long long* counts, Params& p, size_t& smem) {
+    int antialias, int finite_boxes, int spheres_mode, int staged,
+    int sphere_root, unsigned int frame_seed, float* out,
+    unsigned long long* scratch, unsigned long long* counts, Params& p,
+    size_t& smem) {
   if (n_spheres < 0 || n_inst < 0 ||
       n_brute < 0 || rpp < 1 || bounces < 0 || width < 1 || rows < 1 ||
       (((uintptr_t)wide_rows | (uintptr_t)brute) & 15u) != 0u)
@@ -742,6 +747,7 @@ cudaError_t make_params(
   p.skybox = skybox;
   p.antialias = antialias;
   p.frame_seed = frame_seed;
+  p.finite_boxes = finite_boxes;
   return cudaSuccess;
 }
 
@@ -779,14 +785,16 @@ bool make_nee(const float* lights, const float* cdf, int n_lights,
 // floats, kernels/brute.py stage_brute_rows). `scratch` holds
 // rt2_claim::kScratchWords zeroed int64 words (the segment count lands in
 // word 0), `counts` kCounts words that the launch adds to. `wide_rows`
-// and `brute` must be 16-byte aligned. Returns
+// and `brute` must be 16-byte aligned. `finite_boxes` 1 says that no
+// interior wide row holds an infinite child bound (kernels/megakernel.py
+// finite_boxes): the child-box loop then takes no clamps. Returns
 // cudaGetLastError() (0 = launched).
 extern "C" int rt2_render_persistent(
     const float* wide_rows, const float* tri_attr, const float* mat_rows,
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
-    int antialias, int general, int glass,
+    int antialias, int finite_boxes, int general, int glass,
     int spheres_mode, int staged, int sphere_root, unsigned int frame_seed,
     float* out, unsigned long long* scratch, unsigned long long* counts,
     void* stream) {
@@ -795,8 +803,8 @@ extern "C" int rt2_render_persistent(
   cudaError_t err = make_params(
       wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
       n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
-      antialias, spheres_mode, staged, sphere_root, frame_seed, out, scratch,
-      counts, p, smem);
+      antialias, finite_boxes, spheres_mode, staged, sphere_root, frame_seed,
+      out, scratch, counts, p, smem);
   if (err != cudaSuccess) return (int)err;
   if (!general && (n_inst != 1 || n_brute != 0))
     return (int)cudaErrorInvalidValue;
@@ -818,17 +826,18 @@ extern "C" int rt2_render_persistent_nee(
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
-    int antialias, int spheres_mode, int staged, int sphere_root,
-    unsigned int frame_seed, const float* lights, const float* cdf,
-    int n_lights, int nee_mode, float c_tri, float c_area, float* out,
-    unsigned long long* scratch, unsigned long long* counts, void* stream) {
+    int antialias, int finite_boxes, int spheres_mode, int staged,
+    int sphere_root, unsigned int frame_seed, const float* lights,
+    const float* cdf, int n_lights, int nee_mode, float c_tri, float c_area,
+    float* out, unsigned long long* scratch, unsigned long long* counts,
+    void* stream) {
   Params p;
   size_t smem;
   cudaError_t err = make_params(
       wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
       n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
-      antialias, spheres_mode, staged, sphere_root, frame_seed, out, scratch,
-      counts, p, smem);
+      antialias, finite_boxes, spheres_mode, staged, sphere_root, frame_seed,
+      out, scratch, counts, p, smem);
   if (err != cudaSuccess) return (int)err;
   NeeParams nee;
   if (!make_nee(lights, cdf, n_lights, nee_mode, c_tri, c_area, spheres_mode,
@@ -851,7 +860,7 @@ extern "C" int rt2_render_persistent_tex(
     const float* spheres, const float* scal, const float* inst,
     const float* brute, int n_spheres, int n_inst, int n_brute, int width,
     int height, int row_start, int rows, int bounces, int rpp, int skybox,
-    int antialias, int spheres_mode, int sphere_root,
+    int antialias, int finite_boxes, int spheres_mode, int sphere_root,
     unsigned int frame_seed, const float* lights, const float* cdf,
     int n_lights, int nee_mode, float c_tri, float c_area, const int* texels,
     int n_texels, const float* tex_meta, int normal_maps, float* out,
@@ -861,8 +870,8 @@ extern "C" int rt2_render_persistent_tex(
   cudaError_t err = make_params(
       wide_rows, tri_attr, mat_rows, spheres, scal, inst, brute, n_spheres,
       n_inst, n_brute, width, height, row_start, rows, bounces, rpp, skybox,
-      antialias, spheres_mode, 0, sphere_root, frame_seed, out, scratch,
-      counts, p, smem);
+      antialias, finite_boxes, spheres_mode, 0, sphere_root, frame_seed, out,
+      scratch, counts, p, smem);
   if (err != cudaSuccess) return (int)err;
   NeeParams nee;
   if ((!make_nee(lights, cdf, n_lights, nee_mode, c_tri, c_area,

@@ -140,6 +140,9 @@ struct Params {
   int sph, n_inst, n_brute, width, height, row_start, total;
   int bounces, rpp, skybox, antialias;
   uint32_t frame_seed;  // (|frames| * 719393) mod 2^32
+  // 1: no child bound of an interior wide row is infinite, so the child-box
+  // loop takes no clamps (kernels/megakernel.py finite_boxes; wide_eval)
+  int finite_boxes;
 };
 
 // What only the NEE forms take, as a kernel parameter of its own: Params
@@ -286,33 +289,42 @@ __device__ __forceinline__ float nan_max1(float a, float b) {
 // reads an infinity as +-65536, the conversion as +-inf. The packer
 // (accel/wide.py _round_out_f16) emits an infinity in a tested child only
 // as a lo of -inf or a hi of +inf (a bound beyond 65504, rounded outward),
-// and never a NaN pattern, so the clamps below give lo and hi exactly what
-// the rebias gives.
+// and never a NaN pattern, so with kClamp the clamps below give lo and hi
+// exactly what the rebias gives. Without it the conversion stands alone,
+// which is exact where no such infinity is there to clamp: an empty slot's
+// lo of +inf and hi of -inf are what the clamps would leave.
+template <bool kClamp>
 __device__ __forceinline__ void f16_pair(uint32_t u, float& lo, float& hi) {
   asm("{\n\t.reg .f16 l, h;\n\tmov.b32 {l, h}, %2;\n\t"
       "cvt.f32.f16 %0, l;\n\tcvt.f32.f16 %1, h;\n\t}"
       : "=f"(lo), "=f"(hi) : "r"(u));
-  lo = fmaxf(lo, -65536.0f);
-  hi = fminf(hi, 65536.0f);
+  if constexpr (kClamp) {
+    lo = fmaxf(lo, -65536.0f);
+    hi = fminf(hi, 65536.0f);
+  }
 }
 
 // One child box (f16 pairs lo | hi << 16 per axis) against the ray: whether
-// it is hit, folded into the row's nearest child and second-least entry
-// distance. A NaN arises only as 0 * inf (a zero direction component, the
-// origin on the child's plane); the min/max pass it on, so tf >= tn fails
-// and the child is a miss. No NaN leaves: dn is tn only on a hit, and m2 a
-// min of such values, so m2 takes a plain fminf. The sign of a zero is
-// never read (tn, tf and dn are only compared), so which zero a min or max
-// returns does not matter.
+// it is hit (never where `valid` is false: a slot at or past the row's k),
+// folded into the row's nearest child and second-least entry distance,
+// without a branch. A NaN arises only as 0 * inf (a zero direction
+// component, the origin on the child's plane); the min/max pass it on, so
+// tf >= tn fails and the child is a miss. No NaN leaves: dn is tn only on a
+// hit, else kInf. The nearest child changes only on a strictly smaller dn
+// (the first index keeps a tie); m1 <= m2 always holds, so the second-least
+// entry is min(m2, max(m1, dn)): m1 where dn displaces it, else min(m2,
+// dn). The sign of a zero is never read (tn, tf and dn are only compared),
+// so which zero a min or max returns does not matter.
+template <bool kClamp>
 __device__ __forceinline__ bool child_eval(uint32_t ux, uint32_t uy,
-                                           uint32_t uz, int c,
+                                           uint32_t uz, int c, bool valid,
                                            const float om[3],
                                            const float inv[3], float limit,
                                            int& c_min, float& m1, float& m2) {
   float lx, hx, ly, hy, lz, hz;
-  f16_pair(ux, lx, hx);
-  f16_pair(uy, ly, hy);
-  f16_pair(uz, lz, hz);
+  f16_pair<kClamp>(ux, lx, hx);
+  f16_pair<kClamp>(uy, ly, hy);
+  f16_pair<kClamp>(uz, lz, hz);
   float t1x = (lx - om[0]) * inv[0];
   float t2x = (hx - om[0]) * inv[0];
   float t1y = (ly - om[1]) * inv[1];
@@ -323,15 +335,11 @@ __device__ __forceinline__ bool child_eval(uint32_t ux, uint32_t uy,
                       nan_min1(t1z, t2z));
   float tf = nan_min1(nan_min1(nan_max1(t1x, t2x), nan_max1(t1y, t2y)),
                       nan_max1(t1z, t2z));
-  bool hit = (tf >= tn) && (tn < limit) && (tf > 0.0f);
+  bool hit = valid & (tf >= tn) & (tn < limit) & (tf > 0.0f);
   float dn = hit ? tn : kInf;
-  if (dn < m1) {
-    m2 = m1;
-    m1 = dn;
-    c_min = c;
-  } else {
-    m2 = fminf(m2, dn);
-  }
+  c_min = dn < m1 ? c : c_min;
+  m2 = fminf(m2, fmaxf(m1, dn));
+  m1 = fminf(m1, dn);
   return hit;
 }
 
@@ -340,10 +348,11 @@ __device__ __forceinline__ bool child_eval(uint32_t ux, uint32_t uy,
 // other hit children (megakernel.py wide_eval / slab_blocked). The child
 // boxes (x, y and z blocks of 32 words, 64 bytes into the 512-byte row)
 // are read four children at a time as 16-byte loads; the children are
-// still tested one by one in index order, and the four hits go into the
-// mask at once. A slot at or past k holds an inverted box of infinities,
-// which the slab test reads as a box around everything, a hit: it is not
-// tested. Returns the children tested.
+// tested one by one in index order, and the four hits go into the mask at
+// once. A slot at or past k holds an inverted box of infinities, which the
+// slab test reads as a box around everything, a hit: its hit is dropped.
+// Returns the children tested.
+template <bool kClamp>
 __device__ __forceinline__ int wide_eval(const float* row, const float om[3],
                                          const float inv[3], float limit,
                                          uint32_t& mask, int& c_min,
@@ -358,21 +367,19 @@ __device__ __forceinline__ int wide_eval(const float* row, const float om[3],
     float4 by = __ldg(box + kArity / 4 + g);
     float4 bz = __ldg(box + kArity / 2 + g);
     int c = 4 * g;
-    uint32_t bits = child_eval(__float_as_uint(bx.x), __float_as_uint(by.x),
-                               __float_as_uint(bz.x), c, om, inv, limit,
-                               c_min, m1, m2) ? 1u : 0u;
-    if (c + 1 < k && child_eval(__float_as_uint(bx.y), __float_as_uint(by.y),
-                                __float_as_uint(bz.y), c + 1, om, inv, limit,
-                                c_min, m1, m2))
-      bits |= 2u;
-    if (c + 2 < k && child_eval(__float_as_uint(bx.z), __float_as_uint(by.z),
-                                __float_as_uint(bz.z), c + 2, om, inv, limit,
-                                c_min, m1, m2))
-      bits |= 4u;
-    if (c + 3 < k && child_eval(__float_as_uint(bx.w), __float_as_uint(by.w),
-                                __float_as_uint(bz.w), c + 3, om, inv, limit,
-                                c_min, m1, m2))
-      bits |= 8u;
+    uint32_t bits =
+        child_eval<kClamp>(__float_as_uint(bx.x), __float_as_uint(by.x),
+                           __float_as_uint(bz.x), c, true, om, inv, limit,
+                           c_min, m1, m2) ? 1u : 0u;
+    bits |= child_eval<kClamp>(__float_as_uint(bx.y), __float_as_uint(by.y),
+                               __float_as_uint(bz.y), c + 1, c + 1 < k, om,
+                               inv, limit, c_min, m1, m2) ? 2u : 0u;
+    bits |= child_eval<kClamp>(__float_as_uint(bx.z), __float_as_uint(by.z),
+                               __float_as_uint(bz.z), c + 2, c + 2 < k, om,
+                               inv, limit, c_min, m1, m2) ? 4u : 0u;
+    bits |= child_eval<kClamp>(__float_as_uint(bx.w), __float_as_uint(by.w),
+                               __float_as_uint(bz.w), c + 3, c + 3 < k, om,
+                               inv, limit, c_min, m1, m2) ? 8u : 0u;
     mask |= bits << c;
   }
   dn2 = m2;
@@ -391,11 +398,11 @@ struct Hit {
 // With kSpheres the tree is the sphere BVH and the ray the world-space one:
 // a leaf holds 8 spheres (megakernel.py traversal_step :481-521), h.tri is
 // the winning sphere's id (kSphSent: none) and a sphere wins over the hit
-// so far in (distance, id) order.
-template <bool kSpheres>
-__device__ void traverse(const float* __restrict__ wide_rows, int root,
-                         const float om[3], const float dm[3], float limit,
-                         Hit& h, Visits& vis) {
+// so far in (distance, id) order. traverse<> picks the child-box loop.
+template <bool kSpheres, bool kClamp>
+__device__ void walk(const float* __restrict__ wide_rows, int root,
+                     const float om[3], const float dm[3], float limit,
+                     Hit& h, Visits& vis) {
   float inv[3] = {1.0f / dm[0], 1.0f / dm[1], 1.0f / dm[2]};
   uint32_t sb[kMaxStack], sm[kMaxStack];
   float sd[kMaxStack];
@@ -480,7 +487,7 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
       int c_min;
       float dn2;
       ++vis.rows;
-      vis.boxes += wide_eval(row, om, inv, h.dst, mask, c_min, dn2);
+      vis.boxes += wide_eval<kClamp>(row, om, inv, h.dst, mask, c_min, dn2);
       int base = (int)__ldg(row + kColBase);
       if (mask != 0u) {
         uint32_t rem = mask & ~(1u << c_min);
@@ -525,6 +532,22 @@ __device__ void traverse(const float* __restrict__ wide_rows, int root,
     }
     root_visit = false;
   }
+}
+
+// walk<> with the child-box loop that `finite` (Params::finite_boxes, the
+// same for the whole launch) allows: without the bound clamps where no
+// child bound is infinite. A walk of its own for each loop, rather than a
+// choice at every row: with the choice inside the row loop the sphere-BVH
+// forms measured 9% slower (PERF.md, section 6).
+template <bool kSpheres>
+__device__ __forceinline__ void traverse(const float* __restrict__ wide_rows,
+                                         int root, const float om[3],
+                                         const float dm[3], float limit,
+                                         bool finite, Hit& h, Visits& vis) {
+  if (finite)
+    walk<kSpheres, false>(wide_rows, root, om, dm, limit, h, vis);
+  else
+    walk<kSpheres, true>(wide_rows, root, om, dm, limit, h, vis);
 }
 
 // Schlick (ray_tracer.wgsl:208-212); (1 - cos)^5 as x4 * x, x4 = (x x)(x x)

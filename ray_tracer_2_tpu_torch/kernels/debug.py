@@ -30,7 +30,7 @@ from ray_tracer_2_tpu_torch.kernels.cuda_build import (
 )
 from ray_tracer_2_tpu_torch.kernels.megakernel import (
     BRUTE_STAGED, INST_COLS, PLAIN_CHUNK, SPHERE_COLS, _brute_ranges,
-    _require_eligible, kernel_tables,
+    _require_eligible, finite_boxes, kernel_tables,
 )
 from ray_tracer_2_tpu_torch.kernels.trace import debug_colors, debug_hit
 from ray_tracer_2_tpu_torch.scene.render_scene import TorchScene
@@ -97,18 +97,24 @@ def debug_brute_rows(scene: TorchScene, tab: dict) -> torch.Tensor:
 class CudaDebug(CudaKernel):
     """Wrapper of the CUDA kernel: builds ``csrc/debug.cu`` at first use,
     checks every tensor it hands over, launches on the current stream and
-    counts its launches in ``launches``. It reads the megakernel's tables
-    (``kernel_tables``) from global memory, its brute-force rows staged
-    (``debug_brute_rows``)."""
+    counts its launches in ``launches``, those whose child-box loop took no
+    bound clamps (``finite_boxes``) also in ``finite_launches``. It reads
+    the megakernel's tables (``kernel_tables``) from global memory, its
+    brute-force rows staged (``debug_brute_rows``)."""
 
     symbol = "rt2_render_debug"
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_float]
                 + [ctypes.c_void_p] * 3)
 
     def __init__(self, source: Path = PKG / "csrc" / "debug.cu"):
         super().__init__(source)
+        self.finite_launches = 0
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.finite_launches = 0
 
     def __call__(self, scene: TorchScene, *, width: int, height: int,
                  debug_mode: int, debug_scale: float, row_start: int = 0,
@@ -120,6 +126,7 @@ class CudaDebug(CudaKernel):
         rows = height if rows is None else rows
         tab = kernel_tables(scene)
         brute = debug_brute_rows(scene, tab)
+        finite = finite_boxes(scene)
         n_brute = sum(c for _, c in _brute_ranges(scene))
         texels = scene.tex_quads
         check_launch(dev, width=width, height=height, row_start=row_start,
@@ -154,12 +161,13 @@ class CudaDebug(CudaKernel):
             tab["scal"].data_ptr(), tab["inst"].data_ptr(), brute.data_ptr(),
             scene.n_spheres, scene.n_instances, n_brute, width, height,
             row_start, rows, tab["spheres_mode"], scene.sphere_bvh_root,
-            texels.data_ptr(), texels.shape[0], scene.tex_meta.data_ptr(),
-            int(debug_mode), float(np.float32(debug_scale)), out.data_ptr(),
+            int(finite), texels.data_ptr(), texels.shape[0],
+            scene.tex_meta.data_ptr(), int(debug_mode), float(np.float32(debug_scale)), out.data_ptr(),
             counts.data_ptr())
         if err != 0:
             raise RuntimeError(f"debug kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.finite_launches += finite
         return out, counts
 
 

@@ -1043,6 +1043,34 @@ def kernel_tables(scene: TorchScene, budget: int | None = None) -> dict:
             "instance": lambda t: _put_transforms(scene, t["inst"])})
 
 
+def finite_boxes(scene: TorchScene) -> bool:
+    """Whether every child bound of the scene's interior wide rows (the
+    rows whose ``COL_COUNT`` is 0, the sphere BVH's included) is finite:
+    no lo half of a child word is the f16 -inf (0xFC00) and no hi half the
+    f16 +inf (0x7C00). The packer (``accel/wide.py:_round_out_f16``) emits
+    those only for a bound past 65,504; an empty slot's lo of +inf and hi
+    of -inf do not count, and leaf rows, whose words hold float geometry,
+    are not read. Where it holds, the kernel's child-box loop converts each
+    bound without the clamps that make it read an infinity as -/+65536
+    (``csrc/trace.cuh`` ``traverse``), since they change no bound. Decided
+    on the scene's device and read once per scene (``scene.derive``), again
+    after a sphere edit of a scene with a sphere BVH, which rewrites that
+    tree's rows; no other write touches an interior row (a glass toggle
+    repacks the leaves' cull flags under the same boxes)."""
+    kinds = ("sphere",) if scene.sphere_bvh_root >= 0 else ()
+    return scene.derive("finite_boxes", lambda: _finite_boxes(scene),
+                        stale_on=kinds)
+
+
+def _finite_boxes(scene: TorchScene) -> bool:
+    rows = scene.wide_rows
+    words = rows[rows[:, COL_COUNT] == 0.0,
+                 COL_CHILD_AABB:COL_CHILD_AABB + N_AABB_COLS] \
+        .contiguous().view(torch.int32)
+    lo, hi = words & 0xFFFF, (words >> 16) & 0xFFFF
+    return not bool(((lo == 0xFC00) | (hi == 0x7C00)).any())
+
+
 def _kernel_tables(scene: TorchScene, budget: int | None) -> dict:
     dev = scene.device
     ranges = _brute_ranges(scene)
@@ -1082,20 +1110,22 @@ class CudaMegakernel(CudaKernel):
     estimation also in ``nee_launches`` (entry point
     ``rt2_render_persistent_nee``, or the textured one) and those of the
     textured forms (entry point ``rt2_render_persistent_tex``) also in
-    ``tex_launches``. The kernel itself counts its work on the device
+    ``tex_launches``, and those whose child-box loop took no bound clamps
+    (``finite_boxes``) also in ``finite_launches``. The kernel itself
+    counts its work on the device
     (``COUNTS``, read with ``read_counts``; the brute-force prepass's with
     ``prepass_counts``)."""
 
     symbol = "rt2_render_persistent"
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 17
                 + [ctypes.c_uint32] + [ctypes.c_void_p] * 4)
     nee_symbol = "rt2_render_persistent_nee"
-    nee_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+    nee_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
                     + [ctypes.c_uint32] + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
                     + [ctypes.c_void_p] * 4)
     tex_symbol = "rt2_render_persistent_tex"
-    tex_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    tex_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                     + [ctypes.c_uint32] + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -1106,6 +1136,7 @@ class CudaMegakernel(CudaKernel):
         super().__init__(source)
         self.nee_launches = 0
         self.tex_launches = 0
+        self.finite_launches = 0
         self._nee_fn = self._tex_fn = None
 
     def _load(self):
@@ -1124,6 +1155,7 @@ class CudaMegakernel(CudaKernel):
         super().reset_counts()
         self.nee_launches = 0
         self.tex_launches = 0
+        self.finite_launches = 0
 
     def prepass_counts(self) -> tuple[int, int]:
         """What the kernel counted of its brute-force prepass since the last
@@ -1146,6 +1178,7 @@ class CudaMegakernel(CudaKernel):
             _require_eligible(scene)
             rows = height if rows is None else rows
             tab = kernel_tables(scene)
+            finite = finite_boxes(scene)
             n_brute = sum(c for _, c in _brute_ranges(scene))
             check_launch(dev, width=width, height=height, row_start=row_start,
                          rows=rows, wide_rows=(scene.wide_rows, 128),
@@ -1202,7 +1235,7 @@ class CudaMegakernel(CudaKernel):
                     scene.n_instances,
                     n_brute, width, height, row_start, rows, bounces,
                     max(int(rays_per_pixel), 1), int(bool(skybox)),
-                    int(bool(antialias)))
+                    int(bool(antialias)), int(finite))
             tail = (out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
             form = (tab["spheres_mode"], int(tab["staged"]),
                     scene.sphere_bvh_root, frame_seed(frames))
@@ -1234,6 +1267,7 @@ class CudaMegakernel(CudaKernel):
             self.launches += 1
             self.nee_launches += bool(mode)
             self.tex_launches += tex
+            self.finite_launches += finite
         return out, scratch[0]
 
 

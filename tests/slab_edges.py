@@ -24,12 +24,13 @@ def _cube_soup(lo) -> np.ndarray:
     return c[np.array(tris)]
 
 
-VIEWS = ("planes", "minus_x", "plus_x")
+VIEWS = ("planes", "minus_x", "plus_x", "planes_finite")
 # the frame the tests render: odd, so the middle row and column are exact
 WIDTH, HEIGHT = 129, 73
 
 
-def slab_edges_scene(view: str = "planes") -> SceneDefinition:
+def slab_edges_scene(view: str = "planes",
+                     slivers=(-7e4, 7e4)) -> SceneDefinition:
     """Rays at the edges of the wide rows' child-box test. One mesh of 36
     unit cubes on the integer grid (x -3..3, y 0..2, z 3..6: 432
     triangles, a wide BVH) and two slivers that reach x = -70,000 and
@@ -41,9 +42,13 @@ def slab_edges_scene(view: str = "planes") -> SceneDefinition:
     many child boxes (0 * inf); ``minus_x`` / ``plus_x``, the camera
     100,000 out on the x axis looking at the origin through its sphere
     (entered 4,000 away), so the sliver's box, entered at the plane its
-    infinite bound is read as (34,464 away), must be pruned there."""
+    infinite bound is read as (34,464 away), must be pruned there;
+    ``planes_finite``, the planes view without the slivers, so every child
+    bound is finite and the kernel takes its loop without bound clamps.
+    ``slivers`` gives the x at which each sliver ends (its sign, which
+    side)."""
     s = SceneDefinition()
-    if view == "planes":
+    if view.startswith("planes"):
         s.set_camera(CameraDescriptor(transform=Transform(pos=[0.0, 1.0, 0.0]),
                                       fov=70.0))
     else:
@@ -53,11 +58,13 @@ def slab_edges_scene(view: str = "planes") -> SceneDefinition:
             fov=70.0))
     cubes = [_cube_soup((x, y, z)) for x in range(-3, 3) for y in (0, 1)
              for z in range(3, 6)]
-    slivers = np.array([[[-7e4, 0.25, -5.5], [-7e4, 0.75, -5.0],
-                         [-1.0, 0.5, -5.25]],
-                        [[7e4, 0.25, -5.5], [1.0, 0.5, -5.25],
-                         [7e4, 0.75, -5.0]]], np.float32)
-    soup = np.concatenate(cubes + [slivers]).reshape(-1, 3)
+    if view == "planes_finite":
+        slivers = ()
+    tris = [[[x, 0.25, -5.5], [x, 0.75, -5.0], [-1.0, 0.5, -5.25]]
+            if x < 0 else [[x, 0.25, -5.5], [1.0, 0.5, -5.25],
+                           [x, 0.75, -5.0]] for x in slivers]
+    soup = np.concatenate(cubes + [np.array(tris, np.float32)
+                                   .reshape(-1, 3, 3)]).reshape(-1, 3)
     s.add_mesh(Transform(), MeshFromData(MeshData.from_vertices(
         soup, np.tile(np.float32([0.0, 1.0, 0.0]), (len(soup), 1)))),
         MaterialDefinition.new().with_color([0.7, 0.6, 0.5, 1.0]))
@@ -68,9 +75,9 @@ def slab_edges_scene(view: str = "planes") -> SceneDefinition:
     return s
 
 
-def instantiated(view: str):
-    """``slab_edges_scene(view)`` instantiated on the CPU; the packer's cast
-    of the slivers' bounds to f16 overflows to infinity, as it should, and
-    its warning is silenced."""
+def instantiated(view: str, **kw):
+    """``slab_edges_scene(view, **kw)`` instantiated on the CPU; the
+    packer's cast of the slivers' bounds to f16 overflows to infinity, as
+    it should, and its warning is silenced."""
     with np.errstate(over="ignore"):
-        return instantiate_scene(slab_edges_scene(view))
+        return instantiate_scene(slab_edges_scene(view, **kw))

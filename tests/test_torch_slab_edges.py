@@ -16,16 +16,20 @@ hi of +inf. ``slab_edges.slab_edges_scene`` is the scene the card test
 (``tests/test_torch_cuda.py``) renders at these edges; here, what its
 tables and camera rays hold.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from ray_tracer_2_tpu_torch.accel.wide import (
-    COL_CHILD_AABB, COL_COUNT, COL_K, MAX_ARITY, ROW_WIDTH, _pack_f16_pairs,
-    _round_out_f16,
+    COL_CHILD_AABB, COL_COUNT, COL_K, COL_LEAF_GEO, MAX_ARITY, ROW_WIDTH,
+    _pack_f16_pairs, _round_out_f16,
 )
 from ray_tracer_2_tpu_torch.kernels import megakernel
 from ray_tracer_2_tpu_torch.kernels.intersect import INF
+from ray_tracer_2_tpu_torch.scene import scenes
+from ray_tracer_2_tpu_torch.scene.render_scene import instantiate_scene
 from slab_edges import HEIGHT as H, VIEWS, WIDTH as W, instantiated
 
 F32 = np.float32
@@ -68,37 +72,48 @@ def _plain(row, o, d, limit):
     return int(mask[0]), int(c_min[0]), float(dn2[0])
 
 
-def _kernel_model(row, o, d, limit, tested=None):
+def _kernel_model(row, o, d, limit, valid=None, clamp=True):
     """The CUDA slab test's instructions in float32, child by child:
-    ``cvt.f32.f16`` of each bound, lo clamped by ``fmaxf(., -65536)`` and
-    hi by ``fminf(., 65536)``, ``(b - o) * inv``, ``min.NaN`` / ``max.NaN``
-    (numpy's minimum / maximum), the hit, the nearest child (strict ``<``)
-    and the second-least entry (``fminf``: numpy's fmin). ``tested``: how
-    many children are tested (default the row's k)."""
+    ``cvt.f32.f16`` of each bound, with ``clamp`` (the loop of a scene whose
+    bounds are not all finite) lo clamped by ``fmaxf(., -65536)`` and hi by
+    ``fminf(., 65536)``, ``(b - o) * inv``, ``min.NaN`` / ``max.NaN``
+    (numpy's minimum / maximum), the hit, dropped for a child from
+    ``valid`` on (default the row's k), the nearest child (strict ``<``)
+    and the second-least entry as ``fminf(m2, fmaxf(m1, dn))`` (numpy's
+    fmin and fmax). Every child of the groups of four that hold the first
+    k is tested, as the kernel tests them."""
     o, inv = np.asarray(o, np.float32), _inv(d)
     limit = F32(limit)
-    k = min(int(row[COL_K]), MAX_ARITY) if tested is None else tested
+    k = min(int(row[COL_K]), MAX_ARITY)
+    valid = k if valid is None else valid
     u = row[COL_CHILD_AABB:COL_CHILD_AABB + 3 * MAX_ARITY].view(np.uint32)
     lo = (u & 0xFFFF).astype(np.uint16).view(np.float16).astype(np.float32)
     hi = (u >> 16).astype(np.uint16).view(np.float16).astype(np.float32)
-    lo, hi = np.fmax(lo, F32(-BIG)), np.fmin(hi, F32(BIG))
+    if clamp:
+        lo, hi = np.fmax(lo, F32(-BIG)), np.fmin(hi, F32(BIG))
     mask, c_min, m1, m2 = 0, 0, F32(INF), F32(INF)
     with np.errstate(invalid="ignore"):
-        for c in range(k):
+        for c in range(-(-k // 4) * 4):
             t1 = [(lo[MAX_ARITY * a + c] - o[a]) * inv[a] for a in range(3)]
             t2 = [(hi[MAX_ARITY * a + c] - o[a]) * inv[a] for a in range(3)]
             mn = [np.minimum(p, q) for p, q in zip(t1, t2)]
             mx = [np.maximum(p, q) for p, q in zip(t1, t2)]
             tn = np.maximum(np.maximum(mn[0], mn[1]), mn[2])
             tf = np.minimum(np.minimum(mx[0], mx[1]), mx[2])
-            hit = bool(tf >= tn) and bool(tn < limit) and bool(tf > 0)
+            hit = c < valid and bool(tf >= tn) and bool(tn < limit) \
+                and bool(tf > 0)
             dn = tn if hit else F32(INF)
-            if dn < m1:
-                m2, m1, c_min = m1, dn, c
-            else:
-                m2 = np.fmin(m2, dn)
+            c_min = c if dn < m1 else c_min
+            m2 = np.fmin(m2, np.fmax(m1, dn))
+            m1 = np.fmin(m1, dn)
             mask |= int(hit) << c
     return mask, c_min, float(m2)
+
+
+def _finite(rows) -> bool:
+    """``megakernel.finite_boxes``' decision over wide rows (n, 128)."""
+    return megakernel._finite_boxes(
+        SimpleNamespace(wide_rows=torch.from_numpy(np.atleast_2d(rows))))
 
 
 UNIT = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
@@ -190,29 +205,37 @@ CASES = {
 @pytest.mark.parametrize("name", list(CASES))
 def test_slab_edge(name):
     """The plain version gives the pinned (mask, nearest child, second-least
-    entry), and the model of the kernel's instructions gives the same."""
+    entry), and the model of the kernel's instructions gives the same; so
+    does its loop without clamps wherever ``finite_boxes`` lets the kernel
+    take it (every case but those of an infinite bound)."""
     boxes, k, o, d, limit, want = CASES[name]
     row = _row(boxes, k)
     got = _plain(row, o, d, limit)
     assert got == want
     assert _kernel_model(row, o, d, limit) == got
+    assert _finite(row) == ("_inf_" not in name)
+    if _finite(row):
+        assert _kernel_model(row, o, d, limit, clamp=False) == got
 
 
 def test_untested_empty_slot_would_hit():
-    """Why the kernel tests no child from k on: the packer's empty slot, an
-    inverted box of infinities, reads as a box around everything."""
+    """Why the kernel drops the hit of a child from k on: the packer's empty
+    slot, an inverted box of infinities, reads as a box around
+    everything, with the clamps or without."""
     row = _row([UNIT], 1)
     o, d = (0.0, 0.0, -5.0), (0.0, 0.0, 1.0)
-    assert _kernel_model(row, o, d, INF) == (1, 0, INF32)
-    mask, _, _ = _kernel_model(row, o, d, INF, tested=MAX_ARITY)
-    assert mask == (1 << MAX_ARITY) - 1
+    for clamp in (True, False):
+        assert _kernel_model(row, o, d, INF, clamp=clamp) == (1, 0, INF32)
+        mask, _, _ = _kernel_model(row, o, d, INF, valid=MAX_ARITY,
+                                   clamp=clamp)
+        assert mask == (1 << 4) - 1
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_model_matches_plain_on_random_rows(seed):
     """Rows of random f16 boxes (k 1-32) under random rays, a third of
     them with a zero direction component and their origin on a box's
-    plane."""
+    plane; finite rows, so the loop without clamps holds too."""
     rng = np.random.default_rng(seed)
     for _ in range(64):
         n = int(rng.integers(1, MAX_ARITY + 1))
@@ -227,7 +250,10 @@ def test_model_matches_plain_on_random_rows(seed):
             d[ax] = 0.0
             o[ax] = boxes[c][side][ax]
         limit = float(rng.choice([INF, abs(rng.normal(0.0, 10.0))]))
-        assert _kernel_model(row, o, d, limit) == _plain(row, o, d, limit)
+        want = _plain(row, o, d, limit)
+        assert _finite(row)
+        for clamp in (True, False):
+            assert _kernel_model(row, o, d, limit, clamp=clamp) == want
 
 
 @pytest.mark.parametrize("role", ["lo", "hi"])
@@ -314,17 +340,17 @@ def test_edge_scene_tables_hold_the_edges(edge_scenes):
 
 @pytest.mark.parametrize("view", VIEWS)
 def test_edge_scene_camera_rays(edge_scenes, view):
-    """planes: the middle row's rays leave y = 1 with y exactly 0, the
-    middle column's leave x = 0 with x exactly 0; the far views: the middle
-    ray runs exactly along x from 100,000 out, inside the slivers' y and z
-    extent, so it meets the infinite bound's plane."""
+    """planes and planes_finite: the middle row's rays leave y = 1 with y
+    exactly 0, the middle column's leave x = 0 with x exactly 0; the far
+    views: the middle ray runs exactly along x from 100,000 out, inside the
+    slivers' y and z extent, so it meets the infinite bound's plane."""
     t = megakernel._Tables(edge_scenes[view], W, H, 0, False)
     seed = torch.zeros(W + H, dtype=torch.int64)
     x = torch.cat([torch.arange(W), torch.full((H,), W // 2)])
     y = torch.cat([torch.full((W,), H // 2), torch.arange(H)])
     o, d, _ = megakernel._camera_ray(t, x, y, seed, False)
     row, col = slice(0, W), slice(W, W + H)
-    if view == "planes":
+    if view.startswith("planes"):
         assert bool((d[row, 1] == 0).all()) and bool((o[row, 1] == 1).all())
         assert bool((d[col, 0] == 0).all()) and bool((o[col, 0] == 0).all())
     else:
@@ -335,7 +361,7 @@ def test_edge_scene_camera_rays(edge_scenes, view):
 
 
 def test_edge_scene_renders_on_the_cpu(edge_scenes):
-    """The plain version walks the planes view's tree (leaves visited) and
+    """The plain version walks the planes views' tree (leaves visited) and
     the far views' roots, finite everywhere."""
     for view, scene in edge_scenes.items():
         c = {}
@@ -343,4 +369,69 @@ def test_edge_scene_renders_on_the_cpu(edge_scenes):
             scene, 1, width=33, height=19, bounces=1, rays_per_pixel=1,
             skybox=True, counts=c)
         assert bool(torch.isfinite(img).all()) and int(segs) > 0
-        assert (c["leaves"] > 0) == (view == "planes")
+        assert (c["leaves"] > 0) == view.startswith("planes")
+
+
+def _leaf_with_inf_patterns() -> np.ndarray:
+    """A leaf row whose geometry words hold the f16 -inf in their low half
+    and +inf in their high half, as no interior row of a finite scene
+    may."""
+    r = np.zeros(ROW_WIDTH, np.float32)
+    r[COL_COUNT] = 8.0
+    r.view(np.uint32)[COL_LEAF_GEO:COL_LEAF_GEO + 96] = 0x7C00FC00
+    return r
+
+
+def _as_interior(row: np.ndarray) -> np.ndarray:
+    row[COL_COUNT] = 0.0
+    return row
+
+
+def _scene(build, **kw):
+    return lambda: instantiate_scene(getattr(scenes, build)(), **kw)
+
+
+def _rows(make):
+    return lambda: SimpleNamespace(wide_rows=torch.from_numpy(make()))
+
+
+# name -> (what finite_boxes looks at, what it decides)
+FINITE_CASES = {
+    "sponza": (_scene("sponza"), True),
+    "room": (_scene("room"), True),
+    "random_balls_sphere_bvh": (_scene("random_balls", sphere_bvh=True),
+                                True),
+    "wide_bvh_scene": (_scene("wide_bvh_scene"), True),
+    "planes_finite": (lambda: instantiated("planes_finite"), True),
+    "bound_past_plus_65504": (lambda: instantiated("planes",
+                                                   slivers=(7e4,)), False),
+    "bound_past_minus_65504": (lambda: instantiated("planes",
+                                                    slivers=(-7e4,)), False),
+    "empty_slots_only": (_rows(lambda: _row([UNIT], 1)[None]), True),
+    "leaf_geometry_inf_patterns": (_rows(lambda: np.stack(
+        [_row([UNIT] * 3), _leaf_with_inf_patterns()])), True),
+    "interior_inf_patterns": (_rows(lambda: np.stack(
+        [_row([UNIT] * 3), _as_interior(_leaf_with_inf_patterns())])),
+        False),
+}
+
+
+@pytest.mark.parametrize("case", list(FINITE_CASES))
+def test_finite_boxes(case):
+    """Whether a scene's child bounds are all finite, so that the kernel may
+    take its child-box loop without clamps: true on the scenes the kernel
+    renders (the sphere BVH's world-space boxes included), false where one
+    child bound lies past +65,504 or past -65,504 (the packer's f16 +inf
+    or -inf), true where the only infinities are the empty slots' (lo +inf,
+    hi -inf) and where only a leaf row's geometry words hold those bit
+    patterns; the same words in an interior row clear it."""
+    make, want = FINITE_CASES[case]
+    scene = make()
+    rows = scene.wide_rows.numpy()
+    words = rows[rows[:, COL_COUNT] == 0.0,
+                 COL_CHILD_AABB:COL_CHILD_AABB + 96].view(np.uint32)
+    assert ((words & 0xFFFF) == 0x7C00).any()   # empty slots in every case
+    if isinstance(scene, SimpleNamespace):
+        assert megakernel._finite_boxes(scene) is want
+    else:
+        assert megakernel.finite_boxes(scene) is want
