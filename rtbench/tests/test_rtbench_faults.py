@@ -46,7 +46,8 @@ def test_half_the_rows_left_out(planted):
     assert not run("sponza268k.still", planted("half_rows"))["correct"]
 
 
-@pytest.mark.parametrize("cell", ["sponza268k.still", "sponza268k.orbit"])
+@pytest.mark.parametrize("cell", ["sponza268k.still",
+                                  "sponza268k.orbit1440"])
 def test_answer_altered(planted, cell):
     assert not run(cell, planted("altered"))["correct"]
 

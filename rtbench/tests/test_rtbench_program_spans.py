@@ -12,6 +12,9 @@ from rtbench import manifest
 NEW = ("engine.settle_wait_ms", "engine.camera_ms", "engine.relaunch_ms",
        "device.interframe_gap_ms", "megakernel.lane_occupancy",
        "megakernel.rows_per_segment")
+#: every reader of the program's record: the six and the host's own work
+#: a frame
+READERS = NEW + ("engine.host_work_ms",)
 US = 1000   # ns
 
 
@@ -35,17 +38,22 @@ def made_up() -> dict:
         ("engine.settle", 7, 1, 1300 * US, 1520 * US),
         ("engine.settle.wait", 12, 1, 1310 * US, 1510 * US),
     ]
-    totals = {}
-    for name, _, _, a, b in rows:
-        t = totals.setdefault(name, dict(n=0, ms=0.0, self_ms=0.0))
-        t["n"] += 1
-        t["ms"] += (b - a) / 1e6
-    return dict(session=1, spans=rows, frames=2, totals=totals,
+    return dict(session=1, spans=rows, frames=2, totals=totals(rows),
                 counters={"device.interframe_gap_ms": 0.9,
                           "device.interframe_gaps": 3},
                 launches={"megakernel": 2},
                 counts={"megakernel": dict(rows=4500, turns=100,
                                            active_lanes=2400)})
+
+
+def totals(rows) -> dict:
+    """The record's ``totals`` of its span rows (``self_ms`` left 0)."""
+    out = {}
+    for name, _, _, a, b in rows:
+        t = out.setdefault(name, dict(n=0, ms=0.0, self_ms=0.0))
+        t["n"] += 1
+        t["ms"] += (b - a) / 1e6
+    return out
 
 
 def empty() -> dict:
@@ -101,12 +109,41 @@ def test_relaunch_pairs_each_wait_with_the_next_frames_record(monkeypatch):
         pytest.approx((0.84 + 0.95) / 2)
 
 
-@pytest.mark.parametrize("name", NEW)
+def test_host_work_is_the_update_less_its_waits(monkeypatch):
+    """The made-up record's two updates, 1000 and 800 us, each less its
+    wait, 400 and 200 us; then an update with no frame before it to wait
+    for, and one with two frames in flight, whose both waits count."""
+    assert read("engine.host_work_ms", made_up(), monkeypatch) == \
+        pytest.approx(0.6)
+    rec = frames(
+        [("engine.event", 400, 450)],
+        [("engine.settle.wait", 500, 1500)],
+        [("engine.settle.wait", 400, 900), ("engine.settle.wait", 900, 1700)],
+    )
+    rec["totals"] = totals(rec["spans"])
+    assert read("engine.host_work_ms", rec, monkeypatch) == \
+        pytest.approx((2.0 + 1.0 + 0.7) / 3)
+
+
+def test_host_work_is_in_the_manifest_for_every_cell():
+    """It reads the frame loop, which every path runs: no list of cells,
+    and every cell that reports ``frame_ms_p95`` reports it."""
+    man = manifest.load()
+    m = {x["name"]: x for x in man["per_layer"]}["engine.host_work_ms"]
+    assert m["source"] == "program_span" and "workloads" not in m
+    assert m["moves"] == "frame_ms_p95" and m["unit"] == "ms"
+    assert m["layer"] == {x["name"]: x for x in man["per_layer"]}[
+        "engine.camera_ms"]["layer"]
+    for w in man["workloads"]:
+        assert m in manifest.per_layer(man, w["name"])
+
+
+@pytest.mark.parametrize("name", READERS)
 def test_readers_read_none_on_an_empty_record(name, monkeypatch):
     assert read(name, empty(), monkeypatch) is None
 
 
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", READERS)
 def test_readers_read_none_without_the_programs_spans(name, monkeypatch):
     """A tree whose program has no spans of its own (the import fails)."""
     import ray_tracer_2_tpu_torch
@@ -130,7 +167,7 @@ def test_the_six_are_in_the_manifest():
         assert got[name]["source"] in ("program_span", "program_counter")
         if name.startswith("megakernel."):
             listed = got[name]["workloads"]
-            assert {"sponza268k.still", "sponza268k.orbit"} <= set(listed)
+            assert {"sponza268k.still", "sponza268k.orbit1440"} <= set(listed)
             assert set(listed) <= cells
             assert listed == got["megakernel_roofline"]["workloads"] == \
                 got["megakernel.ns_per_segment"]["workloads"]
@@ -259,7 +296,8 @@ def test_relaunches_longer_than_the_cards_frame_are_the_frames_not_queued(
     from rtbench import harness
     from rtbench.program_spans import last_session
 
-    out, run = harness.run_cell("sponza268k.orbit", 2 ** 31 + 41, 5.0, True)
+    out, run = harness.run_cell("sponza268k.orbit1440", 2 ** 31 + 41, 5.0,
+                                True)
     frames = relaunch_against_card(run["events"])
     share = 100.0 * sum(r > left for r, left in frames) / len(frames)
     not_queued = 100.0 - out["metrics"]["engine.queued_pct"]["value"]

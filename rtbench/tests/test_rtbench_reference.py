@@ -29,7 +29,8 @@ def test_still_accumulation_matches():
 
 
 def test_orbit_camera_is_replayed_from_the_deltas():
-    run, inputs = record("sponza268k.orbit", 11, size=(64, 36), seconds=1.0)
+    run, inputs = record("sponza268k.orbit1440", 11, size=(64, 36),
+                         seconds=1.0)
     ref = compare.reference_outputs(inputs, run, "cpu")
     assert len(run["deltas"]) == run["n_frames"] >= 6
     found = compare.numbers(run["values"], ref["values"],

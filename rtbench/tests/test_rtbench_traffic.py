@@ -6,7 +6,7 @@ from rtbench import traffic
 
 
 def deltas(seed, n=64):
-    mouse = traffic.Mouse(traffic.load("orbit")["mouse"], seed)
+    mouse = traffic.Mouse(traffic.load("orbit1440")["mouse"], seed)
     return [mouse.next() for _ in range(n)]
 
 
@@ -16,7 +16,7 @@ def test_same_seed_same_deltas():
 
 
 def test_every_seed_sends_the_same_set_of_turns():
-    mix = traffic.load("orbit")["mouse"]
+    mix = traffic.load("orbit1440")["mouse"]
     n = mix["block"]
     for seed in (0, 99, 2 ** 33 + 1):
         d = np.asarray(deltas(seed, 4 * n))
@@ -36,6 +36,10 @@ def test_still_sends_nothing():
 def test_params_are_the_defaults_the_size_and_the_mixs_own():
     assert traffic.params(traffic.load("still")) == dict(width=1920,
                                                          height=1080)
+    assert traffic.params(traffic.load("orbit1440")) == dict(width=2560,
+                                                             height=1440)
+    assert traffic.params(traffic.load("orbit1440"), (64, 36)) == \
+        dict(width=64, height=36)
     mix = dict(params=dict(bounces=2, skybox=False))
     assert traffic.params(mix, (16, 9)) == dict(width=16, height=9,
                                                 bounces=2, skybox=False)
